@@ -1,14 +1,20 @@
 """Typed configuration of the PyTorch port.
 
-Mirrors the serving-relevant sections of ``audio_to_midi_tpu.config``
-(``model``, ``data``, ``precision``, ``infer``) with dtypes kept as the
-strings ``"f32"``/``"bf16"``/``"f16"``.  :func:`config_from_json` reads the
-JSON that the JAX package's ``config_to_json`` writes; the sections the port
-does not use yet (``train``, ``transforms``) are ignored.
+Mirrors the sections of ``audio_to_midi_tpu.config`` that the port uses
+(``model``, ``data``, ``precision``, ``train``, ``infer``) with dtypes kept
+as the strings ``"f32"``/``"bf16"``/``"f16"``.  :func:`config_from_json`
+reads the JSON that the JAX package's ``config_to_json`` writes; the section
+the port does not use yet (``transforms``) is ignored.
 
 Scheduling knobs that only mean something to XLA on a TPU
-(``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``, ``cnn_impl``,
-``cnn_bwd_kernel``) are kept as no-op fields so that configs round-trip.
+(``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``,
+``fused_flat_optimizer``) are kept as no-op fields so that configs
+round-trip, and so are the training fields whose modules are not ported yet
+(``input_ring_*``, ``augment_on_device``, ``model_parallel_size``,
+``use_custom_init``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select no code
+either, but they decide whether a training step on the card would need the
+ConvNeXt stage-backward kernel, which is not ported: see
+``models/convnext.stage_bwd_kernel_wanted``.
 """
 
 from __future__ import annotations
@@ -74,7 +80,8 @@ class ModelConfig:
     attention_impl: str = "pallas"
 
     # No-op here: XLA scheduling knobs of the JAX package, kept so that
-    # configs round-trip.
+    # configs round-trip (autograd saves every block's activations; at
+    # minibatch 32 they fit the card many times over).
     cnn_remat: bool = True
     transformer_remat: bool = False
     transformer_scan_unroll: int = 8
@@ -113,6 +120,45 @@ class PrecisionConfig:
     param_dtype: str = "f32"
     compute_dtype: str = "bf16"
 
+    @property
+    def needs_loss_scaling(self) -> bool:
+        return self.compute_dtype == "f16"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The JAX package's ``TrainConfig``, field for field."""
+
+    batch_size: int = 64
+    minibatch_size_per_device: int = 32     # gradient-accumulation minibatch
+    num_steps: int = 200_000
+    warmup_steps: int = 1000
+    base_learning_rate: float = 1e-4
+    layer_lr_decay: float = 0.7             # CNN layer-wise LR decay
+    weight_decay: float = 0.005
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-3                  # the reference's value, intentional
+    global_norm_clip: float = 1.0
+    ensemble_size: int = 1                  # > 1 is not ported yet
+    model_parallel_size: int = 1            # kept; parallel/ is not ported yet
+    checkpoint_every: int = 20
+    checkpoints_to_keep: int = 3
+    testset_loss_every: int = 20
+    print_every: int = 10
+    dataset_num_workers: int = 3
+    recovery_snapshot_every: int = 100
+    loss_scale_increase_threshold: float = 10_000.0
+    seed: int = 1234
+    # No-op for good: a TPU launch-count knob.  The port's optimizer updates
+    # every parameter with a few multi-tensor (torch._foreach_*) calls.
+    fused_flat_optimizer: bool = False
+    use_custom_init: bool = False           # kept; init surgery is not ported yet
+    augment_on_device: bool = True          # kept; the augmentations are not ported yet
+    input_ring_capacity: int = 1024         # kept; the input ring is not ported yet
+    input_ring_refresh_period: int = 1
+    input_ring_reuse_warn_factor: float = 64.0
+
 
 @dataclass(frozen=True)
 class InferConfig:
@@ -125,6 +171,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
 
 
@@ -134,6 +181,7 @@ _SECTIONS = {
     "model": ModelConfig,
     "data": DataConfig,
     "precision": PrecisionConfig,
+    "train": TrainConfig,
     "infer": InferConfig,
 }
 

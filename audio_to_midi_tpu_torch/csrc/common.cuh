@@ -32,4 +32,11 @@ __device__ __forceinline__ float scaled_in_dtype(T x, float scale) {
   return to_float(from_float<T>(to_float(x) * scale));
 }
 
+// x rounded to T and widened again: where the TPU kernels cast an fp32
+// intermediate to the working dtype before a product.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
 }  // namespace a2m

@@ -1,7 +1,8 @@
 """Compressed-KV (MLA-style) self-attention and sliding-window local attention.
 
-Counterpart of ``audio_to_midi_tpu/models/attention.py`` for serving
-(dropout is never enabled there and is not ported):
+Counterpart of ``audio_to_midi_tpu/models/attention.py`` without dropout
+(serving, and training at ``transformer_dropout_rate=0.0``; a rate above 0
+is refused in ``models/model.forward`` until its kernels are ported):
   * ``self_attention``: q_up D->H*hd, shared kv_down D->ckv with k_up/v_up
     ckv->H*hd, RoPE on q and k, attention core, bias-free out-proj;
   * ``local_self_attention``: symmetric pad so stride-8 windows of 16 cover
@@ -14,7 +15,9 @@ Counterpart of ``audio_to_midi_tpu/models/attention.py`` for serving
 The attention cores run through ``ops/attention_kernels``: with
 ``attention_impl="pallas"`` through the kernel wrappers, with ``"xla"``
 through their plain versions.  The routing between the two-phase kernel and
-the flattened-window route (``padded % 16``) mirrors the JAX package.
+the flattened-window route (``padded % 16``) mirrors the JAX package.  The
+kernel wrappers are differentiable (their backward is a kernel too); the
+plain versions are differentiated by ordinary autograd.
 """
 
 from __future__ import annotations

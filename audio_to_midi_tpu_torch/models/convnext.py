@@ -8,7 +8,14 @@ stages computes the same function and is not carried over):
     matmul;
   * block: depthwise k=7 SAME -> LayerNorm -> 1x1 up -> GELU -> 1x1 down ->
     layer-scale gamma -> + residual.
-Stochastic depth is inert at serving and is not ported.
+Stochastic depth is inert in the reference's configuration
+(``enable_cnn_stochastic_depth=False``) and is not ported.
+
+Training differentiates the blocks through ordinary autograd, the
+counterpart of the JAX package's scanned backward (``cnn_bwd_kernel=False``).
+Its fused stage-backward kernel (``ops/pallas_convnext_bwd.py``) is not
+ported yet; :func:`cnn_forward` refuses to train on the card a configuration
+that asks for it.
 """
 
 from __future__ import annotations
@@ -103,11 +110,38 @@ def block(x: torch.Tensor, p: Block) -> torch.Tensor:
     return p.gamma.to(out.dtype) * out + x
 
 
-def cnn_forward(x: torch.Tensor, cnn: CNN) -> torch.Tensor:
-    """Full encoder.  x: (B, L_samples, 2) -> (B, frames, dims[-1])."""
+def stage_bwd_kernel_wanted(cfg: ModelConfig, stage: int, dtype: torch.dtype) -> bool:
+    """Whether the JAX package would differentiate this stage's blocks with
+    its fused stage-backward kernel: the gate of its ``cnn_forward`` with
+    ``bwd_stage_supported`` (lane-aligned channels and hidden width, weight
+    gradients that fit its fast memory, a dtype its compiler takes)."""
+    c, hidden = cfg.dims[stage], cfg.cnn_hidden_dims[stage]
+    return (
+        cfg.cnn_bwd_kernel
+        and cfg.cnn_impl in ("pallas", "pallas_stage")
+        and c % 128 == 0
+        and hidden % 128 == 0
+        and c * hidden <= 128 * 1024
+        and dtype != torch.float16
+    )
+
+
+def cnn_forward(x: torch.Tensor, cnn: CNN, cfg: ModelConfig | None = None) -> torch.Tensor:
+    """Full encoder.  x: (B, L_samples, 2) -> (B, frames, dims[-1]).
+
+    With ``cfg``, a stage that autograd would have to differentiate on the
+    card although the configuration asks for the stage-backward kernel
+    raises ``NotImplementedError``: no kernel is skipped silently.  Serving
+    (no gradient) and the CPU are unaffected."""
     h = x
     for i, stage in enumerate(cnn.stages):
         h = stem(h, stage.down) if i == 0 else downsample(h, stage.down)
+        if (cfg is not None and h.is_cuda and h.requires_grad
+                and stage_bwd_kernel_wanted(cfg, i, h.dtype)):
+            raise NotImplementedError(
+                f"cnn_bwd_kernel=True asks for the ConvNeXt stage-backward kernel in stage "
+                f"{i} (TPU kernel 20, ops/pallas_convnext_bwd.py), which arrives with slice "
+                f"2c of the port; train with cnn_bwd_kernel=False until then")
         for blk in stage.blocks:
             h = block(h, blk)
     return a2m_nn.layer_norm(h, cnn.final_norm.scale, cnn.final_norm.bias)

@@ -118,12 +118,14 @@ def depthwise_conv1d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> 
 def layer_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """LayerNorm over the trailing axis, computed in float32, cast back."""
+    """LayerNorm over the trailing axis, computed in float32, cast back.
+    Like every parameter, scale and bias are cast to x's dtype at use (the
+    JAX package casts the whole tree to the compute dtype before a step)."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * scale + bias
+    y = y * scale.to(x.dtype) + bias.to(x.dtype)
     return y.to(x.dtype)
 
 

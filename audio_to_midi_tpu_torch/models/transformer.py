@@ -3,7 +3,7 @@ attention, and the stack as a loop over pairs.
 
 Counterpart of ``audio_to_midi_tpu/models/transformer.py`` (its scan over
 stacked weights becomes an ``nn.ModuleList`` walked in Python; its fused
-pair and sublayer kernels are not ported).
+pair and sublayer kernels and its FFN dropout are not ported yet).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
-first use, from the package's own sources, into ``build/torch_kernels/``
-beside the package; the library's file name carries a hash of the sources
-and flags, so an edited source builds anew.  Nothing here runs at import.
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one compiler
+process per source and all at once, and link into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use, from
+the package's own sources, into ``build/torch_kernels/`` beside the package;
+the library's file name carries a hash of the sources and flags, so an
+edited source builds anew.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 )
 
@@ -51,20 +52,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet.  The
-    compiler's output goes to a ``.log`` beside the library."""
+    compilers' output goes to a ``.log`` beside the library."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    target.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compiles = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            compiles.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = None
+        for cmd, _, proc in compiles:  # wait for every compiler, also after a failure
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{out[-4000:]}"
+        if failed is None:
+            lib = Path(tmp) / "lib.so"
+            cmd = [nvcc, "-shared", "-o", str(lib), *[str(obj) for _, obj, _ in compiles]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = f"nvcc failed to link ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        target.with_suffix(".log").write_text("\n".join(log))
+        if failed is not None:
+            raise RuntimeError(failed)
+        os.replace(lib, target)  # atomic: a concurrent build sees all or nothing
     return target
 
 
@@ -77,6 +95,10 @@ def library() -> ctypes.CDLL:
     lib.a2m_global_attention.restype = i32
     lib.a2m_local_two_phase.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
     lib.a2m_local_two_phase.restype = i32
+    lib.a2m_global_attention_grads.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr]
+    lib.a2m_global_attention_grads.restype = i32
+    lib.a2m_local_two_phase_grads.argtypes = [ptr] * 11 + [i32] * 4 + [f32, i32, ptr]
+    lib.a2m_local_two_phase_grads.restype = i32
     lib.a2m_error_string.argtypes = [i32]
     lib.a2m_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,95 @@
+"""The training step: gradient accumulation over minibatches, mixed precision
+with loss scaling, and the non-finite guard.
+
+Counterpart of ``audio_to_midi_tpu/train/step.py`` for one member on one
+device.  Reference semantics: a loop over minibatches accumulates f32
+gradients from a backward pass in the compute dtype; the gradients are
+unscaled by ``grad_scale * num_minibatches``, checked for finiteness, and
+applied with the layer-wise AdamW chain.  The loss returned is the unscaled
+mean.
+
+Differences from the JAX step, which is one jitted pure function:
+  * the model's parameters, their ``.grad`` buffers and the optimizer's
+    moments are updated in place -- buffer reuse takes the place of donation;
+  * the guard reads ``grads_valid`` on the host (one synchronisation per
+    step, after the last backward) and skips the optimizer altogether on an
+    invalid step, which leaves parameters, moments and count as they were;
+  * activations are saved by autograd and not rematerialized.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config import DTYPES, Config
+from ..models.model import Model
+from ..models.rope import RopeFreqs
+from .loss import batch_loss
+from .optim import LayerwiseAdamW
+
+
+class TrainStepOutput(NamedTuple):
+    loss: torch.Tensor         # () unscaled mean loss
+    grads_valid: bool          # every gradient and the loss finite; else nothing was updated
+    scaled_loss: torch.Tensor  # () scaled loss (drives the loss-scale doubling)
+
+
+def make_train_step(
+    cfg: Config, optimizer: LayerwiseAdamW, rope: RopeFreqs
+) -> Callable[..., TrainStepOutput]:
+    """Build the training step.
+
+    Returned signature:
+      step(model, audio, labels, grad_scale, generator=None) -> TrainStepOutput
+    with audio (num_minibatches, minibatch, 2, N) and labels
+    (num_minibatches, minibatch, F, K) on the model's device.  ``model`` must
+    be the one ``optimizer`` was set up for.
+    """
+    if cfg.train.ensemble_size > 1:
+        raise NotImplementedError(
+            f"ensemble_size={cfg.train.ensemble_size}: the ensemble axis arrives with the "
+            "port's parallel/ package (slice 3); train one member until then")
+    compute_dtype = DTYPES[cfg.precision.compute_dtype]
+    model_cfg = cfg.model
+
+    def step(model: Model, audio: torch.Tensor, labels: torch.Tensor,
+             grad_scale: float | torch.Tensor,
+             generator: torch.Generator | None = None) -> TrainStepOutput:
+        params = optimizer.params
+        num_minibatches = audio.shape[0]
+        for p in params:
+            p.grad = None
+        scaled_losses = []
+        with torch.enable_grad():
+            for mb_audio, mb_labels in zip(audio, labels):
+                scaled_loss = batch_loss(model, model_cfg, mb_audio, mb_labels, rope,
+                                         grad_scale, compute_dtype, generator=generator)
+                scaled_loss.backward()  # accumulates into the f32 .grad buffers
+                scaled_losses.append(scaled_loss.detach())
+        scaled_loss = torch.stack(scaled_losses).mean()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        torch._foreach_div_(grads, grad_scale * num_minibatches)
+
+        # Always-on non-finite guard (the reference checks every step
+        # whatever the precision): a step whose gradients or loss went
+        # non-finite is never applied, under bf16 as well as f16.  A leaf's
+        # largest magnitude is finite exactly when every element is (it
+        # cannot overflow, and a nan propagates): one multi-tensor call
+        # instead of a check per leaf.
+        largest = torch.stack(torch._foreach_norm(grads, float("inf")))
+        valid = bool(largest.isfinite().all() & scaled_loss.isfinite())
+        if valid:
+            optimizer.apply(optimizer.update(grads))
+        return TrainStepOutput(scaled_loss / grad_scale, valid, scaled_loss)
+
+    return step
+
+
+def reshape_to_minibatches(batch: torch.Tensor, minibatch_size: int) -> torch.Tensor:
+    """(B, ...) -> (B // m, m, ...) -- the reference's '(b m) ... -> b m ...'."""
+    b = batch.shape[0]
+    if b % minibatch_size:
+        raise ValueError(f"batch {b} is not a multiple of the minibatch {minibatch_size}")
+    return batch.reshape(b // minibatch_size, minibatch_size, *batch.shape[1:])

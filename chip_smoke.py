@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-checks them against their plain versions, runs the full-width model, and
-transcribes a synthetic file to MIDI through the port's CLI.
+checks them against their plain versions, runs the full-width model,
+transcribes a synthetic file to MIDI through the port's CLI, and takes a few
+training steps.
 
     python3 chip_smoke.py
 
 Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. kernels: build from csrc/, then each kernel against its plain version
-     at the serving shapes (16 windows, S=250 / P=256, 4 heads x 64), f32
-     and bf16, with its time beside the plain version's (CUDA events);
+     -- the forward kernels at the serving shapes (16 windows, S=250 /
+     P=256, 4 heads x 64) and at the training shapes (32 windows), the
+     backward kernels at the training shapes, f32 and bf16 -- with its time
+     beside the plain version's, the
+     least time the card could take (bytes over its memory rate or
+     operations over its peak rate, whichever is larger) and, for the global
+     attention, the time of F.scaled_dot_product_attention on the same
+     tensors (CUDA events);
   3. forward: the default model (~11.6 M params) from seeded weights on 16
      seeded windows (16, 2, 80000), kernel path vs plain path, bf16 and f32,
-     and 8 launches of each kernel per forward;
+     and 8 launches of each forward kernel per forward;
   4. end to end: ~30 s of synthetic stereo piano tones written as WAV, the
      seeded weights saved as a port checkpoint, then the CLI
      (file -> MIDI, f32) with its launches counted; the MIDI is read back and
-     the stitched probabilities are held against the plain path's.
+     the stitched probabilities are held against the plain path's;
+  5. training: the same model, dropout-free, bf16 compute over f32
+     parameters, 4 optimizer steps on one seeded batch of 64 windows in 2
+     minibatches of 32, with 16 launches of each of the four kernels per
+     step; the f32 gradient of a minibatch of 4 through the kernels is held
+     against the same through the plain path, the bf16 loss of a minibatch
+     of 32 likewise, and a step on labels that hold a nan must change nothing.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}
 as the last line.  Artifacts go to build/smoke/ in the checkout.
 """
@@ -28,9 +41,11 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +64,33 @@ KERNEL_TOL = {"f32": 1e-5, "bf16": 2e-2}
 # bf16: a 1-ulp flip in any of ~60 bf16 roundings per layer moves the
 # residual stream by ~1e-2 relative.
 FORWARD_TOL = {"f32": 1e-4, "bf16": 5e-2}
+# Backward kernels vs their plain versions, per output (see grad_tol).  f32:
+# the same fp32 sums in another order, the kernel's softmax online -- a share
+# of the output's largest magnitude.  bf16: outputs round to 8 mantissa bits,
+# and an fp32 difference of one ulp can flip the bf16 rounding of a weight
+# or a dlogit before the products.  One such flip reads exactly one bf16 ulp
+# of the output's top binade, so the limit is 3 of those ulps: a reading of
+# one or two ulps never sits on it.
+GRAD_TOL_F32 = 2e-5
+GRAD_TOL_BF16_ULPS = 3
+# Parameter gradients of the whole model in f32 (TF32 off), kernel path vs
+# plain path, as a share of each leaf's largest magnitude.  Per-layer
+# differences of ~1e-6 carried back through 16 attention layers and 39
+# ConvNeXt blocks read 5.7e-7 on an H100; the limit is ~20x that, far below
+# what one wrong edge row or masked column of a backward kernel leaves in
+# the projections' gradients (a share of 1/S of a leaf's terms, ~4e-3).
+MODEL_GRAD_TOL = 1e-5
+# The bf16 loss of one training minibatch, kernel path vs plain path, as a
+# share of the loss: the per-output differences of FORWARD_TOL come with
+# either sign and average out over the 32 x 250 x 90 summed outputs, to
+# 1.5e-6 on an H100; the limit is ~65x that.
+LOSS_TOL_BF16 = 1e-4
+TRAIN_STEPS = 4
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
+# rate, and the operation rate of the input type -- bf16 on the tensor
+# cores, f32 outside them (TF32 would change the f32 kernels' numerics).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
 
 def log(msg: str) -> None:
@@ -63,12 +105,17 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
-    """Mean device time of fn() in ms, by CUDA events around ``iters`` calls."""
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of fn() in ms, by CUDA events around ``iters`` calls.
+
+    The card first spins for ~20 ms while the host queues the calls, so that
+    they run back to back: without that, a kernel of a few tens of
+    microseconds is timed at the pace of its Python wrapper."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -86,38 +133,150 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def check_kernels(ak) -> dict[str, dict]:
-    """Phase 2: each kernel vs its plain version at the serving shapes."""
+def grad_tol(ref: torch.Tensor, dtype: str) -> float:
+    """The allowed max abs error of one output of a backward kernel."""
+    top = ref.float().abs().max().item()
+    if dtype == "f32":
+        return GRAD_TOL_F32 * max(1.0, top)
+    # One bf16 ulp of the binade that holds the output's largest magnitude.
+    ulp = 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)
+    return GRAD_TOL_BF16_ULPS * ulp
+
+
+def bound(n_tensors: int, numel: int, dtype: str, flops: float, extra_bytes: int = 0) -> dict:
+    """The least time the card could take: every input read and every output
+    written once over the memory rate, or the operations over the peak rate
+    of the input type, whichever is larger."""
+    itemsize = 4 if dtype == "f32" else 2
+    bytes_ms = (n_tensors * numel * itemsize + extra_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def sdpa_backend(q4, k4, v4) -> str:
+    """The first fused backend, in PyTorch's own order, that takes these
+    inputs; the default dispatch falls to the math path when none does."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a refusal also warns, with its reason
+                F.scaled_dot_product_attention(q4, k4, v4)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "MATH"
+
+
+def check_kernels(ak, train_minibatch: int) -> dict[str, dict]:
+    """Phase 2: each kernel vs its plain version, with its bound and, where
+    one PyTorch call computes the same function, that call's time.  ``tol``
+    maps an output of the plain version to its allowed max abs error."""
+    import torch.nn.functional as F
+
     width = HEADS * HEAD_DIM
     results = {}
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def run(case, name, kernel, plain, tol, bound_, library=None):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+        err, allowed, ok = 0.0, 0.0, True
+        for o, r in zip(outs, refs):
+            e, limit = max_err(o, r), tol(r)
+            if e >= err:
+                err, allowed = e, limit
+            ok = ok and bool(torch.isfinite(o.float()).all()) and e <= limit
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        library_ms = time_ms(library) if library is not None else None
+        lib = f", library {library_ms:.4f} ms" if library is not None else ""
+        log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {allowed:.1e}) "
+            f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+            f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}")
+        if not ok:
+            raise AssertionError(f"kernel {case} {name} disagrees with its plain version")
+        results[f"{case} {name}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "library_ms": library_ms, **bound_}
+
+    def heads4(t):  # (G, S, H*hd) -> the (G, H, S, hd) view SDPA takes
+        return t.reshape(t.shape[0], t.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
+
     for name, dt in dtypes.items():
-        q, k, v = (randn(BATCH, SEQ, width, seed=i, dtype=dt) for i in range(3))
-        cases = {
-            "global S=250": (lambda q=q, k=k, v=v: ak.global_attention(q, k, v, HEADS),
-                             lambda q=q, k=k, v=v: ak.global_attention_plain(q, k, v, HEADS)),
-            "global S=250 valid_len=200": (
-                lambda q=q, k=k, v=v: ak.global_attention(q, k, v, HEADS, 0, 200),
-                lambda q=q, k=k, v=v: ak.global_attention_plain(q, k, v, HEADS, 0, 200)),
-        }
-        fq, fk, fv = (randn(BATCH, 31 * 16, width, seed=10 + i, dtype=dt) for i in range(3))
-        cases["global S=496 block=16"] = (
+        kernel_tol = lambda ref: KERNEL_TOL[name]
+        grads_tol = lambda ref: grad_tol(ref, name)
+        # --- forward kernels at the serving shapes ---
+        n = BATCH
+        q, k, v = (randn(n, SEQ, width, seed=i, dtype=dt) for i in range(3))
+        attn_flops = lambda groups, s, cols, products: products * 2.0 * groups * HEADS * s * cols * HEAD_DIM
+        log(f"library call for the global attention, {name}: F.scaled_dot_product_attention, "
+            f"backend {sdpa_backend(heads4(q), heads4(k), heads4(v))}")
+        run("global S=250", name,
+            lambda: ak.global_attention(q, k, v, HEADS),
+            lambda: ak.global_attention_plain(q, k, v, HEADS), kernel_tol,
+            bound(4, q.numel(), name, attn_flops(n, SEQ, SEQ, 2)),
+            library=lambda: F.scaled_dot_product_attention(heads4(q), heads4(k), heads4(v)))
+        run("global S=250 valid_len=200", name,
+            lambda: ak.global_attention(q, k, v, HEADS, 0, 200),
+            lambda: ak.global_attention_plain(q, k, v, HEADS, 0, 200), kernel_tol,
+            bound(4, q.numel(), name, attn_flops(n, SEQ, 200, 2)))
+        fq, fk, fv, fg = (randn(n, 31 * 16, width, seed=10 + i, dtype=dt) for i in range(4))
+        run("global S=496 block=16", name,
             lambda: ak.global_attention(fq, fk, fv, HEADS, 16),
-            lambda: ak.global_attention_plain(fq, fk, fv, HEADS, 16))
-        ts = [randn(BATCH, PADDED, width, seed=20 + i, dtype=dt) for i in range(5)]
-        cases["local P=256"] = (lambda: ak.local_two_phase(*ts, HEADS, 16),
-                                lambda: ak.local_two_phase_plain(*ts, HEADS, 16))
-        for case, (kernel, plain) in cases.items():
-            out, ref = kernel(), plain()
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            ok = bool(torch.isfinite(out.float()).all()) and err <= KERNEL_TOL[name]
-            ms, plain_ms = time_ms(kernel), time_ms(plain)
-            log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {KERNEL_TOL[name]:.0e}) "
-                f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if not ok:
-                raise AssertionError(f"kernel {case} {name} disagrees with its plain version")
-            results[f"{case} {name}"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+            lambda: ak.global_attention_plain(fq, fk, fv, HEADS, 16), kernel_tol,
+            bound(4, fq.numel(), name, attn_flops(n, 496, 16, 2)))
+        ts = [randn(n, PADDED, width, seed=20 + i, dtype=dt) for i in range(5)]
+        # Per row and phase 16 keys, two products: no single PyTorch call
+        # computes the two-phase average, so there is no library time.
+        run("local P=256", name,
+            lambda: ak.local_two_phase(*ts, HEADS, 16),
+            lambda: ak.local_two_phase_plain(*ts, HEADS, 16), kernel_tol,
+            bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2)))
+
+        # --- forward and backward kernels at the training shapes ---
+        n = train_minibatch
+        q, k, v, g = (randn(n, SEQ, width, seed=30 + i, dtype=dt) for i in range(4))
+        run(f"global S=250 B={n}", name,
+            lambda: ak.global_attention(q, k, v, HEADS),
+            lambda: ak.global_attention_plain(q, k, v, HEADS), kernel_tol,
+            bound(4, q.numel(), name, attn_flops(n, SEQ, SEQ, 2)),
+            library=lambda: F.scaled_dot_product_attention(heads4(q), heads4(k), heads4(v)))
+        ts = [randn(n, PADDED, width, seed=50 + i, dtype=dt) for i in range(6)]
+        run(f"local P=256 B={n}", name,
+            lambda: ak.local_two_phase(*ts[:5], HEADS, 16),
+            lambda: ak.local_two_phase_plain(*ts[:5], HEADS, 16), kernel_tol,
+            bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2)))
+        q4, k4, v4 = (heads4(t).detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(q4, k4, v4)
+        run("global grads S=250", name,
+            lambda: ak.global_attention_grads(q, k, v, g, HEADS),
+            lambda: ak.global_attention_grads_plain(q, k, v, g, HEADS), grads_tol,
+            bound(7, q.numel(), name, attn_flops(n, SEQ, SEQ, 5)),
+            library=lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), heads4(g),
+                                                retain_graph=True))
+        run("global grads S=250 valid_len=200", name,
+            lambda: ak.global_attention_grads(q, k, v, g, HEADS, 0, 200),
+            lambda: ak.global_attention_grads_plain(q, k, v, g, HEADS, 0, 200),
+            grads_tol, bound(7, q.numel(), name, attn_flops(n, SEQ, 200, 5)))
+        gen = torch.Generator(device="cpu").manual_seed(40)
+        bits = torch.randint(0, 256, (n, HEADS, SEQ, SEQ), generator=gen,
+                             dtype=torch.uint8).cuda()
+        run("global grads S=250 bits", name,
+            lambda: ak.global_attention_grads(q, k, v, g, HEADS, 0, None, bits, 26),
+            lambda: ak.global_attention_grads_plain(q, k, v, g, HEADS, 0, None, bits, 26),
+            grads_tol,
+            bound(7, q.numel(), name, attn_flops(n, SEQ, SEQ, 5), extra_bytes=bits.numel()))
+        run("global grads S=496 block=16", name,
+            lambda: ak.global_attention_grads(fq, fk, fv, fg, HEADS, 16),
+            lambda: ak.global_attention_grads_plain(fq, fk, fv, fg, HEADS, 16), grads_tol,
+            bound(7, fq.numel(), name, attn_flops(BATCH, 496, 16, 5)))
+        run("local grads P=256", name,
+            lambda: ak.local_two_phase_grads(*ts, HEADS, 16),
+            lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16), grads_tol,
+            bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
     return results
 
 
@@ -150,7 +309,7 @@ def check_forward(ak, model_lib, cfg, model) -> None:
             f"first-call wall {wall:.3f} s {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} forward: kernel path disagrees with the plain path")
-        expected = [cfg.model.num_transformer_layers] * len(ak.KERNELS)
+        expected = [cfg.model.num_transformer_layers] * 2 + [0, 0]  # no backward in serving
         if launches != expected:
             raise AssertionError(f"{name} forward launched {launches}, expected {expected}")
         if name == "f32":
@@ -242,6 +401,160 @@ def end_to_end(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
     return launches
 
 
+def seeded_model(model_lib, cfg):
+    """The default model on the card, its weights from seed 0."""
+    return model_lib.Model(cfg.model, torch.Generator().manual_seed(0)).cuda().eval()
+
+
+def training_setup(model_lib, cfg, model):
+    """The training phase's configuration, batch and step, for ``model``:
+    (train_cfg, rope, optimizer, step, audio, labels).
+
+    Dropout-free: the attention routes take the dropout-free kernels and
+    their backward kernels, the ConvNeXt stages ordinary autograd (the
+    counterpart of the scanned backward).  No warm-up, so the first update
+    is not zero.  One seeded batch of ``cfg.train.batch_size`` windows in
+    minibatches of ``minibatch_size_per_device``, labels sparse as piano
+    rolls are."""
+    from audio_to_midi_tpu_torch.train import optim, step as step_lib
+
+    train_cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, warmup_steps=0),
+        model=dataclasses.replace(cfg.model, transformer_dropout_rate=0.0, cnn_bwd_kernel=False))
+    rope = model_lib.make_rope(train_cfg.model, "cuda")
+    batch, minibatch = train_cfg.train.batch_size, train_cfg.train.minibatch_size_per_device
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    audio = step_lib.reshape_to_minibatches(
+        (torch.randn(batch, 2, 80_000, generator=gen) * 0.5).cuda(), minibatch)
+    labels = step_lib.reshape_to_minibatches(
+        (torch.rand(batch, SEQ, train_cfg.model.output_vocab, generator=gen) < 0.03)
+        .float().cuda(), minibatch)
+    optimizer = optim.setup_optimizers(model, train_cfg.model, train_cfg.train)
+    step = step_lib.make_train_step(train_cfg, optimizer, rope)
+    return train_cfg, rope, optimizer, step, audio, labels
+
+
+def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
+    """Phase 5: a few optimizer steps at full width; returns their launches."""
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    train_cfg, rope, optimizer, step, audio, labels = training_setup(model_lib, cfg, model)
+    train_model_cfg = train_cfg.model
+    names = [fn.__name__ for fn in ak.KERNELS]
+
+    # With cnn_bwd_kernel=True the same step must refuse to skip kernel 20.
+    probe = torch.zeros(1, 2, 80_000, device="cuda")
+    try:
+        with torch.enable_grad():
+            loss_lib.batch_loss(model, dataclasses.replace(train_model_cfg, cnn_bwd_kernel=True),
+                                probe, torch.zeros(1, SEQ, 90, device="cuda"), rope, 1.0,
+                                torch.bfloat16)
+    except NotImplementedError as err:
+        log(f"training with cnn_bwd_kernel=True raises: {str(err)[:90]}...")
+    else:
+        raise AssertionError("training with cnn_bwd_kernel=True did not raise")
+
+    # f32 gradients of one minibatch of 4 windows, kernel path vs plain path.
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
+    grads = {}
+    with _parity_precision(torch.float32):
+        for impl in ("pallas", "xla"):
+            for p in model.parameters():
+                p.grad = None
+            impl_cfg = dataclasses.replace(train_model_cfg, attention_impl=impl)
+            with torch.enable_grad():
+                loss_lib.batch_loss(model, impl_cfg, audio4, labels4, rope, 1.0,
+                                    torch.float32).backward()
+            grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    worst, worst_name = 0.0, ""
+    for n, ref in grads["xla"].items():
+        rel = max_err(grads["pallas"][n], ref) / max(ref.abs().max().item(), 1e-30)
+        if not torch.isfinite(grads["pallas"][n]).all():
+            raise AssertionError(f"gradient of {n} is not finite")
+        if rel > worst:
+            worst, worst_name = rel, n
+    ok = worst <= MODEL_GRAD_TOL
+    log(f"f32 gradients, 4 windows, kernel path vs plain path over {len(grads['xla'])} leaves: "
+        f"worst max_abs_err / max|ref| {worst:.3e} at {worst_name} (tol {MODEL_GRAD_TOL:.0e}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the kernel path's gradient disagrees with the plain path's")
+    del grads
+    for p in model.parameters():
+        p.grad = None
+
+    # The bf16 loss of one training minibatch, kernel path vs plain path:
+    # the forward kernels at the shapes and in the dtype the steps give them.
+    bf16_loss = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            impl_cfg = dataclasses.replace(train_model_cfg, attention_impl=impl)
+            bf16_loss[impl] = loss_lib.batch_loss(model, impl_cfg, audio[0], labels[0], rope, 1.0,
+                                                  torch.bfloat16).item()
+    rel = abs(bf16_loss["pallas"] - bf16_loss["xla"]) / abs(bf16_loss["xla"])
+    ok = np.isfinite(bf16_loss["pallas"]) and rel <= LOSS_TOL_BF16
+    log(f"bf16 loss, {audio.shape[1]} windows, kernel path {bf16_loss['pallas']:.2f} vs plain "
+        f"path {bf16_loss['xla']:.2f}: relative difference {rel:.3e} (tol {LOSS_TOL_BF16:.0e}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the kernel path's bf16 loss disagrees with the plain path's")
+
+    # The steps: bf16 compute over f32 parameters, batch 64 = 2 x 32.
+    # Each of the 8 pairs holds one local and one global layer.
+    per_step = train_model_cfg.num_transformer_layers * audio.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = dict.fromkeys(names, 0)
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        for fn in ak.KERNELS:
+            fn.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(model, audio, labels, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ak.KERNELS}
+        losses.append(out.loss.item())
+        times.append(start.elapsed_time(end))
+        log(f"train step {i}: loss {losses[-1]:.3f}, grads_valid {out.grads_valid}, "
+            f"lr {optimizer.learning_rate():.3e}, {times[-1]:.1f} ms, launches {launches}")
+        if not out.grads_valid or not np.isfinite(losses[-1]):
+            raise AssertionError(f"train step {i}: loss or gradients not finite")
+        if list(launches.values()) != [per_step] * len(names):
+            raise AssertionError(f"train step {i} launched {launches}, expected {per_step} each")
+        for n, count in launches.items():
+            total[n] += count
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # The guard on the card: a step on labels that hold a nan changes neither
+    # the parameters nor the optimizer's moments and count.
+    before = [t.clone() for t in optimizer.params + optimizer.mu + optimizer.nu]
+    count = optimizer.count
+    bad = labels.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    out = step(model, audio, bad, 1.0)
+    same = all(torch.equal(a, b)
+               for a, b in zip(before, optimizer.params + optimizer.mu + optimizer.nu))
+    log(f"train step on a nan label: grads_valid {out.grads_valid}, parameters, moments and "
+        f"count unchanged {same and optimizer.count == count}")
+    if out.grads_valid or not same or optimizer.count != count:
+        raise AssertionError("a step with a non-finite loss was applied")
+    del before
+
+    log(f"training: batch {audio.shape[0] * audio.shape[1]} = {audio.shape[0]} x "
+        f"{audio.shape[1]}, bf16 compute, "
+        f"f32 params, {sorted(times[1:])[len(times[1:]) // 2]:.1f} ms/step (median of the last "
+        f"{TRAIN_STEPS - 1}; first {times[0]:.1f}), losses {losses[0]:.1f} -> {losses[-1]:.1f}, "
+        f"peak memory {peak / 2**30:.2f} GiB, on {card}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -263,30 +576,42 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
-    kernel_results = check_kernels(ak)
-
     cfg = DEFAULT_CONFIG
-    model = model_lib.Model(cfg.model, torch.Generator().manual_seed(0)).cuda().eval()
+    kernel_results = check_kernels(ak, cfg.train.minibatch_size_per_device)
+
+    model = seeded_model(model_lib, cfg)
     log(f"model: {model_lib.param_count(model):,} params, dims {cfg.model.dims}, "
         f"depths {cfg.model.depths}, {cfg.model.num_transformer_layers} pairs")
     check_forward(ak, model_lib, cfg, model)
-    launches = end_to_end(ak, model_lib, cfg, model, card)
-    log(f"main-path launches: {launches}")
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    serving = end_to_end(ak, model_lib, cfg, model, card)
+    log(f"serving main-path launches: {serving}")
+    training = check_training(ak, model_lib, cfg, copy.deepcopy(model).train(), card)
+    log(f"training main-path launches: {training}")
+    on_path = {"global_attention": (serving, training), "local_two_phase": (serving, training),
+               "global_attention_grads": (training,), "local_two_phase_grads": (training,)}
+    for name, paths in on_path.items():
+        if any(path[name] == 0 for path in paths):
+            raise AssertionError(f"{name} was never launched on a path that runs it: "
+                                 f"serving {serving}, training {training}")
 
+    src, tpu = "audio_to_midi_tpu_torch/csrc/", "audio_to_midi_tpu/ops/pallas_attention.py:"
     sources = {
-        "global_attention": ("audio_to_midi_tpu_torch/csrc/global_attention.cu",
-                             "audio_to_midi_tpu/ops/pallas_attention.py:140", "global S=250 f32"),
-        "local_two_phase": ("audio_to_midi_tpu_torch/csrc/local_attention.cu",
-                            "audio_to_midi_tpu/ops/pallas_attention.py:608", "local P=256 f32"),
+        "global_attention": (src + "global_attention.cu", tpu + "140", "global S=250 f32"),
+        "local_two_phase": (src + "local_attention.cu", tpu + "608", "local P=256 f32"),
+        "global_attention_grads": (src + "global_attention_bwd.cu", tpu + "1104",
+                                   "global grads S=250 bf16"),
+        "local_two_phase_grads": (src + "local_attention_bwd.cu", tpu + "992",
+                                  "local grads P=256 bf16"),
     }
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "case": case})
+                        "launches": serving[name] + training[name],
+                        "launches_serving": serving[name], "launches_training": training[name],
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "case": case})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

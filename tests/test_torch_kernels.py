@@ -10,6 +10,8 @@ is no CUDA device.  On a GPU machine:
 (``--noconftest``: the repository's conftest configures JAX.)
 """
 
+import math
+
 import pytest
 import torch
 
@@ -40,6 +42,33 @@ def test_wrappers_refuse_other_devices():
         ak.global_attention(q, q, q, 2)
     with pytest.raises(ValueError):
         ak.local_two_phase(q, q, q, q, q, 2, 16)
+    with pytest.raises(ValueError):
+        ak.global_attention_grads(q, q, q, q, 2)
+    with pytest.raises(ValueError):
+        ak.local_two_phase_grads(q, q, q, q, q, q, 2, 16)
+
+
+def test_grads_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
+    before = [fn.launches for fn in ak.KERNELS]
+    q, k, v, g = (_randn(1, 64, 32, seed=i) for i in range(4))
+    for out, ref in zip(ak.global_attention_grads(q, k, v, g, 2, 16, 40),
+                        ak.global_attention_grads_plain(q, k, v, g, 2, 16, 40)):
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    for out, ref in zip(ak.local_two_phase_grads(q, k, q, k, v, g, 2, 16),
+                        ak.local_two_phase_grads_plain(q, k, q, k, v, g, 2, 16)):
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert [fn.launches for fn in ak.KERNELS] == before
+    assert len(ak.KERNELS) == 4
+
+
+def test_global_attention_grads_of_fully_masked_rows():
+    """A fully masked row has uniform weights: it gives dv its cotangent
+    over S and gives dq and dk nothing."""
+    q, k, v, g = (_randn(1, 40, 16, seed=11 + i) for i in range(4))
+    g[:, :16] = 0  # only the fully masked rows (blocks that hold no column < 10) push back
+    dq, dk, dv = ak.global_attention_grads_plain(q, k, v, g, 1, block=16, valid_len=10)
+    assert not dq.any() and not dk.any()
+    torch.testing.assert_close(dv[0], (g[0].sum(0) / 40).expand_as(dv[0]), rtol=1e-5, atol=1e-6)
 
 
 def test_global_attention_fully_masked_rows_average_every_column():
@@ -111,3 +140,126 @@ def test_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
         ak.local_two_phase(f, f, f, f, f, 4, 16)
     with pytest.raises(ValueError):  # head dim 128 is not instantiated
         ak.global_attention(f, f, f, 2)
+
+
+# The backward kernels.  f32: the kernel and the plain version compute the
+# same fp32 sums in another order (and the kernel's softmax is online), so
+# they agree to a few fp32 ulps of the largest term -- 2e-5 of the output's
+# largest magnitude.  bf16: outputs round to 8 mantissa bits and an fp32
+# difference of one ulp can flip the bf16 rounding of a weight or a dlogit
+# before the products.  One such flip reads exactly one bf16 ulp of the
+# output's top binade, so the limit is 3 of those ulps: a reading of one or
+# two ulps never sits on it.
+GRAD_CASES = [(torch.float32, 2e-5), (torch.bfloat16, 3)]
+
+
+def _assert_grads_close(outs, refs, tol):
+    """``tol``: for f32 outputs a share of the largest magnitude (at least
+    of 1), for bf16 outputs a number of ulps of the largest magnitude's binade."""
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out.float()).all()
+        top = ref.float().abs().max().item()
+        if ref.dtype == torch.bfloat16:
+            allowed = tol * 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)
+        else:
+            allowed = tol * max(1.0, top)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= allowed, f"output {i}: err {err:.3e} > {allowed:.3e} (largest {top:.3f})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GRAD_CASES)
+@pytest.mark.parametrize("s,block,valid,with_bits", [
+    (250, 0, 250, False), (250, 0, 200, False), (496, 16, 496, False), (37, 0, 37, False),
+    (80, 16, 40, False),  # rows whose whole block lies past valid_len
+    (250, 0, 250, True), (96, 16, 96, True),
+])
+def test_global_attention_grads_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, block,
+                                                             valid, with_bits):
+    n = 32 if s == 250 else 8
+    q, k, v, g = (_randn(n, s, 256, seed=s + valid + i, device=cuda_device, dtype=dtype)
+                  for i in range(4))
+    bits, threshold = None, 0
+    if with_bits:
+        gen = torch.Generator(device="cpu").manual_seed(s)
+        bits = torch.randint(0, 256, (n, 4, s, s), generator=gen, dtype=torch.uint8).to(
+            cuda_device)
+        threshold = 26
+    before = ak.global_attention_grads.launches
+    outs = ak.global_attention_grads(q, k, v, g, 4, block, valid, bits, threshold)
+    refs = ak.global_attention_grads_plain(q, k, v, g, 4, block, valid, bits, threshold)
+    torch.cuda.synchronize()
+    assert ak.global_attention_grads.launches == before + 1
+    _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GRAD_CASES)
+@pytest.mark.parametrize("p_len", [256, 32, 16])
+def test_local_two_phase_grads_kernel_matches_plain_on_card(cuda_device, dtype, tol, p_len):
+    ts = [_randn(32, p_len, 256, seed=15 + i, device=cuda_device, dtype=dtype)
+          for i in range(6)]
+    before = ak.local_two_phase_grads.launches
+    outs = ak.local_two_phase_grads(*ts, 4, 16)
+    refs = ak.local_two_phase_grads_plain(*ts, 4, 16)
+    torch.cuda.synchronize()
+    assert ak.local_two_phase_grads.launches == before + 1
+    _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads", [(16, 2), (32, 2)])
+def test_grads_kernels_other_head_dims_on_card(cuda_device, hd, heads):
+    ts = [_randn(4, 64, heads * hd, seed=25 + i, device=cuda_device) for i in range(6)]
+    _assert_grads_close(ak.local_two_phase_grads(*ts, heads, 16),
+                        ak.local_two_phase_grads_plain(*ts, heads, 16), 2e-5)
+    q, k, v, g = ts[:4]
+    _assert_grads_close(ak.global_attention_grads(q, k, v, g, heads, 0, 50),
+                        ak.global_attention_grads_plain(q, k, v, g, heads, 0, 50), 2e-5)
+
+
+@pytest.mark.cuda
+def test_wrappers_are_differentiable_through_the_kernels_on_card(cuda_device):
+    """The outputs carry a grad_fn and backward launches the backward
+    kernels, also for a cotangent that is not dense."""
+    q, k, v = (_randn(4, 250, 256, seed=31 + i, device=cuda_device).requires_grad_()
+               for i in range(3))
+    before = [fn.launches for fn in ak.KERNELS]
+    out = ak.global_attention(q, k, v, 4)
+    assert out.grad_fn is not None
+    cot = _randn(4, 250, 512, seed=40, device=cuda_device)[:, :, ::2]
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    refs = ak.global_attention_grads_plain(q.detach(), k.detach(), v.detach(),
+                                           cot.contiguous(), 4)
+    _assert_grads_close(grads, refs, 2e-5)
+
+    ts = [_randn(4, 256, 256, seed=50 + i, device=cuda_device).requires_grad_()
+          for i in range(5)]
+    out = ak.local_two_phase(*ts, 4, 16)
+    assert out.grad_fn is not None
+    loss = out[:, :250].square().sum()   # the crop makes the cotangent a padded view
+    grads = torch.autograd.grad(loss, ts)
+    cot = torch.zeros_like(out)
+    cot[:, :250] = 2 * out.detach()[:, :250]
+    refs = ak.local_two_phase_grads_plain(*(t.detach() for t in ts), cot, 4, 16)
+    _assert_grads_close(grads, refs, 2e-5)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ak.KERNELS] == [n + 1 for n in before]
+
+
+@pytest.mark.cuda
+def test_grads_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
+    h = torch.zeros(1, 256, 256, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        ak.global_attention_grads(h, h, h, h, 4)
+    with pytest.raises(NotImplementedError):
+        ak.local_two_phase_grads(h, h, h, h, h, h, 4, 16)
+    f = torch.zeros(1, 250, 256, device=cuda_device)
+    with pytest.raises(ValueError):  # P must be a multiple of the window
+        ak.local_two_phase_grads(f, f, f, f, f, f, 4, 16)
+    bits = torch.zeros(1, 4, 250, 250, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):  # a threshold that keeps all or nothing
+        ak.global_attention_grads(f, f, f, f, 4, bits=bits, threshold=0)
+    with pytest.raises(ValueError):  # bits of another shape
+        ak.global_attention_grads(f, f, f, f, 4, bits=bits[:, :, :128], threshold=26)

@@ -252,9 +252,11 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 18, names
+        assert len(names) >= 22, names
+        assert {"audio_to_midi_tpu_torch.train." + m for m in ("loss", "optim", "step")} <= set(names)
         leaked = sorted(m for m in sys.modules
-                        if m == "jax" or m.startswith(("jax.", "audio_to_midi_tpu.")))
+                        if m in ("jax", "optax", "audio_to_midi_tpu")
+                        or m.startswith(("jax.", "optax.", "audio_to_midi_tpu.")))
         assert not leaked, leaked
         print("ok", len(names))
     """)
