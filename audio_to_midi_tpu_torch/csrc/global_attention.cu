@@ -31,10 +31,24 @@
 //
 // Scalar fp32 FMAs, no tensor cores: a later PR can move the two products
 // to wgmma once the path is measured.
+//
+// Dropout on the attention weights is a template parameter of the one body,
+// as `get_bits` is of the TPU's _nhd_core: none (fused_attention_nhd),
+// precomputed uint8 bits (G, H, S, S) (fused_attention_nhd_dropout, :381)
+// or Philox bytes drawn in the kernel from a seed in device memory
+// (_nhd_drop_prng_impl, :1783; stream = (sample, head)).  The mask bytes of
+// a 64 x 64 tile go to shared memory beside its K and V rows -- read from
+// the bits (8 MB per call at 32 x 4 x 250 x 250, more than q, k, v and out
+// together in bf16) or drawn, one Philox call per 16 columns of a row.
+// With the online softmax the row sum runs over the undropped exponentials;
+// the mask and its 256 / (256 - threshold) go on the term that multiplies
+// v.  A fully masked row keeps its uniform weights and is dropped like any
+// other.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -43,24 +57,31 @@ constexpr int kTileK = 64;
 constexpr int kThreads = 256;      // 4 threads per query row
 constexpr float kMaskFill = -1e30f;
 
-template <int HD>
+template <int HD, int MASK>
 constexpr size_t smem_bytes() {
   // Q and K tiles padded by one column against bank conflicts, V tile, and
-  // the probabilities of the current key tile.
+  // the probabilities of the current key tile; with dropout, its mask bytes.
   return sizeof(float) *
-         (kTileQ * (HD + 1) + kTileK * (HD + 1) + kTileK * HD + kTileQ * (kTileK + 1));
+             (kTileQ * (HD + 1) + kTileK * (HD + 1) + kTileK * HD + kTileQ * (kTileK + 1)) +
+         (MASK == a2m::kMaskNone ? 0 : a2m::kMaskTile * a2m::kMaskPitch);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MASK>
 __global__ void __launch_bounds__(kThreads)
 global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                        int valid_len, int block, float scale) {
+                        const T* __restrict__ v, const uint8_t* __restrict__ bits,
+                        const int* __restrict__ seed, T* __restrict__ out, int S, int H,
+                        int valid_len, int block, int threshold, float scale) {
+  static_assert(kTileQ == a2m::kMaskTile && kTileK == a2m::kMaskTile, "mask tile is 64 x 64");
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kTileQ * (HD + 1);
   float* sV = sK + kTileK * (HD + 1);
   float* sP = sV + kTileK * HD;
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sP + kTileQ * (kTileK + 1));
+  const a2m::MaskPlane plane =
+      a2m::make_mask_plane<MASK>(bits, seed, blockIdx.z, blockIdx.y, H, S);
+  const float keep_inv = 256.f / (256.f - static_cast<float>(threshold));
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kTileQ;
@@ -98,6 +119,7 @@ global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sK[c * (HD + 1) + d] = inside ? a2m::to_float(k[off]) : 0.f;
       sV[c * HD + d] = inside ? a2m::to_float(v[off]) : 0.f;
     }
+    a2m::fill_mask_tile<MASK>(sMask, plane, q0, k0, S);
     __syncthreads();
 
     float s[kCols];
@@ -122,8 +144,12 @@ global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const float p = expf(s[j] - m_new);
-      sP[r * (kTileK + 1) + part + 4 * j] = p;
       tile_sum += p;
+      const int c = part + 4 * j;
+      sP[r * (kTileK + 1) + c] =
+          MASK == a2m::kMaskNone
+              ? p
+              : a2m::apply_mask_byte(p, sMask[r * a2m::kMaskPitch + c], threshold, keep_inv);
     }
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 1);
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 2);
@@ -148,48 +174,66 @@ global_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int G, int S,
-                   int H, int valid_len, int block, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(global_attention_kernel<T, HD>,
+struct Args {
+  const void *q, *k, *v, *bits, *seed;
+  void* out;
+  int G, S, H, valid_len, block, threshold;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int MASK>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes<HD, MASK>();
+  cudaError_t err = cudaFuncSetAttribute(global_attention_kernel<T, HD, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTileQ - 1) / kTileQ, H, G);
-  global_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, valid_len, block, scale);
+  const dim3 grid((a.S + kTileQ - 1) / kTileQ, a.H, a.G);
+  global_attention_kernel<T, HD, MASK><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const uint8_t*>(a.bits), static_cast<const int*>(a.seed),
+      static_cast<T*>(a.out), a.S, a.H, a.valid_len, a.block, a.threshold, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_mask(const Args& a) {
+  if (a.bits != nullptr) return launch<T, HD, a2m::kMaskBits>(a);
+  if (a.seed != nullptr) return launch<T, HD, a2m::kMaskPhilox>(a);
+  return launch<T, HD, a2m::kMaskNone>(a);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* out, int G,
-                        int S, int H, int hd, int valid_len, int block, float scale,
-                        cudaStream_t stream) {
+cudaError_t dispatch_hd(const Args& a, int hd) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, G, S, H, valid_len, block, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, G, S, H, valid_len, block, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, G, S, H, valid_len, block, scale, stream);
+    case 16: return dispatch_mask<T, 16>(a);
+    case 32: return dispatch_mask<T, 32>(a);
+    case 64: return dispatch_mask<T, 64>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (G, S, H*hd) device buffers of one dtype.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int a2m_global_attention(const void* q, const void* k, const void* v, void* out,
-                                    int G, int S, int H, int hd, int valid_len, int block,
+// q, k, v, out: contiguous (G, S, H*hd) device buffers of one dtype.  At
+// most one of bits (contiguous (G, H, S, S) uint8) and seed ((2,) int32 in
+// device memory) is given, with threshold in (0, 256); both null: no
+// dropout.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int a2m_global_attention(const void* q, const void* k, const void* v,
+                                    const void* bits, const void* seed, void* out, int G, int S,
+                                    int H, int hd, int valid_len, int block, int threshold,
                                     float scale, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool dropout = bits != nullptr || seed != nullptr;
+  if ((bits != nullptr && seed != nullptr) ||
+      (dropout && (threshold <= 0 || threshold >= 256)))
+    return cudaErrorInvalidValue;
+  const Args a = {q, k, v, bits, seed, out, G, S, H, valid_len, block, threshold, scale,
+                  static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case a2m::kFloat32:
-      return dispatch_hd<float>(q, k, v, out, G, S, H, hd, valid_len, block, scale, st);
-    case a2m::kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(q, k, v, out, G, S, H, hd, valid_len, block, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+    case a2m::kFloat32: return dispatch_hd<float>(a, hd);
+    case a2m::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -1,10 +1,15 @@
 // Backward of the global (optionally block-diagonal) attention over the
 // natural (G, S, H*hd) layout: dq, dk, dv from q, k, v and the output
-// cotangent g, optionally with the uint8 dropout bits the forward applied.
+// cotangent g, optionally with the dropout mask the forward applied.
 //
 // Replaces audio_to_midi_tpu/ops/pallas_attention.py nhd_grads (:1104, both
-// pallas_call sites: _nhd_bwd_kernel and, with bits, _nhd_bwd_kernel_drop ->
-// _nhd_bwd_core -> _core_grads, :880-920).  Per head, with every product
+// pallas_call sites: _nhd_bwd_kernel and, with bits, _nhd_bwd_kernel_drop)
+// and nhd_grads_prng (:1833, _nhd_bwd_kernel_drop_prng), all of them
+// _nhd_bwd_core -> _core_grads, :880-920.  The mask source is a template
+// parameter of the one body, as in global_attention.cu: none, precomputed
+// uint8 bits, or Philox bytes drawn from the forward's seed -- the same byte
+// at the same (row, column), though the dq kernel tiles by query rows and
+// the dkv kernel by key columns (philox.cuh).  Per head, with every product
 // accumulated in fp32 and T the working dtype:
 //   logits = round_T(q * scale) . k^T, masked logits -1e30, w = softmax;
 //   w_used = bits ? (bits >= threshold ? w * 256/(256-threshold) : 0) : w;
@@ -51,6 +56,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -78,34 +84,39 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-template <int HD>
+template <int HD, int MASK>
 constexpr size_t dq_smem_bytes() {
-  // Q, G, K, V tiles padded by one column against bank conflicts, and the
-  // dlogits of the current key tile.
-  return sizeof(float) * (4 * kTile * (HD + 1) + kTile * (kTile + 1));
+  // Q, G, K, V tiles padded by one column against bank conflicts, the
+  // dlogits of the current key tile and, with dropout, its mask bytes.
+  return sizeof(float) * (4 * kTile * (HD + 1) + kTile * (kTile + 1)) +
+         (MASK == a2m::kMaskNone ? 0 : a2m::kMaskTile * a2m::kMaskPitch);
 }
 
-template <int HD>
+template <int HD, int MASK>
 constexpr size_t dkv_smem_bytes() {
   // K, V, Q, G tiles, the rounded weights and dlogits of the current query
-  // tile (stored key-major), and the three statistics of its rows.
-  return sizeof(float) * (4 * kTile * (HD + 1) + 2 * kTile * (kTile + 1) + 3 * kTile);
+  // tile (stored key-major), the three statistics of its rows and, with
+  // dropout, the tile's mask bytes.
+  return sizeof(float) * (4 * kTile * (HD + 1) + 2 * kTile * (kTile + 1) + 3 * kTile) +
+         (MASK == a2m::kMaskNone ? 0 : a2m::kMaskTile * a2m::kMaskPitch);
 }
 
 // stats: (G, H, 3, S) fp32 -- row max, 1 / row sum, delta.
-template <typename T, int HD>
+template <typename T, int HD, int MASK>
 __global__ void __launch_bounds__(kThreads)
 global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ g,
-                           const uint8_t* __restrict__ bits, T* __restrict__ dq,
-                           float* __restrict__ stats, int S, int H, int valid_len, int block,
-                           int threshold, float scale) {
+                           const uint8_t* __restrict__ bits, const int* __restrict__ seed,
+                           T* __restrict__ dq, float* __restrict__ stats, int S, int H,
+                           int valid_len, int block, int threshold, float scale) {
+  static_assert(kTile == a2m::kMaskTile, "mask tile is 64 x 64");
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sG = sQ + kTile * (HD + 1);
   float* sK = sG + kTile * (HD + 1);
   float* sV = sK + kTile * (HD + 1);
   float* sP = sV + kTile * (HD + 1);
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sP + kTile * (kTile + 1));
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kTile;
@@ -113,7 +124,8 @@ global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long head = static_cast<long long>(blockIdx.z) * H + blockIdx.y;
   const long long base = static_cast<long long>(blockIdx.z) * S * row_stride +
                          static_cast<long long>(blockIdx.y) * HD;
-  const uint8_t* head_bits = bits ? bits + head * S * S : nullptr;
+  const a2m::MaskPlane plane =
+      a2m::make_mask_plane<MASK>(bits, seed, blockIdx.z, blockIdx.y, H, S);
   const float keep_inv = 256.f / (256.f - static_cast<float>(threshold));
 
   load_tile<T, HD, true>(sQ, q, base, row_stride, q0, S, scale);
@@ -139,11 +151,8 @@ global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       keep[j] = col < valid_len && (block <= 0 || row / block == col / block);
       s[j] = col >= S ? -INFINITY : (keep[j] ? qk : kMaskFill);
-      if (head_bits != nullptr) {
-        const bool kept = row < S && col < S &&
-                          head_bits[static_cast<long long>(row) * S + col] >= threshold;
-        gv = kept ? gv * keep_inv : 0.f;
-      }
+      if (MASK != a2m::kMaskNone)
+        gv = a2m::apply_mask_byte(gv, sMask[r * a2m::kMaskPitch + c], threshold, keep_inv);
       dw[j] = gv;
     }
   };
@@ -156,6 +165,7 @@ global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // Q, G in place; the previous tile's reads are done
     load_tile<T, HD, false>(sK, k, base, row_stride, k0, S, 0.f);
     load_tile<T, HD, false>(sV, v, base, row_stride, k0, S, 0.f);
+    a2m::fill_mask_tile<MASK>(sMask, plane, q0, k0, S);
     __syncthreads();
 
     float s[kPer];
@@ -202,6 +212,7 @@ global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     load_tile<T, HD, false>(sK, k, base, row_stride, k0, S, 0.f);
     load_tile<T, HD, false>(sV, v, base, row_stride, k0, S, 0.f);
+    a2m::fill_mask_tile<MASK>(sMask, plane, q0, k0, S);
     __syncthreads();
 
     float s[kPer];
@@ -229,13 +240,14 @@ global_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MASK>
 __global__ void __launch_bounds__(kThreads)
 global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ g,
-                            const uint8_t* __restrict__ bits, T* __restrict__ dk,
-                            T* __restrict__ dv, const float* __restrict__ stats, int S, int H,
-                            int valid_len, int block, int threshold, float scale) {
+                            const uint8_t* __restrict__ bits, const int* __restrict__ seed,
+                            T* __restrict__ dk, T* __restrict__ dv,
+                            const float* __restrict__ stats, int S, int H, int valid_len,
+                            int block, int threshold, float scale) {
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + kTile * (HD + 1);
@@ -246,6 +258,7 @@ global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sM = sDL + kTile * (kTile + 1);
   float* sInvL = sM + kTile;
   float* sDelta = sInvL + kTile;
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sDelta + kTile);
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kTile;
@@ -253,7 +266,8 @@ global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long head = static_cast<long long>(blockIdx.z) * H + blockIdx.y;
   const long long base = static_cast<long long>(blockIdx.z) * S * row_stride +
                          static_cast<long long>(blockIdx.y) * HD;
-  const uint8_t* head_bits = bits ? bits + head * S * S : nullptr;
+  const a2m::MaskPlane plane =
+      a2m::make_mask_plane<MASK>(bits, seed, blockIdx.z, blockIdx.y, H, S);
   const float* head_stats = stats + head * 3 * S;
   const float keep_inv = 256.f / (256.f - static_cast<float>(threshold));
 
@@ -283,6 +297,7 @@ global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sInvL[tid] = inside ? head_stats[S + row] : 0.f;
       sDelta[tid] = inside ? head_stats[2 * S + row] : 0.f;
     }
+    a2m::fill_mask_tile<MASK>(sMask, plane, q0, k0, S);
     __syncthreads();
 
 #pragma unroll
@@ -300,11 +315,10 @@ global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool keep = col < valid_len && (block <= 0 || row / block == col / block);
       const float w = inside ? expf((keep ? qk : kMaskFill) - sM[rr]) * sInvL[rr] : 0.f;
       float w_used = w;
-      if (head_bits != nullptr) {
-        const bool kept =
-            inside && head_bits[static_cast<long long>(row) * S + col] >= threshold;
-        w_used = kept ? w * keep_inv : 0.f;
-        gv = kept ? gv * keep_inv : 0.f;
+      if (MASK != a2m::kMaskNone) {
+        const int byte = sMask[rr * a2m::kMaskPitch + c];
+        w_used = a2m::apply_mask_byte(w, byte, threshold, keep_inv);
+        gv = a2m::apply_mask_byte(gv, byte, threshold, keep_inv);
       }
       const float dl = inside && keep ? w * (gv - sDelta[rr]) : 0.f;
       sW[c * (kTile + 1) + rr] = a2m::round_to<T>(w_used);
@@ -332,75 +346,79 @@ global_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* bits, void* dq, void* dk, void* dv, void* stats, int G, int S,
-                   int H, int valid_len, int block, int threshold, float scale,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(global_attention_dq_kernel<T, HD>,
+struct Args {
+  const void *q, *k, *v, *g, *bits, *seed;
+  void *dq, *dk, *dv, *stats;
+  int G, S, H, valid_len, block, threshold;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int MASK>
+cudaError_t launch(const Args& a) {
+  cudaError_t err = cudaFuncSetAttribute(global_attention_dq_kernel<T, HD, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(dq_smem_bytes<HD>()));
+                                         static_cast<int>(dq_smem_bytes<HD, MASK>()));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(global_attention_dkv_kernel<T, HD>,
+  err = cudaFuncSetAttribute(global_attention_dkv_kernel<T, HD, MASK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dkv_smem_bytes<HD>()));
+                             static_cast<int>(dkv_smem_bytes<HD, MASK>()));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, H, G);
-  global_attention_dq_kernel<T, HD><<<grid, kThreads, dq_smem_bytes<HD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const uint8_t*>(bits), static_cast<T*>(dq),
-      static_cast<float*>(stats), S, H, valid_len, block, threshold, scale);
+  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.G);
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v), *g = static_cast<const T*>(a.g);
+  const uint8_t* bits = static_cast<const uint8_t*>(a.bits);
+  const int* seed = static_cast<const int*>(a.seed);
+  global_attention_dq_kernel<T, HD, MASK><<<grid, kThreads, dq_smem_bytes<HD, MASK>(), a.stream>>>(
+      q, k, v, g, bits, seed, static_cast<T*>(a.dq), static_cast<float*>(a.stats), a.S, a.H,
+      a.valid_len, a.block, a.threshold, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  global_attention_dkv_kernel<T, HD><<<grid, kThreads, dkv_smem_bytes<HD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const uint8_t*>(bits), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<const float*>(stats), S, H, valid_len, block,
-      threshold, scale);
+  global_attention_dkv_kernel<T, HD, MASK><<<grid, kThreads, dkv_smem_bytes<HD, MASK>(), a.stream>>>(
+      q, k, v, g, bits, seed, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<const float*>(a.stats), a.S, a.H, a.valid_len, a.block, a.threshold, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_mask(const Args& a) {
+  if (a.bits != nullptr) return launch<T, HD, a2m::kMaskBits>(a);
+  if (a.seed != nullptr) return launch<T, HD, a2m::kMaskPhilox>(a);
+  return launch<T, HD, a2m::kMaskNone>(a);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, const void* g,
-                        const void* bits, void* dq, void* dk, void* dv, void* stats, int G,
-                        int S, int H, int hd, int valid_len, int block, int threshold,
-                        float scale, cudaStream_t stream) {
+cudaError_t dispatch_hd(const Args& a, int hd) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, g, bits, dq, dk, dv, stats, G, S, H, valid_len, block,
-                           threshold, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, g, bits, dq, dk, dv, stats, G, S, H, valid_len, block,
-                           threshold, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, g, bits, dq, dk, dv, stats, G, S, H, valid_len, block,
-                           threshold, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return dispatch_mask<T, 16>(a);
+    case 32: return dispatch_mask<T, 32>(a);
+    case 64: return dispatch_mask<T, 64>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // q, k, v, g, dq, dk, dv: contiguous (G, S, H*hd) device buffers of one
-// dtype; bits: null, or contiguous (G, H, S, S) uint8 with threshold in
-// (0, 256); stats: fp32 scratch of G*H*3*S elements.  Returns the
+// dtype.  At most one of bits (contiguous (G, H, S, S) uint8) and seed
+// ((2,) int32 in device memory) is given, with threshold in (0, 256); both
+// null: no dropout.  stats: fp32 scratch of G*H*3*S elements.  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int a2m_global_attention_grads(const void* q, const void* k, const void* v,
-                                          const void* g, const void* bits, void* dq, void* dk,
-                                          void* dv, void* stats, int G, int S, int H, int hd,
-                                          int valid_len, int block, int threshold, float scale,
-                                          int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits != nullptr && (threshold <= 0 || threshold >= 256)) return cudaErrorInvalidValue;
+                                          const void* g, const void* bits, const void* seed,
+                                          void* dq, void* dk, void* dv, void* stats, int G,
+                                          int S, int H, int hd, int valid_len, int block,
+                                          int threshold, float scale, int dtype,
+                                          void* stream) {
+  const bool dropout = bits != nullptr || seed != nullptr;
+  if ((bits != nullptr && seed != nullptr) ||
+      (dropout && (threshold <= 0 || threshold >= 256)))
+    return cudaErrorInvalidValue;
+  const Args a = {q, k, v, g, bits, seed, dq, dk, dv, stats, G, S, H, valid_len, block,
+                  threshold, scale, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case a2m::kFloat32:
-      return dispatch_hd<float>(q, k, v, g, bits, dq, dk, dv, stats, G, S, H, hd, valid_len,
-                                block, threshold, scale, st);
-    case a2m::kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(q, k, v, g, bits, dq, dk, dv, stats, G, S, H, hd,
-                                        valid_len, block, threshold, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+    case a2m::kFloat32: return dispatch_hd<float>(a, hd);
+    case a2m::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd);
+    default: return cudaErrorInvalidValue;
   }
 }

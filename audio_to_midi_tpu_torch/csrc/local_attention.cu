@@ -28,10 +28,24 @@
 // ~0.13 GFLOP.  Design: one block of 256 threads per (16-row window, head,
 // sample), 16 lanes per query row so a row's softmax reduces in 4 shuffles
 // inside one warp, every input element loaded into shared memory once.
+//
+// Dropout on the attention weights is a template parameter of the one body,
+// as `get_bits` is of the TPU's _two_phase_core: none, precomputed uint8
+// bits (B, H, P, P) per phase (fused_local_two_phase_dropout, :697) or
+// Philox bytes drawn in the kernel from a seed in device memory
+// (_two_phase_drop_prng_impl, :1622; stream = (sample, phase * H + head)).
+// The planes keep the TPU kernel's P x P shape, but only the in-window bytes
+// are read or drawn: 2 x 16 bytes per row, at the (row, column) the TPU
+// kernel would take them from.  A phase-B window starts 8 columns into a
+// 16-column Philox group, so its row takes the upper half of one group and
+// the lower half of the next; 64 threads fetch the 8-byte halves of both
+// phases into shared memory before the one barrier.  The mask goes on the
+// normalized fp32 weights, kept ones scaled by 256 / (256 - threshold).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -39,12 +53,13 @@ constexpr int kWindow = 16;
 constexpr int kStride = kWindow / 2;
 constexpr int kThreads = kWindow * kWindow;  // one lane per (row, key) pair
 
-template <typename T, int HD>
+template <typename T, int HD, int MASK>
 __global__ void __launch_bounds__(kThreads)
 local_two_phase_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
                        const T* __restrict__ qb, const T* __restrict__ kb,
-                       const T* __restrict__ v, T* __restrict__ out, int P, int H,
-                       float scale) {
+                       const T* __restrict__ v, const uint8_t* __restrict__ bits_a,
+                       const uint8_t* __restrict__ bits_b, const int* __restrict__ seed,
+                       T* __restrict__ out, int P, int H, int threshold, float scale) {
   __shared__ float sQa[kWindow][HD + 1];
   __shared__ float sKa[kWindow][HD + 1];
   __shared__ float sQb[kWindow][HD + 1];
@@ -52,6 +67,8 @@ local_two_phase_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
   __shared__ float sV[2 * kWindow][HD];       // rows 16w-8 .. 16w+23
   __shared__ float sPa[kWindow][kWindow + 1];
   __shared__ float sPb[kWindow][kWindow + 1];
+  // Mask bytes [phase][row][key / 4], four keys to a word.
+  __shared__ uint32_t sMask[MASK == a2m::kMaskNone ? 1 : 2][kWindow][kWindow / 4];
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * kWindow;
@@ -75,6 +92,26 @@ local_two_phase_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
     const long long off = base + row * row_stride + d;
     sKb[r][d] = inside ? a2m::to_float(kb[off]) : 0.f;
     sV[r][d] = inside ? a2m::to_float(v[off]) : 0.f;
+  }
+  if (MASK != a2m::kMaskNone && tid < 4 * kWindow) {
+    // Thread (phase, row, half) fetches 8 bytes of that row's window.
+    const int phase = tid / (2 * kWindow);
+    const int mr = (tid / 2) % kWindow;
+    const int half = tid % 2;
+    const int mrow = r0 + mr;
+    const int first = phase == 0 ? r0 : (mr < kStride ? r0 - kStride : r0 + kStride);
+    if (phase == 0 || (mrow >= kStride && mrow < P - kStride)) {
+      // Bits: one plane per phase, core = head.  Philox: core = phase * H + head.
+      const a2m::MaskPlane plane =
+          MASK == a2m::kMaskBits
+              ? a2m::make_mask_plane<MASK>(phase == 0 ? bits_a : bits_b, seed, blockIdx.z,
+                                           blockIdx.y, H, P)
+              : a2m::make_mask_plane<MASK>(nullptr, seed, blockIdx.z, phase * H + blockIdx.y,
+                                           2 * H, P);
+      const uint2 bytes = a2m::mask_bytes8<MASK>(plane, mrow, first + kStride * half, P);
+      sMask[phase][mr][2 * half] = bytes.x;
+      sMask[phase][mr][2 * half + 1] = bytes.y;
+    }
   }
   __syncthreads();
 
@@ -110,8 +147,17 @@ local_two_phase_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
     la += __shfl_xor_sync(0xffffffffu, la, o);
     lb += __shfl_xor_sync(0xffffffffu, lb, o);
   }
-  sPa[r][j] = ea / la;
-  sPb[r][j] = band ? eb / lb : 0.f;
+  float wa = ea / la;
+  float wb = band ? eb / lb : 0.f;
+  if (MASK != a2m::kMaskNone) {
+    const float keep_inv = 256.f / (256.f - static_cast<float>(threshold));
+    const int shift = 8 * (j % 4);
+    wa = a2m::apply_mask_byte(wa, (sMask[0][r][j / 4] >> shift) & 255, threshold, keep_inv);
+    if (band)
+      wb = a2m::apply_mask_byte(wb, (sMask[1][r][j / 4] >> shift) & 255, threshold, keep_inv);
+  }
+  sPa[r][j] = wa;
+  sPb[r][j] = wb;
   __syncwarp();  // a row's weights are written and read by its own 16 lanes
 
 #pragma unroll
@@ -129,26 +175,38 @@ local_two_phase_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* qa, const void* ka, const void* qb, const void* kb,
-                   const void* v, void* out, int B, int P, int H, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(P / kWindow, H, B);
-  local_two_phase_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qa), static_cast<const T*>(ka), static_cast<const T*>(qb),
-      static_cast<const T*>(kb), static_cast<const T*>(v), static_cast<T*>(out), P, H,
-      scale);
+struct Args {
+  const void *qa, *ka, *qb, *kb, *v, *bits_a, *bits_b, *seed;
+  void* out;
+  int B, P, H, threshold;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int MASK>
+cudaError_t launch(const Args& a) {
+  const dim3 grid(a.P / kWindow, a.H, a.B);
+  local_two_phase_kernel<T, HD, MASK><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.qa), static_cast<const T*>(a.ka), static_cast<const T*>(a.qb),
+      static_cast<const T*>(a.kb), static_cast<const T*>(a.v),
+      static_cast<const uint8_t*>(a.bits_a), static_cast<const uint8_t*>(a.bits_b),
+      static_cast<const int*>(a.seed), static_cast<T*>(a.out), a.P, a.H, a.threshold, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_mask(const Args& a) {
+  if (a.bits_a != nullptr) return launch<T, HD, a2m::kMaskBits>(a);
+  if (a.seed != nullptr) return launch<T, HD, a2m::kMaskPhilox>(a);
+  return launch<T, HD, a2m::kMaskNone>(a);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const void* qa, const void* ka, const void* qb, const void* kb,
-                        const void* v, void* out, int B, int P, int H, int hd, float scale,
-                        cudaStream_t stream) {
+cudaError_t dispatch_hd(const Args& a, int hd) {
   switch (hd) {
-    case 16: return launch<T, 16>(qa, ka, qb, kb, v, out, B, P, H, scale, stream);
-    case 32: return launch<T, 32>(qa, ka, qb, kb, v, out, B, P, H, scale, stream);
-    case 64: return launch<T, 64>(qa, ka, qb, kb, v, out, B, P, H, scale, stream);
+    case 16: return dispatch_mask<T, 16>(a);
+    case 32: return dispatch_mask<T, 32>(a);
+    case 64: return dispatch_mask<T, 64>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -156,18 +214,26 @@ cudaError_t dispatch_hd(const void* qa, const void* ka, const void* qb, const vo
 }  // namespace
 
 // qa, ka, qb, kb, v, out: contiguous (B, P, H*hd) device buffers of one
-// dtype, P a multiple of 16.  Returns the cudaError_t of the launch.
+// dtype, P a multiple of 16.  Either bits_a and bits_b (contiguous
+// (B, H, P, P) uint8, one per phase) or seed ((2,) int32 in device memory)
+// may be given, with threshold in (0, 256); all null: no dropout.  Returns
+// the cudaError_t of the launch.
 extern "C" int a2m_local_two_phase(const void* qa, const void* ka, const void* qb,
-                                   const void* kb, const void* v, void* out, int B, int P,
-                                   int H, int hd, float scale, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                   const void* kb, const void* v, const void* bits_a,
+                                   const void* bits_b, const void* seed, void* out, int B,
+                                   int P, int H, int hd, int threshold, float scale, int dtype,
+                                   void* stream) {
   if (P % kWindow != 0) return cudaErrorInvalidValue;
+  const bool with_bits = bits_a != nullptr || bits_b != nullptr;
+  const bool dropout = with_bits || seed != nullptr;
+  if ((with_bits && (bits_a == nullptr || bits_b == nullptr || seed != nullptr)) ||
+      (dropout && (threshold <= 0 || threshold >= 256)))
+    return cudaErrorInvalidValue;
+  const Args a = {qa, ka, qb, kb, v, bits_a, bits_b, seed, out, B, P, H, threshold, scale,
+                  static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case a2m::kFloat32:
-      return dispatch_hd<float>(qa, ka, qb, kb, v, out, B, P, H, hd, scale, st);
-    case a2m::kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(qa, ka, qb, kb, v, out, B, P, H, hd, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+    case a2m::kFloat32: return dispatch_hd<float>(a, hd);
+    case a2m::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd);
+    default: return cudaErrorInvalidValue;
   }
 }

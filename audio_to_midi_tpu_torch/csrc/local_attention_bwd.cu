@@ -3,7 +3,13 @@
 // output, window 16, stride 8, in padded coordinates.
 //
 // Replaces audio_to_midi_tpu/ops/pallas_attention.py two_phase_grads (:992,
-// _two_phase_bwd_kernel -> _two_phase_bwd_core -> _core_grads, :880-968).
+// _two_phase_bwd_kernel), two_phase_grads_drop (:1025, precomputed uint8
+// bits (B, H, P, P) per phase) and two_phase_grads_drop_prng (:1682, bytes
+// drawn from the forward's seed), all of them _two_phase_bwd_core ->
+// _core_grads, :880-968.  The mask source is a template parameter of the one
+// body, as in local_attention.cu; a kept weight w and its dw are scaled by
+// 256 / (256 - threshold), dropped ones are 0, delta sums dw * w over the
+// undropped w.
 // The TPU kernel recomputes two P x P masked logit matrices per (sample,
 // head) because its matrix unit wants large tiles.  Here every row has 16
 // keys per phase, as in local_attention.cu, so a core is one 16 x 16 window:
@@ -39,6 +45,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -49,9 +56,11 @@ constexpr int kThreads = kWindow * kWindow;  // one lane per (row, key) pair
 // One (row r, key j) entry of a 16 x 16 core: the rounded weight and the
 // rounded dlogit.  q_row/g_row: the row's scaled q and g'; k_row/v_row: the
 // key's k and v; each HD floats.  The 16 lanes of a row are aligned.
-template <typename T, int HD>
+// mask_words: the row's 16 mask bytes, four keys to a word.
+template <typename T, int HD, int MASK>
 __device__ __forceinline__ void core_entry(const float* q_row, const float* k_row,
                                            const float* g_row, const float* v_row,
+                                           const uint32_t* mask_words, int j, int threshold,
                                            float* w_out, float* dl_out) {
   float s = 0.f;
   float dw = 0.f;
@@ -68,21 +77,30 @@ __device__ __forceinline__ void core_entry(const float* q_row, const float* k_ro
 #pragma unroll
   for (int o = kWindow / 2; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
   const float w = e / l;
+  float w_used = w;
+  if (MASK != a2m::kMaskNone) {
+    const float keep_inv = 256.f / (256.f - static_cast<float>(threshold));
+    const int byte = (mask_words[j / 4] >> (8 * (j % 4))) & 255;
+    w_used = a2m::apply_mask_byte(w, byte, threshold, keep_inv);
+    dw = a2m::apply_mask_byte(dw, byte, threshold, keep_inv);
+  }
   float delta = dw * w;
 #pragma unroll
   for (int o = kWindow / 2; o > 0; o >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, o);
-  *w_out = a2m::round_to<T>(w);
+  *w_out = a2m::round_to<T>(w_used);
   *dl_out = a2m::round_to<T>(w * (dw - delta));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int MASK>
 __global__ void __launch_bounds__(kThreads)
 local_two_phase_grads_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
                              const T* __restrict__ qb, const T* __restrict__ kb,
                              const T* __restrict__ v, const T* __restrict__ g,
+                             const uint8_t* __restrict__ bits_a,
+                             const uint8_t* __restrict__ bits_b, const int* __restrict__ seed,
                              T* __restrict__ dqa, T* __restrict__ dka, T* __restrict__ dqb,
                              T* __restrict__ dkb, T* __restrict__ dv, int P, int H,
-                             float scale) {
+                             int threshold, float scale) {
   // The 32-row buffers hold rows 16w-8 .. 16w+23; buffer row 8 + r is the
   // block's output row r.  Rows outside [0, P) are zero.
   __shared__ float sQa[kWindow][HD + 1];
@@ -95,6 +113,9 @@ local_two_phase_grads_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
   __shared__ float sDLa[kWindow][kWindow + 1];
   __shared__ float sWb[2][kWindow][kWindow + 1];   // the two phase-B windows
   __shared__ float sDLb[2][kWindow][kWindow + 1];
+  // Mask bytes of the phase-A window (0) and the two phase-B windows (1, 2),
+  // [window][row][key / 4], four keys to a word.
+  __shared__ uint32_t sMask[MASK == a2m::kMaskNone ? 1 : 3][kWindow][kWindow / 4];
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * kWindow;
@@ -121,13 +142,35 @@ local_two_phase_grads_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
     sV[r][d] = inside ? a2m::to_float(v[off]) : 0.f;
     sG[r][d] = inside ? a2m::to_float(g[off]) * (band ? 0.5f : 1.f) : 0.f;
   }
+  if (MASK != a2m::kMaskNone && tid < 6 * kWindow) {
+    // Thread (window, row, half) fetches 8 bytes of that window's row.  The
+    // phase-B windows start at rows (= columns) r0 - 8 and r0 + 8.
+    const int win = tid / (2 * kWindow);
+    const int mr = (tid / 2) % kWindow;
+    const int half = tid % 2;
+    const int first = win == 0 ? r0 : (win == 1 ? r0 - kStride : r0 + kStride);
+    if (first >= 0 && first + kWindow <= P) {
+      const int phase = win == 0 ? 0 : 1;
+      // Bits: one plane per phase, core = head.  Philox: core = phase * H + head.
+      const a2m::MaskPlane plane =
+          MASK == a2m::kMaskBits
+              ? a2m::make_mask_plane<MASK>(phase == 0 ? bits_a : bits_b, seed, blockIdx.z,
+                                           blockIdx.y, H, P)
+              : a2m::make_mask_plane<MASK>(nullptr, seed, blockIdx.z, phase * H + blockIdx.y,
+                                           2 * H, P);
+      const uint2 bytes =
+          a2m::mask_bytes8<MASK>(plane, first + mr, first + kStride * half, P);
+      sMask[win][mr][2 * half] = bytes.x;
+      sMask[win][mr][2 * half + 1] = bytes.y;
+    }
+  }
   __syncthreads();
 
   const int r = tid / kWindow;  // row within the window
   const int j = tid % kWindow;  // key within the window
 
-  core_entry<T, HD>(sQa[r], sKa[j], sG[kStride + r], sV[kStride + j], &sWa[r][j],
-                    &sDLa[r][j]);
+  core_entry<T, HD, MASK>(sQa[r], sKa[j], sG[kStride + r], sV[kStride + j], sMask[0][r], j,
+                          threshold, &sWa[r][j], &sDLa[r][j]);
 #pragma unroll
   for (int sel = 0; sel < 2; ++sel) {
     // Window sel covers buffer rows 16 sel .. 16 sel + 15; the first block
@@ -137,8 +180,9 @@ local_two_phase_grads_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
     float dl = 0.f;
     if (exists) {  // uniform over the block
       const int first = sel * kWindow;
-      core_entry<T, HD>(sQb[first + r], sKb[first + j], sG[first + r], sV[first + j], &w,
-                        &dl);
+      core_entry<T, HD, MASK>(sQb[first + r], sKb[first + j], sG[first + r], sV[first + j],
+                              sMask[MASK == a2m::kMaskNone ? 0 : 1 + sel][r], j, threshold, &w,
+                              &dl);
     }
     sWb[sel][r][j] = w;
     sDLb[sel][r][j] = dl;
@@ -172,59 +216,68 @@ local_two_phase_grads_kernel(const T* __restrict__ qa, const T* __restrict__ ka,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* qa, const void* ka, const void* qb, const void* kb,
-                   const void* v, const void* g, void* dqa, void* dka, void* dqb, void* dkb,
-                   void* dv, int B, int P, int H, float scale, cudaStream_t stream) {
-  const dim3 grid(P / kWindow, H, B);
-  local_two_phase_grads_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qa), static_cast<const T*>(ka), static_cast<const T*>(qb),
-      static_cast<const T*>(kb), static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<T*>(dqa), static_cast<T*>(dka), static_cast<T*>(dqb), static_cast<T*>(dkb),
-      static_cast<T*>(dv), P, H, scale);
+struct Args {
+  const void *qa, *ka, *qb, *kb, *v, *g, *bits_a, *bits_b, *seed;
+  void *dqa, *dka, *dqb, *dkb, *dv;
+  int B, P, H, threshold;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int MASK>
+cudaError_t launch(const Args& a) {
+  const dim3 grid(a.P / kWindow, a.H, a.B);
+  local_two_phase_grads_kernel<T, HD, MASK><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.qa), static_cast<const T*>(a.ka), static_cast<const T*>(a.qb),
+      static_cast<const T*>(a.kb), static_cast<const T*>(a.v), static_cast<const T*>(a.g),
+      static_cast<const uint8_t*>(a.bits_a), static_cast<const uint8_t*>(a.bits_b),
+      static_cast<const int*>(a.seed), static_cast<T*>(a.dqa), static_cast<T*>(a.dka),
+      static_cast<T*>(a.dqb), static_cast<T*>(a.dkb), static_cast<T*>(a.dv), a.P, a.H,
+      a.threshold, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dispatch_mask(const Args& a) {
+  if (a.bits_a != nullptr) return launch<T, HD, a2m::kMaskBits>(a);
+  if (a.seed != nullptr) return launch<T, HD, a2m::kMaskPhilox>(a);
+  return launch<T, HD, a2m::kMaskNone>(a);
+}
+
 template <typename T>
-cudaError_t dispatch_hd(const void* qa, const void* ka, const void* qb, const void* kb,
-                        const void* v, const void* g, void* dqa, void* dka, void* dqb,
-                        void* dkb, void* dv, int B, int P, int H, int hd, float scale,
-                        cudaStream_t stream) {
+cudaError_t dispatch_hd(const Args& a, int hd) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(qa, ka, qb, kb, v, g, dqa, dka, dqb, dkb, dv, B, P, H, scale,
-                           stream);
-    case 32:
-      return launch<T, 32>(qa, ka, qb, kb, v, g, dqa, dka, dqb, dkb, dv, B, P, H, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(qa, ka, qb, kb, v, g, dqa, dka, dqb, dkb, dv, B, P, H, scale,
-                           stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return dispatch_mask<T, 16>(a);
+    case 32: return dispatch_mask<T, 32>(a);
+    case 64: return dispatch_mask<T, 64>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // qa, ka, qb, kb, v, g and the five outputs: contiguous (B, P, H*hd) device
-// buffers of one dtype, P a multiple of 16.  Returns the cudaError_t of the
-// launch (0 on success).
+// buffers of one dtype, P a multiple of 16.  Either bits_a and bits_b
+// (contiguous (B, H, P, P) uint8, one per phase) or seed ((2,) int32 in
+// device memory) may be given, with threshold in (0, 256); all null: no
+// dropout.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int a2m_local_two_phase_grads(const void* qa, const void* ka, const void* qb,
                                          const void* kb, const void* v, const void* g,
-                                         void* dqa, void* dka, void* dqb, void* dkb, void* dv,
-                                         int B, int P, int H, int hd, float scale, int dtype,
-                                         void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                         const void* bits_a, const void* bits_b,
+                                         const void* seed, void* dqa, void* dka, void* dqb,
+                                         void* dkb, void* dv, int B, int P, int H, int hd,
+                                         int threshold, float scale, int dtype, void* stream) {
   if (P % kWindow != 0) return cudaErrorInvalidValue;
+  const bool with_bits = bits_a != nullptr || bits_b != nullptr;
+  const bool dropout = with_bits || seed != nullptr;
+  if ((with_bits && (bits_a == nullptr || bits_b == nullptr || seed != nullptr)) ||
+      (dropout && (threshold <= 0 || threshold >= 256)))
+    return cudaErrorInvalidValue;
+  const Args a = {qa, ka, qb, kb, v, g, bits_a, bits_b, seed, dqa, dka, dqb, dkb, dv, B, P, H,
+                  threshold, scale, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case a2m::kFloat32:
-      return dispatch_hd<float>(qa, ka, qb, kb, v, g, dqa, dka, dqb, dkb, dv, B, P, H, hd,
-                                scale, st);
-    case a2m::kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(qa, ka, qb, kb, v, g, dqa, dka, dqb, dkb, dv, B, P, H,
-                                        hd, scale, st);
-    default:
-      return cudaErrorInvalidValue;
+    case a2m::kFloat32: return dispatch_hd<float>(a, hd);
+    case a2m::kBFloat16: return dispatch_hd<__nv_bfloat16>(a, hd);
+    default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,6 @@
 """Compressed-KV (MLA-style) self-attention and sliding-window local attention.
 
-Counterpart of ``audio_to_midi_tpu/models/attention.py`` without dropout
-(serving, and training at ``transformer_dropout_rate=0.0``; a rate above 0
-is refused in ``models/model.forward`` until its kernels are ported):
+Counterpart of ``audio_to_midi_tpu/models/attention.py``:
   * ``self_attention``: q_up D->H*hd, shared kv_down D->ckv with k_up/v_up
     ckv->H*hd, RoPE on q and k, attention core, bias-free out-proj;
   * ``local_self_attention``: symmetric pad so stride-8 windows of 16 cover
@@ -18,9 +16,22 @@ through their plain versions.  The routing between the two-phase kernel and
 the flattened-window route (``padded % 16``) mirrors the JAX package.  The
 kernel wrappers are differentiable (their backward is a kernel too); the
 plain versions are differentiated by ordinary autograd.
+
+Attention-weight dropout (``enable_dropout`` with a rate above 0) follows the
+JAX package's routing.  Where the rate quantizes to a uint8 threshold inside
+(0, 256) -- 0.1 -> 26/256 -- and the geometry suits the kernel (global: S >=
+128; local: the two-phase route), one (2,) int32 seed is drawn from the
+generator on the activations' device and the seeded kernel applies the mask
+it stands for; with ``"xla"`` the plain version applies the same mask, from
+the plain Philox.  ``A2M_PRNG_DROPOUT=0`` in the environment selects, as in
+the JAX package, the precomputed-bits kernels instead, fed the same bytes.  Everything else -- a rate too small or too large to
+quantize, short sequences, the windowed local route -- computes the weights
+in plain PyTorch and drops them at the exact rate with ``nn.dropout``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -47,15 +58,32 @@ class SelfAttention(nn.Module):
         self.out = a2m_nn.Linear(width, d, generator, use_bias=False)
 
 
-def _cores(cfg: ModelConfig):
-    """(global core, local core) for ``cfg.attention_impl``."""
+def _plain_impl(cfg: ModelConfig) -> bool:
+    """Whether ``cfg.attention_impl`` asks for the plain versions."""
     if cfg.attention_impl == "pallas":
-        return ak.global_attention, ak.local_two_phase
+        return False
     if cfg.attention_impl == "xla":
-        return ak.global_attention_plain, ak.local_two_phase_plain
+        return True
     raise NotImplementedError(
         f"attention_impl={cfg.attention_impl!r} is not ported; use 'pallas' or 'xla'"
     )
+
+
+def _dropout_on(cfg: ModelConfig, enable_dropout: bool,
+                generator: torch.Generator | None) -> bool:
+    """Dropout only gates the routes when it does something: rate 0 keeps
+    the dropout-free kernels in training."""
+    on = enable_dropout and cfg.transformer_dropout_rate > 0
+    if on and generator is None:
+        raise ValueError("dropout needs a generator when enabled")
+    return on
+
+
+def new_dropout_seed(generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """A fresh (2,) int32 seed for one attention call, drawn on ``device``
+    (the generator's): no value passes through the host."""
+    return torch.randint(0, 2 ** 31 - 1, (2,), dtype=torch.int32, device=device,
+                         generator=generator)
 
 
 def _qkv(x: torch.Tensor, p: SelfAttention, num_heads: int, rope: RopeFreqs):
@@ -71,21 +99,59 @@ def _qkv(x: torch.Tensor, p: SelfAttention, num_heads: int, rope: RopeFreqs):
     return q, k, v
 
 
-def _attend(q, k, v, core, block: int = 0) -> torch.Tensor:
+def _attend_exact_rate(q, k, v, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Plain attention with ``nn.dropout`` on the weights at the exact rate,
+    as the JAX package's einsum route: q scaled in its dtype, fp32 softmax
+    cast back, dropout, weights . v.  q, k, v: (..., S, H, hd)."""
+    *lead, s, h, hd = q.shape
+    q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
+    logits = torch.einsum("...shd,...Shd->...hsS", q, k)
+    weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    weights = a2m_nn.dropout(weights, rate, generator, True)
+    return torch.einsum("...hsS,...Shd->...shd", weights, v).reshape(*lead, s, h * hd)
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
+            generator: torch.Generator | None = None, dropout: bool = False) -> torch.Tensor:
     """q, k, v: (..., S, H, hd) -> (..., S, H*hd).  The (..., S, H, hd) ->
     (G, S, H*hd) reshape is free: no transposes around the core."""
     *lead, s, h, hd = q.shape
-    flat = lambda t: t.reshape(-1, s, h * hd)
-    return core(flat(q), flat(k), flat(v), h, block).reshape(*lead, s, h * hd)
+    plain = _plain_impl(cfg)
+    rate = cfg.transformer_dropout_rate
+    threshold = ak.dropout_threshold(rate)
+    # The dropout kernel wants sequences of some length; the windowed route's
+    # S = 16, and rates that quantize to keep-all or keep-nothing, drop at
+    # the exact rate in plain PyTorch.
+    if dropout and not (s >= 128 and 0 < threshold < 256):
+        return _attend_exact_rate(q, k, v, rate, generator)
+    fq, fk, fv = (t.reshape(-1, s, h * hd) for t in (q, k, v))
+    if not dropout:
+        core = ak.global_attention_plain if plain else ak.global_attention
+        out = core(fq, fk, fv, h, block)
+    else:
+        seed = new_dropout_seed(generator, q.device)
+        if plain:
+            bits = ak.philox_bits_plain(seed, fq.shape[0], h, s)
+            out = ak.global_attention_plain(fq, fk, fv, h, block, None, bits, threshold)
+        elif ak.prng_dropout_available():
+            out = ak.global_attention_dropout(fq, fk, fv, seed, h, block,
+                                              threshold=threshold)
+        else:
+            bits = ak.philox_bits(seed, fq.shape[0], h, s)
+            out = ak.global_attention_dropout_bits(fq, fk, fv, bits, h, block,
+                                                   threshold=threshold)
+    return out.reshape(*lead, s, h * hd)
 
 
 def self_attention(
-    x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig
+    x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig, *,
+    generator: torch.Generator | None = None, enable_dropout: bool = False,
 ) -> torch.Tensor:
     """Global compressed-KV attention.  x: (..., S, D) -> same shape."""
-    global_core, _ = _cores(cfg)
+    dropout = _dropout_on(cfg, enable_dropout, generator)
     q, k, v = _qkv(x, p, cfg.num_transformer_heads, rope)
-    return a2m_nn.linear(_attend(q, k, v, global_core), p.out.w)
+    attn = _attend(q, k, v, cfg, generator=generator, dropout=dropout)
+    return a2m_nn.linear(attn, p.out.w)
 
 
 def _local_padding(seq_len: int, window: int) -> tuple[int, int]:
@@ -98,10 +164,13 @@ def _local_padding(seq_len: int, window: int) -> tuple[int, int]:
 
 
 def local_self_attention(
-    x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig
+    x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig, *,
+    generator: torch.Generator | None = None, enable_dropout: bool = False,
 ) -> torch.Tensor:
     """Sliding-window attention with overlap averaging.  x: (B, S, D) -> same."""
-    global_core, local_core = _cores(cfg)
+    plain = _plain_impl(cfg)
+    dropout = _dropout_on(cfg, enable_dropout, generator)
+    threshold = ak.dropout_threshold(cfg.transformer_dropout_rate)
     b, seq_len, d = x.shape
     window = cfg.local_context_window
     stride = window // 2
@@ -121,11 +190,13 @@ def local_self_attention(
     num_blocks = padded // stride
     heads, hd = cfg.num_transformer_heads, cfg.attention_size
 
-    if padded % window == 0 and padded % 16 == 0:
+    if padded % window == 0 and padded % 16 == 0 and (
+            not dropout or 0 < threshold < 256):
         # Two-phase route: q/k/v projected once on the padded rows, RoPE'd
         # with per-phase tables whose positions restart every window (phase
         # B's windows start `stride` rows later), one core for both phases
-        # and the overlap average.
+        # and the overlap average.  With dropout each original window lies in
+        # exactly one phase, so per-window weights are dropped independently.
         q = a2m_nn.linear(xp, p.q_up.w).reshape(b, padded, heads, hd)
         ckv = a2m_nn.linear(xp, p.kv_down.w)
         k = a2m_nn.linear(ckv, p.k_up.w).reshape(b, padded, heads, hd)
@@ -138,21 +209,44 @@ def local_self_attention(
         flat = lambda t: t.reshape(b, padded, heads * hd)
         qa, ka = rope_with(q, cos_a, sin_a), rope_with(k, cos_a, sin_a)
         qb, kb = rope_with(q, cos_b, sin_b), rope_with(k, cos_b, sin_b)
-        out = local_core(flat(qa), flat(ka), flat(qb), flat(kb), v, heads, window)
+        inputs = (flat(qa), flat(ka), flat(qb), flat(kb), v)
+        if not dropout:
+            core = ak.local_two_phase_plain if plain else ak.local_two_phase
+            out = core(*inputs, heads, window)
+        else:
+            seed = new_dropout_seed(generator, x.device)
+            if plain:
+                bits = ak.two_phase_planes(
+                    ak.philox_bits_plain(seed, b, 2 * heads, padded), heads)
+                out = ak.local_two_phase_plain(*inputs, heads, window, *bits, threshold)
+            elif ak.prng_dropout_available():
+                out = ak.local_two_phase_dropout(*inputs, seed, heads, window,
+                                                 threshold=threshold)
+            else:
+                bits = ak.two_phase_planes(ak.philox_bits(seed, b, 2 * heads, padded), heads)
+                out = ak.local_two_phase_dropout_bits(*inputs, *bits, heads, window,
+                                                      threshold=threshold)
         # Crop the padded-coordinate average to the first seq_len rows (the
         # reference quirk); the bias-free out-proj commutes with the crop.
         return a2m_nn.linear(out[:, :seq_len, :], p.out.w)
 
-    # Flattened-window route: (B, W, window, D), window w covering padded
-    # rows [w*stride, w*stride + window), built from two interleaved
-    # non-overlapping reshapes; the (windows, window) axes flatten into one
-    # sequence and a block-diagonal mask realizes the per-window softmax.
+    # Windowed routes: (B, W, window, D), window w covering padded rows
+    # [w*stride, w*stride + window), built from two interleaved
+    # non-overlapping reshapes.
     blocks = xp.reshape(b, num_blocks, stride, d)
     windows = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
     q, k, v = _qkv(windows, p, heads, rope)
-    flat = lambda t: t.reshape(b, num_windows * window, heads, hd)
-    out_w = _attend(flat(q), flat(k), flat(v), global_core, block=window)
-    out_w = a2m_nn.linear(out_w.reshape(b, num_windows, window, heads * hd), p.out.w)
+    if dropout:
+        # (B, W, 16, 16) weights per head in plain PyTorch, dropped at the
+        # exact rate: with dropout on, the flattened route is not taken.
+        out_w = _attend(q, k, v, cfg, generator=generator, dropout=True)
+    else:
+        # Flattened: the (windows, window) axes become one sequence and a
+        # block-diagonal mask realizes the per-window softmax.
+        flat = lambda t: t.reshape(b, num_windows * window, heads, hd)
+        out_w = _attend(flat(q), flat(k), flat(v), cfg, block=window)
+        out_w = out_w.reshape(b, num_windows, window, heads * hd)
+    out_w = a2m_nn.linear(out_w, p.out.w)
 
     # Overlap-average in padded coordinates, then crop to seq_len rows.
     first = out_w[:, :, :stride, :]   # window k's contribution to block k

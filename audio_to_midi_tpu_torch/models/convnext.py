@@ -8,8 +8,10 @@ stages computes the same function and is not carried over):
     matmul;
   * block: depthwise k=7 SAME -> LayerNorm -> 1x1 up -> GELU -> 1x1 down ->
     layer-scale gamma -> + residual.
-Stochastic depth is inert in the reference's configuration
-(``enable_cnn_stochastic_depth=False``) and is not ported.
+Stochastic depth (a whole block's branch dropped per sample, at rates that
+ramp from 0 to ``sdd_rate`` over the blocks) runs only with
+``enable_dropout`` and ``enable_cnn_stochastic_depth``; the reference's
+configuration leaves it off.
 
 Training differentiates the blocks through ordinary autograd, the
 counterpart of the JAX package's scanned backward (``cnn_bwd_kernel=False``).
@@ -100,14 +102,26 @@ def downsample(x: torch.Tensor, p: Downsample) -> torch.Tensor:
     return _patch_matmul(x, p.conv)
 
 
-def block(x: torch.Tensor, p: Block) -> torch.Tensor:
-    """ConvNeXt block.  x: (B, L, C)."""
+def sdd_schedule(cfg: ModelConfig) -> list[float]:
+    """Per-block stochastic-depth rates, 0 -> ``cfg.sdd_rate`` over all blocks."""
+    n = sum(cfg.depths)
+    return [cfg.sdd_rate * i / max(n - 1, 1) for i in range(n)]
+
+
+def block(x: torch.Tensor, p: Block, *, sdd_rate: float = 0.0,
+          generator: torch.Generator | None = None) -> torch.Tensor:
+    """ConvNeXt block.  x: (B, L, C).  With a ``generator``, the branch is
+    dropped whole for each sample that draws below ``sdd_rate``."""
     out = a2m_nn.depthwise_conv1d_same(x, p.depth_conv.w, p.depth_conv.b)
     out = a2m_nn.layer_norm(out, p.norm.scale, p.norm.bias)
     out = a2m_nn.linear(out, p.pw1.w, p.pw1.b)
     out = a2m_nn.gelu(out)
     out = a2m_nn.linear(out, p.pw2.w, p.pw2.b)
-    return p.gamma.to(out.dtype) * out + x
+    out = p.gamma.to(out.dtype) * out
+    if generator is not None:
+        rand = torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device)
+        out = torch.where(rand < sdd_rate, torch.zeros_like(out), out)
+    return out + x
 
 
 def stage_bwd_kernel_wanted(cfg: ModelConfig, stage: int, dtype: torch.dtype) -> bool:
@@ -126,22 +140,35 @@ def stage_bwd_kernel_wanted(cfg: ModelConfig, stage: int, dtype: torch.dtype) ->
     )
 
 
-def cnn_forward(x: torch.Tensor, cnn: CNN, cfg: ModelConfig | None = None) -> torch.Tensor:
+def cnn_forward(
+    x: torch.Tensor, cnn: CNN, cfg: ModelConfig | None = None, *,
+    generator: torch.Generator | None = None, enable_dropout: bool = False,
+) -> torch.Tensor:
     """Full encoder.  x: (B, L_samples, 2) -> (B, frames, dims[-1]).
+
+    Stochastic depth draws from ``generator`` (on x's device) when
+    ``enable_dropout`` and ``cfg.enable_cnn_stochastic_depth`` are both set.
 
     With ``cfg``, a stage that autograd would have to differentiate on the
     card although the configuration asks for the stage-backward kernel
     raises ``NotImplementedError``: no kernel is skipped silently.  Serving
     (no gradient) and the CPU are unaffected."""
+    enable_sdd = enable_dropout and cfg is not None and cfg.enable_cnn_stochastic_depth
+    if enable_sdd and generator is None:
+        raise ValueError("stochastic depth needs a generator when enabled")
+    rates = iter(sdd_schedule(cfg)) if enable_sdd else None
     h = x
     for i, stage in enumerate(cnn.stages):
         h = stem(h, stage.down) if i == 0 else downsample(h, stage.down)
-        if (cfg is not None and h.is_cuda and h.requires_grad
+        if (cfg is not None and h.is_cuda and h.requires_grad and not enable_sdd
                 and stage_bwd_kernel_wanted(cfg, i, h.dtype)):
             raise NotImplementedError(
                 f"cnn_bwd_kernel=True asks for the ConvNeXt stage-backward kernel in stage "
                 f"{i} (TPU kernel 20, ops/pallas_convnext_bwd.py), which arrives with slice "
                 f"2c of the port; train with cnn_bwd_kernel=False until then")
         for blk in stage.blocks:
-            h = block(h, blk)
+            if enable_sdd:
+                h = block(h, blk, sdd_rate=next(rates), generator=generator)
+            else:
+                h = block(h, blk)
     return a2m_nn.layer_norm(h, cnn.final_norm.scale, cnn.final_norm.bias)

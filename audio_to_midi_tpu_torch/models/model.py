@@ -59,21 +59,18 @@ def forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """audio: (B, 2, num_samples) -> (logits, probs), each (B, frames, 90).
 
-    ``enable_dropout`` with ``cfg.transformer_dropout_rate == 0`` is the
+    ``enable_dropout`` turns on attention-weight dropout and feed-forward
+    dropout at ``cfg.transformer_dropout_rate`` and, with
+    ``cfg.enable_cnn_stochastic_depth`` (off in the reference's
+    configuration), CNN stochastic depth.  All of them draw from
+    ``generator``, which must live on the audio's device; the same generator
+    state gives the same forward, bit for bit.  With a rate of 0 it is the
     serving forward under autograd, as in the JAX package, where a zero rate
-    keeps the dropout-free kernels in training.  A rate above 0 raises:
-    attention-weight dropout and FFN dropout arrive together with their
-    kernels.  ``generator`` will seed them; nothing draws from it yet.  CNN
-    stochastic depth stays inert (``enable_cnn_stochastic_depth=False`` is
-    the reference's behaviour)."""
-    if enable_dropout and cfg.transformer_dropout_rate > 0:
-        raise NotImplementedError(
-            f"transformer_dropout_rate={cfg.transformer_dropout_rate}: dropout in training "
-            "arrives with slice 2b of the port (the in-kernel-dropout attention kernels 4, 5, "
-            "8 and 12-16 and FFN dropout); train with transformer_dropout_rate=0.0 until then")
+    keeps the dropout-free kernels in training, and needs no generator."""
     x = audio.transpose(1, 2)  # (B, L, 2): NWC
-    h = cnn_forward(x, model.cnn, cfg)
-    h = transformer_stack(h, model.transformer, rope, cfg)
+    h = cnn_forward(x, model.cnn, cfg, generator=generator, enable_dropout=enable_dropout)
+    h = transformer_stack(h, model.transformer, rope, cfg, generator=generator,
+                          enable_dropout=enable_dropout)
     return decoder(h, model.decoder)
 
 

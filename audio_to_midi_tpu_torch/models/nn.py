@@ -6,7 +6,9 @@ Counterpart of ``audio_to_midi_tpu/models/nn.py``:
   * a convolution weight is WIO ``(K, C_in / groups, C_out)``;
   * LayerNorm computes in float32 (population variance, eps 1e-5) and casts
     back to the input dtype;
-  * GELU is the tanh approximation (``jax.nn.gelu``'s default).
+  * GELU is the tanh approximation (``jax.nn.gelu``'s default);
+  * dropout is inverted, at the exact rate, from an explicit
+    ``torch.Generator`` -- never the global RNG state.
 
 The ``init_*`` functions draw at the JAX package's scales (uniform
 +-1/sqrt(fan_in), LayerNorm ones/zeros) from an explicit ``torch.Generator``.
@@ -131,3 +133,26 @@ def layer_norm(
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def dropout_mask(shape, keep: float, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """A Bernoulli(keep) mask of ``shape`` on ``device``, bool.  The generator
+    must live on that device; its state advances."""
+    return torch.empty(shape, dtype=torch.float32, device=device).bernoulli_(
+        keep, generator=generator).bool()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            enabled: bool) -> torch.Tensor:
+    """Inverted dropout at the exact ``rate``: kept elements are divided by
+    1 - rate, the others are 0.  A no-op when disabled or at rate 0."""
+    if not enabled or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a generator when enabled")
+    keep = 1.0 - rate
+    if keep <= 0.0:
+        return torch.zeros_like(x)
+    mask = dropout_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))

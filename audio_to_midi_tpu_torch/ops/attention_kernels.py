@@ -1,20 +1,44 @@
 """The attention kernels of the serving and training paths, with their plain
 versions.
 
-Counterpart of kernels 1, 2, 7 and 9 of
-``audio_to_midi_tpu/ops/pallas_attention.py``:
+Counterpart of kernels 1, 2, 4, 5, 7, 8, 9 and 12-16 of
+``audio_to_midi_tpu/ops/pallas_attention.py``.  As there, one kernel body
+serves three sources of the attention-weight dropout mask: none,
+precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
 
 * :func:`global_attention` -- ``fused_attention_nhd`` (global layers, and
-  the block-diagonal flattened-window fallback of the local layers).
+  the block-diagonal flattened-window fallback of the local layers);
+  :func:`global_attention_dropout_bits` -- ``fused_attention_nhd_dropout``;
+  :func:`global_attention_dropout` -- ``fused_attention_nhd_dropout_prng``.
   CUDA source: ``csrc/global_attention.cu``.
-* :func:`local_two_phase` -- ``fused_local_two_phase`` (local layers).
+* :func:`local_two_phase`, :func:`local_two_phase_dropout_bits`,
+  :func:`local_two_phase_dropout` -- ``fused_local_two_phase`` and its
+  ``_dropout`` and ``_dropout_prng`` forms (local layers).
   CUDA source: ``csrc/local_attention.cu``.
 * :func:`global_attention_grads` -- ``nhd_grads``: dq, dk, dv of the global
-  attention, optionally with the uint8 dropout bits its forward applied.
-  CUDA source: ``csrc/global_attention_bwd.cu``.
-* :func:`local_two_phase_grads` -- ``two_phase_grads``: dqa, dka, dqb, dkb,
-  dv of the two-phase local attention.
+  attention, optionally with the uint8 dropout bits its forward applied;
+  :func:`global_attention_grads_prng` -- ``nhd_grads_prng``, with the
+  forward's seed.  CUDA source: ``csrc/global_attention_bwd.cu``.
+* :func:`local_two_phase_grads`, :func:`local_two_phase_grads_bits`,
+  :func:`local_two_phase_grads_prng` -- ``two_phase_grads``,
+  ``two_phase_grads_drop``, ``two_phase_grads_drop_prng``: dqa, dka, dqb,
+  dkb, dv of the two-phase local attention.
   CUDA source: ``csrc/local_attention_bwd.cu``.
+* :func:`philox_bits` -- ``dump_bits_nhd`` / ``dump_bits_two_phase``: the
+  mask bytes the seeded kernels draw.  CUDA source: ``csrc/philox_dump.cu``.
+
+The mask: a weight is kept where its byte ``>= threshold`` and scaled by
+``256 / (256 - threshold)``, with ``threshold = round(rate * 256)``, applied
+to the normalized fp32 softmax weights.  The seeded kernels draw the byte of
+logit (row, column) of stream (sample, core) with Philox4x32-10, key = the
+two seed words, counter = (row, column // 16, sample, core): one call gives
+the 16 bytes of 16 consecutive columns (``csrc/philox.cuh``).  core is the
+head for the global attention and ``phase * H + head`` for the two-phase
+local attention.  :func:`philox_bits_plain` computes the same bytes in
+integer tensor operations on any device, so a seed gives the same masks on
+the CPU and on the card; they are not the TPU generator's.  The seed is a
+``(2,)`` int32 tensor on the inputs' device: the kernels read it there, and
+nothing waits for the host.
 
 Each wrapper takes the kernel's plain PyTorch version only for tensors on
 the CPU.  On a CUDA tensor it launches the kernel or raises: f16 raises
@@ -24,15 +48,17 @@ raises ``ValueError``.  Each wrapper counts its launches in ``.launches``.
 The source notes in ``csrc/`` say what bounds each kernel on the card and
 how its design deals with that.
 
-Both forwards are ``torch.autograd.Function``s on either device: they save
-their inputs, as the JAX ``custom_vjp``s do, and their backward goes through
-the ``*_grads`` wrappers -- the plain backward on the CPU, the CUDA backward
-kernel on the card, never autograd through the plain forward.
+The forwards are ``torch.autograd.Function``s on either device: they save
+their inputs (and the bits or the seed, never the drawn mask), as the JAX
+``custom_vjp``s do, and their backward goes through the ``*_grads``
+wrappers -- the plain backward on the CPU, the CUDA backward kernel on the
+card, never autograd through the plain forward.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -86,11 +112,48 @@ def _unheads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.transpose(1, 2).reshape(g, s, h * hd).to(dtype)
 
 
+def dropout_threshold(rate: float) -> int:
+    """The uint8 threshold whose drop rate ``threshold / 256`` is nearest
+    ``rate``; the kernels take it only inside (0, 256)."""
+    return int(round(rate * 256.0))
+
+
+def prng_dropout_available() -> bool:
+    """Whether attention-weight dropout draws its mask inside the kernels
+    (the default).  With ``A2M_PRNG_DROPOUT=0`` in the environment, as in the
+    JAX package, the models take the precomputed-bits route instead:
+    :func:`philox_bits` writes the same bytes out and the ``*_dropout_bits``
+    kernels read them."""
+    return os.environ.get("A2M_PRNG_DROPOUT", "1") != "0"
+
+
+def _check_threshold(threshold: int) -> None:
+    if not 0 < threshold < 256:
+        raise ValueError(f"dropout threshold {threshold} out of (0, 256)")
+
+
+def _check_bits(bits: torch.Tensor, shape: tuple[int, ...], like: torch.Tensor) -> None:
+    if (bits.dtype != torch.uint8 or bits.device != like.device or not bits.is_contiguous()
+            or tuple(bits.shape) != shape):
+        raise ValueError(f"bits must be contiguous uint8 {shape} on {like.device}, got "
+                         f"{bits.dtype} {tuple(bits.shape)} on {bits.device}")
+
+
+def _check_seed(seed: torch.Tensor, like: torch.Tensor) -> None:
+    if (seed.dtype != torch.int32 or tuple(seed.shape) != (2,) or seed.device != like.device
+            or not seed.is_contiguous()):
+        raise ValueError(f"the dropout seed must be a (2,) int32 tensor on {like.device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+
+
+def _pointer(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def _apply_bits(x: torch.Tensor, bits: torch.Tensor, threshold: int) -> torch.Tensor:
     """Inverted dropout from uint8 bits: keep where ``bits >= threshold``,
     kept values scaled by 256 / (256 - threshold).  x: fp32."""
-    if not 0 < threshold < 256:
-        raise ValueError(f"dropout threshold {threshold} out of (0, 256)")
+    _check_threshold(threshold)
     keep = bits.to(torch.int32) >= threshold
     return torch.where(keep, x * (256.0 / (256.0 - threshold)), torch.zeros_like(x))
 
@@ -127,7 +190,88 @@ def _core_grads(
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: global attention over (G, S, H*hd)
+# Kernel 14: the mask bytes of the seeded kernels (Philox4x32-10 by position)
+# ---------------------------------------------------------------------------
+
+PHILOX_GROUP = 16  # columns (bytes) per Philox call
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of ``m * x`` for uint32 values held in
+    int64: the product is taken in 16-bit halves of x so that nothing
+    exceeds 63 bits."""
+    p_lo, p_hi = m * (x & 0xFFFF), m * (x >> 16)
+    mid = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32 with 10 rounds (Salmon et al., Random123).  ``counter``:
+    four and ``key``: two broadcastable int64 tensors of uint32 values;
+    returns the four output words likewise."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _U32, (k1 + _PHILOX_W1) & _U32
+    return c0, c1, c2, c3
+
+
+def _seed_key(seed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    words = seed.to(torch.int64) & _U32
+    return words[0], words[1]
+
+
+def philox_bits_plain(seed: torch.Tensor, samples: int, cores: int, p_len: int) -> torch.Tensor:
+    """Plain version of :func:`philox_bits`, on the seed's device."""
+    arange = lambda n: torch.arange(n, dtype=torch.int64, device=seed.device)
+    groups = -(-p_len // PHILOX_GROUP)
+    counter = (arange(p_len)[:, None], arange(groups)[None, :],
+               arange(samples)[:, None, None, None], arange(cores)[None, :, None, None])
+    words = torch.stack(torch.broadcast_tensors(*philox4x32_10(counter, _seed_key(seed))), dim=-1)
+    octets = (words[..., None] >> (8 * arange(4))) & 255   # (..., groups, word, byte)
+    plane = octets.reshape(samples, cores, p_len, groups * PHILOX_GROUP)
+    return plane[..., :p_len].to(torch.uint8).contiguous()
+
+
+def philox_bits(seed: torch.Tensor, samples: int, cores: int, p_len: int) -> torch.Tensor:
+    """The dropout mask bytes that the seeded kernels draw for ``seed``:
+    (samples, cores, p_len, p_len) uint8.  For the global attention cores =
+    H; for the two-phase local attention cores = 2 H, phase A's planes first
+    (see :func:`two_phase_planes`)."""
+    if seed.device.type == "cpu":
+        return philox_bits_plain(seed, samples, cores, p_len)
+    if seed.device.type != "cuda":
+        raise ValueError(f"philox_bits runs on CPU or CUDA, not {seed.device}")
+    _check_seed(seed, seed)
+    if min(samples, cores, p_len) <= 0:
+        raise ValueError("samples, cores and p_len must be positive")
+    out = torch.empty((samples, cores, p_len, p_len), dtype=torch.uint8, device=seed.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(seed.device):
+        code = lib.a2m_philox_dump(seed.data_ptr(), out.data_ptr(), samples, cores, p_len,
+                                   _stream_handle(seed.device))
+    cuda_build.check(code, "philox_bits")
+    philox_bits.launches += 1
+    return out
+
+
+philox_bits.launches = 0
+
+
+def two_phase_planes(bits: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 2 H, P, P) bytes of the two-phase streams -> contiguous phase-A and
+    phase-B planes, each (B, H, P, P)."""
+    return bits[:, :num_heads].contiguous(), bits[:, num_heads:].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1, 4, 15 and 9, 16: global attention over (G, S, H*hd)
 # ---------------------------------------------------------------------------
 
 
@@ -142,8 +286,10 @@ def _global_mask(s: int, block: int, valid_len: int, device) -> torch.Tensor:
 def global_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     block: int = 0, valid_len: int | None = None,
+    bits: torch.Tensor | None = None, threshold: int = 0,
 ) -> torch.Tensor:
-    """Plain version of :func:`global_attention`."""
+    """Plain version of :func:`global_attention` and, with ``bits``
+    (G, H, S, S) uint8, of the two dropout forms."""
     g, s, dm = q.shape
     hd = dm // num_heads
     valid_len = s if valid_len is None else valid_len
@@ -154,6 +300,8 @@ def global_attention_plain(
     mask = _global_mask(s, block, valid_len, q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, MASK_FILL))
     weights = torch.softmax(logits, dim=-1)
+    if bits is not None:
+        weights = _apply_bits(weights, bits, threshold)
     out = torch.einsum("ghsS,gShd->gshd", weights, vf)
     return out.reshape(g, s, dm).to(q.dtype)
 
@@ -181,26 +329,78 @@ def _check_global(s: int, block: int, valid_len: int | None) -> int:
     return valid_len
 
 
-def _global_attention_forward(q, k, v, num_heads: int, block: int, valid_len: int | None):
-    if q.device.type == "cpu":
-        return global_attention_plain(q, k, v, num_heads, block, valid_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"global_attention runs on CPU or CUDA, not {q.device}")
+def _check_mask_source(like: torch.Tensor, bits, bits_shape, seed, threshold: int) -> int:
+    """Validates the mask source of a CUDA launch; returns the threshold to
+    pass on (0 without dropout)."""
+    if bits is None and seed is None:
+        return 0
+    _check_threshold(threshold)
+    if seed is not None:
+        _check_seed(seed, like)
+    for plane in bits or ():
+        _check_bits(plane, bits_shape, like)
+    return threshold
+
+
+def _global_forward(wrapper, q, k, v, num_heads: int, block: int, valid_len: int | None,
+                    bits=None, seed=None, threshold: int = 0):
+    """The global forward with its mask source: none, ``bits`` or ``seed``.
+    ``wrapper`` is the public function whose launch this counts as."""
     g, s, _ = q.shape
+    if q.device.type == "cpu":
+        if seed is not None:
+            bits = philox_bits_plain(seed, g, num_heads, s)
+        return global_attention_plain(q, k, v, num_heads, block, valid_len, bits, threshold)
+    if q.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {q.device}")
     dtype, hd = _check_cuda((q, k, v), num_heads)
     valid_len = _check_global(s, block, valid_len)
+    threshold = _check_mask_source(q, None if bits is None else (bits,),
+                                   (g, num_heads, s, s), seed, threshold)
     out = torch.empty_like(q)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         code = lib.a2m_global_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g, s, num_heads, hd, valid_len, block, scale, _DTYPE_CODES[dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _pointer(bits), _pointer(seed),
+            out.data_ptr(), g, s, num_heads, hd, valid_len, block, threshold, scale,
+            _DTYPE_CODES[dtype], _stream_handle(q.device),
+        )
+    cuda_build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def _global_grads(wrapper, q, k, v, g, num_heads: int, block: int, valid_len: int | None,
+                  bits=None, seed=None, threshold: int = 0):
+    n, s, _ = q.shape
+    if q.device.type == "cpu":
+        if seed is not None:
+            bits = philox_bits_plain(seed, n, num_heads, s)
+        return global_attention_grads_plain(q, k, v, g, num_heads, block, valid_len,
+                                            bits, threshold)
+    if q.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {q.device}")
+    dtype, hd = _check_cuda((q, k, v, g), num_heads)
+    valid_len = _check_global(s, block, valid_len)
+    threshold = _check_mask_source(q, None if bits is None else (bits,),
+                                   (n, num_heads, s, s), seed, threshold)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    # Per-row softmax max, 1/sum and sum_c dw.w, written by the dq pass and
+    # read by the dk/dv pass.
+    stats = torch.empty((n, num_heads, 3, s), dtype=torch.float32, device=q.device)
+    scale = float(_query_scale(hd, dtype))
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        code = lib.a2m_global_attention_grads(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _pointer(bits),
+            _pointer(seed), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            n, s, num_heads, hd, valid_len, block, threshold, scale, _DTYPE_CODES[dtype],
             _stream_handle(q.device),
         )
-    cuda_build.check(code, "global_attention")
-    global_attention.launches += 1
-    return out
+    cuda_build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return dq, dk, dv
 
 
 def global_attention_grads(
@@ -213,60 +413,50 @@ def global_attention_grads(
     The softmax is recomputed from q and k; the operands of the five
     products are rounded where the TPU kernel rounds them (see
     :func:`_core_grads`).  ``bits`` (G, H, S, S) uint8 with ``threshold`` in
-    (0, 256) are the dropout bits of a forward that applied them: a weight
-    is kept where ``bits >= threshold`` and scaled by 256/(256 - threshold).
+    (0, 256) are the dropout bits of a forward that applied them
+    (:func:`global_attention_dropout_bits`): a weight is kept where
+    ``bits >= threshold`` and scaled by 256/(256 - threshold).
     """
-    if q.device.type == "cpu":
-        return global_attention_grads_plain(q, k, v, g, num_heads, block, valid_len,
-                                            bits, threshold)
-    if q.device.type != "cuda":
-        raise ValueError(f"global_attention_grads runs on CPU or CUDA, not {q.device}")
-    n, s, _ = q.shape
-    dtype, hd = _check_cuda((q, k, v, g), num_heads)
-    valid_len = _check_global(s, block, valid_len)
     if bits is None:
         threshold = 0
-    else:
-        if not 0 < threshold < 256:
-            raise ValueError(f"dropout threshold {threshold} out of (0, 256)")
-        if (bits.dtype != torch.uint8 or bits.device != q.device or not bits.is_contiguous()
-                or tuple(bits.shape) != (n, num_heads, s, s)):
-            raise ValueError("bits must be contiguous uint8 (G, H, S, S) on q's device")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    # Per-row softmax max, 1/sum and sum_c dw.w, written by the dq pass and
-    # read by the dk/dv pass.
-    stats = torch.empty((n, num_heads, 3, s), dtype=torch.float32, device=q.device)
-    scale = float(_query_scale(hd, dtype))
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        code = lib.a2m_global_attention_grads(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            None if bits is None else bits.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            n, s, num_heads, hd, valid_len, block, threshold, scale, _DTYPE_CODES[dtype],
-            _stream_handle(q.device),
-        )
-    cuda_build.check(code, "global_attention_grads")
-    global_attention_grads.launches += 1
-    return dq, dk, dv
+    return _global_grads(global_attention_grads, q, k, v, g, num_heads, block, valid_len,
+                         bits=bits, threshold=threshold)
+
+
+def global_attention_grads_prng(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: torch.Tensor, g: torch.Tensor,
+    num_heads: int, block: int = 0, valid_len: int | None = None, *, threshold: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`global_attention_dropout`: the backward draws
+    the forward's mask again from ``seed``."""
+    return _global_grads(global_attention_grads_prng, q, k, v, g, num_heads, block, valid_len,
+                         seed=seed, threshold=threshold)
 
 
 class _GlobalAttentionFn(torch.autograd.Function):
-    """Saves q, k, v; the backward is :func:`global_attention_grads`."""
+    """Saves q, k, v and the mask source (bits or seed, if any); the
+    backward is :func:`global_attention_grads` or, with a seed,
+    :func:`global_attention_grads_prng`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, block, valid_len):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, wrapper, q, k, v, bits, seed, num_heads, block, valid_len, threshold):
+        ctx.save_for_backward(q, k, v, bits, seed)
         ctx.geometry = (num_heads, block, valid_len)
-        return _global_attention_forward(q, k, v, num_heads, block, valid_len)
+        ctx.threshold = threshold
+        return _global_forward(wrapper, q, k, v, num_heads, block, valid_len, bits, seed,
+                               threshold)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        # The cotangent comes through crops and reshapes and need not be dense.
-        dq, dk, dv = global_attention_grads(q, k, v, g.contiguous(), *ctx.geometry)
-        return dq, dk, dv, None, None, None
+        q, k, v, bits, seed = ctx.saved_tensors
+        g = g.contiguous()  # it comes through crops and reshapes and need not be dense
+        if seed is not None:
+            grads = global_attention_grads_prng(q, k, v, seed, g, *ctx.geometry,
+                                                threshold=ctx.threshold)
+        else:
+            grads = global_attention_grads(q, k, v, g, *ctx.geometry, bits, ctx.threshold)
+        return (None, *grads, None, None, None, None, None, None)
 
 
 def global_attention(
@@ -281,49 +471,88 @@ def global_attention(
     block of ``block`` rows.  Masked logits are -1e30, as in the TPU kernel.
     Returns (G, S, H*hd) in q's dtype.  Differentiable in q, k and v.
     """
-    return _GlobalAttentionFn.apply(q, k, v, num_heads, block, valid_len)
+    return _GlobalAttentionFn.apply(global_attention, q, k, v, None, None, num_heads, block,
+                                    valid_len, 0)
 
 
-global_attention.launches = 0
-global_attention_grads.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# Kernel 2: two-phase local attention over (B, P, H*hd)
-# ---------------------------------------------------------------------------
-
-
-def local_two_phase_plain(
-    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
-    v: torch.Tensor, num_heads: int, window: int,
+def global_attention_dropout_bits(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bits: torch.Tensor, num_heads: int,
+    block: int = 0, valid_len: int | None = None, *, threshold: int,
 ) -> torch.Tensor:
-    """Plain version of :func:`local_two_phase`: per-phase P x P masked
-    attention, as the JAX package's ``_two_phase_reference``."""
-    b, p_len, dm = qa.shape
-    hd = dm // num_heads
-    stride = window // 2
-    scale = _query_scale(hd, qa.dtype).to(qa.device)
+    """:func:`global_attention` with attention-weight dropout from
+    precomputed ``bits`` (G, H, S, S) uint8: the normalized fp32 weight at
+    (row, column) is kept where its byte ``>= threshold`` and scaled by
+    256 / (256 - threshold).  Differentiable in q, k and v."""
+    _check_threshold(threshold)
+    return _GlobalAttentionFn.apply(global_attention_dropout_bits, q, k, v, bits, None,
+                                    num_heads, block, valid_len, threshold)
 
-    idx = torch.arange(p_len, device=qa.device)
+
+def global_attention_dropout(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: torch.Tensor, num_heads: int,
+    block: int = 0, valid_len: int | None = None, *, threshold: int,
+) -> torch.Tensor:
+    """:func:`global_attention_dropout_bits` with the bytes drawn inside the
+    kernel from ``seed`` ((2,) int32 on q's device), stream (sample, head):
+    the bytes :func:`philox_bits` gives for (seed, G, H, S).  Nothing of size
+    S x S is stored; the backward draws the mask again."""
+    _check_threshold(threshold)
+    return _GlobalAttentionFn.apply(global_attention_dropout, q, k, v, None, seed, num_heads,
+                                    block, valid_len, threshold)
+
+
+for _fn in (global_attention, global_attention_dropout_bits, global_attention_dropout,
+            global_attention_grads, global_attention_grads_prng):
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2, 5, 12 and 7, 8, 13: two-phase local attention over (B, P, H*hd)
+# ---------------------------------------------------------------------------
+
+
+def _two_phase_masks(p_len: int, window: int, device):
+    """(mask_a, mask_b, b_rows): the P x P window masks of the two phases
+    and the (P, 1) rows that have a phase-B window."""
+    stride = window // 2
+    idx = torch.arange(p_len, device=device)
     rows, cols = idx[:, None], idx[None, :]
     mask_a = torch.div(rows, window, rounding_mode="floor") == torch.div(
         cols, window, rounding_mode="floor")
     in_band = (cols >= stride) & (cols < p_len - stride)
     mask_b = (torch.div(rows - stride, window, rounding_mode="floor")
               == torch.div(cols - stride, window, rounding_mode="floor")) & in_band
+    b_rows = ((idx >= stride) & (idx < p_len - stride))[:, None]
+    return mask_a, mask_b, b_rows
+
+
+def local_two_phase_plain(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, num_heads: int, window: int,
+    bits_a: torch.Tensor | None = None, bits_b: torch.Tensor | None = None,
+    threshold: int = 0,
+) -> torch.Tensor:
+    """Plain version of :func:`local_two_phase` and, with per-phase ``bits``
+    (B, H, P, P) uint8, of its two dropout forms: per-phase P x P masked
+    attention, as the JAX package's ``_two_phase_reference(_bits)``."""
+    b, p_len, dm = qa.shape
+    hd = dm // num_heads
+    scale = _query_scale(hd, qa.dtype).to(qa.device)
+    mask_a, mask_b, b_rows = _two_phase_masks(p_len, window, qa.device)
     vh = v.float().reshape(b, p_len, num_heads, hd)
 
-    def mha(q, k, mask):
+    def mha(q, k, mask, bits):
         qh = (q * scale).float().reshape(b, p_len, num_heads, hd)
         kh = k.float().reshape(b, p_len, num_heads, hd)
         logits = torch.einsum("bshd,bShd->bhsS", qh, kh)
         logits = torch.where(mask, logits, torch.full_like(logits, MASK_FILL))
         weights = torch.softmax(logits, dim=-1)
+        if bits is not None:
+            weights = _apply_bits(weights, bits, threshold)
         return torch.einsum("bhsS,bShd->bshd", weights, vh).reshape(b, p_len, dm)
 
-    out_a = mha(qa, ka, mask_a)
-    out_b = mha(qb, kb, mask_b)
-    b_rows = ((idx >= stride) & (idx < p_len - stride))[:, None]
+    out_a = mha(qa, ka, mask_a, bits_a)
+    out_b = mha(qb, kb, mask_b, bits_b)
     out_b = torch.where(b_rows, out_b, torch.zeros_like(out_b))
     inv = torch.where(b_rows, 0.5, 1.0)
     return ((out_a + out_b) * inv).to(qa.dtype)
@@ -332,30 +561,24 @@ def local_two_phase_plain(
 def local_two_phase_grads_plain(
     qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
     v: torch.Tensor, g: torch.Tensor, num_heads: int, window: int,
+    bits_a: torch.Tensor | None = None, bits_b: torch.Tensor | None = None,
+    threshold: int = 0,
 ) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`local_two_phase_grads`: per-phase P x P masked
-    cores, as the JAX package's ``_two_phase_bwd_core``."""
+    """Plain version of :func:`local_two_phase_grads` and, with per-phase
+    ``bits``, of its two dropout forms: per-phase P x P masked cores, as the
+    JAX package's ``_two_phase_bwd_core``."""
     p_len = qa.shape[1]
-    stride = window // 2
     scale = _query_scale(qa.shape[-1] // num_heads, qa.dtype).to(qa.device)
-
-    idx = torch.arange(p_len, device=qa.device)
-    rows, cols = idx[:, None], idx[None, :]
-    mask_a = torch.div(rows, window, rounding_mode="floor") == torch.div(
-        cols, window, rounding_mode="floor")
-    in_band = (cols >= stride) & (cols < p_len - stride)
-    mask_b = (torch.div(rows - stride, window, rounding_mode="floor")
-              == torch.div(cols - stride, window, rounding_mode="floor")) & in_band
-    b_rows = ((idx >= stride) & (idx < p_len - stride))[:, None]
+    mask_a, mask_b, b_rows = _two_phase_masks(p_len, window, qa.device)
 
     # The overlap average first, in fp32; phase B sees no edge rows.
     g_a = g.float() * torch.where(b_rows, 0.5, 1.0)
     g_b = torch.where(b_rows, g_a, torch.zeros_like(g_a))
     vh = _heads(v, num_heads)
     dqa, dka, dva = _core_grads(_heads(qa, num_heads), _heads(ka, num_heads), vh,
-                                _heads(g_a, num_heads), mask_a, scale)
+                                _heads(g_a, num_heads), mask_a, scale, bits_a, threshold)
     dqb, dkb, dvb = _core_grads(_heads(qb, num_heads), _heads(kb, num_heads), vh,
-                                _heads(g_b, num_heads), mask_b, scale)
+                                _heads(g_b, num_heads), mask_b, scale, bits_b, threshold)
     return tuple(_unheads(t, qa.dtype) for t in (dqa, dka, dqb, dkb, dva + dvb))
 
 
@@ -365,26 +588,70 @@ def _check_local(p_len: int, window: int) -> None:
                          f"got window {window}, P {p_len}")
 
 
-def _local_two_phase_forward(qa, ka, qb, kb, v, num_heads: int, window: int):
-    if qa.device.type == "cpu":
-        return local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window)
-    if qa.device.type != "cuda":
-        raise ValueError(f"local_two_phase runs on CPU or CUDA, not {qa.device}")
+def _seed_planes(seed: torch.Tensor, batch: int, num_heads: int, p_len: int):
+    """The per-phase bits a seed stands for, by the plain Philox."""
+    return two_phase_planes(philox_bits_plain(seed, batch, 2 * num_heads, p_len), num_heads)
+
+
+def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
+                   bits=None, seed=None, threshold: int = 0):
+    """The two-phase forward with its mask source: none, ``bits`` = (bits_a,
+    bits_b) or ``seed``.  ``wrapper``: the public function this counts as."""
     b, p_len, _ = qa.shape
+    if qa.device.type == "cpu":
+        if seed is not None:
+            bits = _seed_planes(seed, b, num_heads, p_len)
+        return local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window,
+                                     *(bits or (None, None)), threshold)
+    if qa.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {qa.device}")
     dtype, hd = _check_cuda((qa, ka, qb, kb, v), num_heads)
     _check_local(p_len, window)
+    threshold = _check_mask_source(qa, bits, (b, num_heads, p_len, p_len), seed, threshold)
+    bits_a, bits_b = bits or (None, None)
     out = torch.empty_like(qa)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
     with torch.cuda.device(qa.device):
         code = lib.a2m_local_two_phase(
             qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, p_len, num_heads, hd, scale, _DTYPE_CODES[dtype],
+            _pointer(bits_a), _pointer(bits_b), _pointer(seed), out.data_ptr(),
+            b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
             _stream_handle(qa.device),
         )
-    cuda_build.check(code, "local_two_phase")
-    local_two_phase.launches += 1
+    cuda_build.check(code, wrapper.__name__)
+    wrapper.launches += 1
     return out
+
+
+def _local_grads(wrapper, qa, ka, qb, kb, v, g, num_heads: int, window: int,
+                 bits=None, seed=None, threshold: int = 0):
+    b, p_len, _ = qa.shape
+    if qa.device.type == "cpu":
+        if seed is not None:
+            bits = _seed_planes(seed, b, num_heads, p_len)
+        return local_two_phase_grads_plain(qa, ka, qb, kb, v, g, num_heads, window,
+                                           *(bits or (None, None)), threshold)
+    if qa.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {qa.device}")
+    dtype, hd = _check_cuda((qa, ka, qb, kb, v, g), num_heads)
+    _check_local(p_len, window)
+    threshold = _check_mask_source(qa, bits, (b, num_heads, p_len, p_len), seed, threshold)
+    bits_a, bits_b = bits or (None, None)
+    outs = tuple(torch.empty_like(qa) for _ in range(5))
+    scale = float(_query_scale(hd, dtype))
+    lib = cuda_build.library()
+    with torch.cuda.device(qa.device):
+        code = lib.a2m_local_two_phase_grads(
+            qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr(),
+            g.data_ptr(), _pointer(bits_a), _pointer(bits_b), _pointer(seed),
+            *(t.data_ptr() for t in outs),
+            b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
+            _stream_handle(qa.device),
+        )
+    cuda_build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return outs
 
 
 def local_two_phase_grads(
@@ -393,41 +660,59 @@ def local_two_phase_grads(
 ) -> tuple[torch.Tensor, ...]:
     """(dqa, dka, dqb, dkb, dv) of :func:`local_two_phase` for the cotangent
     ``g`` of its overlap-averaged output; dv sums both phases in fp32."""
-    if qa.device.type == "cpu":
-        return local_two_phase_grads_plain(qa, ka, qb, kb, v, g, num_heads, window)
-    if qa.device.type != "cuda":
-        raise ValueError(f"local_two_phase_grads runs on CPU or CUDA, not {qa.device}")
-    b, p_len, _ = qa.shape
-    dtype, hd = _check_cuda((qa, ka, qb, kb, v, g), num_heads)
-    _check_local(p_len, window)
-    outs = tuple(torch.empty_like(qa) for _ in range(5))
-    scale = float(_query_scale(hd, dtype))
-    lib = cuda_build.library()
-    with torch.cuda.device(qa.device):
-        code = lib.a2m_local_two_phase_grads(
-            qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr(),
-            g.data_ptr(), *(t.data_ptr() for t in outs),
-            b, p_len, num_heads, hd, scale, _DTYPE_CODES[dtype], _stream_handle(qa.device),
-        )
-    cuda_build.check(code, "local_two_phase_grads")
-    local_two_phase_grads.launches += 1
-    return outs
+    return _local_grads(local_two_phase_grads, qa, ka, qb, kb, v, g, num_heads, window)
+
+
+def local_two_phase_grads_bits(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, bits_a: torch.Tensor, bits_b: torch.Tensor, g: torch.Tensor,
+    num_heads: int, window: int, *, threshold: int,
+) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`local_two_phase_dropout_bits`, with the bits
+    its forward applied."""
+    return _local_grads(local_two_phase_grads_bits, qa, ka, qb, kb, v, g, num_heads, window,
+                        bits=(bits_a, bits_b), threshold=threshold)
+
+
+def local_two_phase_grads_prng(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, seed: torch.Tensor, g: torch.Tensor, num_heads: int, window: int,
+    *, threshold: int,
+) -> tuple[torch.Tensor, ...]:
+    """The gradients of :func:`local_two_phase_dropout`: the backward draws
+    the forward's mask again from ``seed``."""
+    return _local_grads(local_two_phase_grads_prng, qa, ka, qb, kb, v, g, num_heads, window,
+                        seed=seed, threshold=threshold)
 
 
 class _LocalTwoPhaseFn(torch.autograd.Function):
-    """Saves qa, ka, qb, kb, v; the backward is :func:`local_two_phase_grads`."""
+    """Saves qa, ka, qb, kb, v and the mask source (bits or seed, if any);
+    the backward is the matching ``local_two_phase_grads*`` wrapper."""
 
     @staticmethod
-    def forward(ctx, qa, ka, qb, kb, v, num_heads, window):
-        ctx.save_for_backward(qa, ka, qb, kb, v)
+    def forward(ctx, wrapper, qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window,
+                threshold):
+        ctx.save_for_backward(qa, ka, qb, kb, v, bits_a, bits_b, seed)
         ctx.geometry = (num_heads, window)
-        return _local_two_phase_forward(qa, ka, qb, kb, v, num_heads, window)
+        ctx.threshold = threshold
+        bits = None if bits_a is None else (bits_a, bits_b)
+        return _local_forward(wrapper, qa, ka, qb, kb, v, num_heads, window, bits, seed,
+                              threshold)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = local_two_phase_grads(*ctx.saved_tensors, g.contiguous(), *ctx.geometry)
-        return (*grads, None, None)
+        *inputs, bits_a, bits_b, seed = ctx.saved_tensors
+        g = g.contiguous()  # it comes through a crop and need not be dense
+        if seed is not None:
+            grads = local_two_phase_grads_prng(*inputs, seed, g, *ctx.geometry,
+                                               threshold=ctx.threshold)
+        elif bits_a is not None:
+            grads = local_two_phase_grads_bits(*inputs, bits_a, bits_b, g, *ctx.geometry,
+                                               threshold=ctx.threshold)
+        else:
+            grads = local_two_phase_grads(*inputs, g, *ctx.geometry)
+        return (None, *grads, None, None, None, None, None, None)
 
 
 def local_two_phase(
@@ -443,11 +728,47 @@ def local_two_phase(
     window-attention output in padded coordinates, (B, P, H*hd).
     Differentiable in all five inputs.
     """
-    return _LocalTwoPhaseFn.apply(qa, ka, qb, kb, v, num_heads, window)
+    return _LocalTwoPhaseFn.apply(local_two_phase, qa, ka, qb, kb, v, None, None, None,
+                                  num_heads, window, 0)
 
 
-local_two_phase.launches = 0
-local_two_phase_grads.launches = 0
+def local_two_phase_dropout_bits(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, bits_a: torch.Tensor, bits_b: torch.Tensor, num_heads: int,
+    window: int, *, threshold: int,
+) -> torch.Tensor:
+    """:func:`local_two_phase` with attention-weight dropout from precomputed
+    per-phase ``bits`` (B, H, P, P) uint8: the byte at (row, column) of a
+    phase's plane masks that phase's weight of that row for that key.  Only
+    the in-window bytes are read.  Differentiable in the five inputs."""
+    _check_threshold(threshold)
+    return _LocalTwoPhaseFn.apply(local_two_phase_dropout_bits, qa, ka, qb, kb, v, bits_a,
+                                  bits_b, None, num_heads, window, threshold)
 
-# Every kernel wrapper, for resetting and reading the launch counts.
-KERNELS = (global_attention, local_two_phase, global_attention_grads, local_two_phase_grads)
+
+def local_two_phase_dropout(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, seed: torch.Tensor, num_heads: int, window: int, *, threshold: int,
+) -> torch.Tensor:
+    """:func:`local_two_phase_dropout_bits` with the bytes drawn inside the
+    kernel from ``seed`` ((2,) int32 on the inputs' device), stream (sample,
+    phase * H + head): the planes ``two_phase_planes(philox_bits(seed, B,
+    2 H, P), H)``.  The backward draws the mask again."""
+    _check_threshold(threshold)
+    return _LocalTwoPhaseFn.apply(local_two_phase_dropout, qa, ka, qb, kb, v, None, None, seed,
+                                  num_heads, window, threshold)
+
+
+for _fn in (local_two_phase, local_two_phase_dropout_bits, local_two_phase_dropout,
+            local_two_phase_grads, local_two_phase_grads_bits, local_two_phase_grads_prng):
+    _fn.launches = 0
+
+# Every kernel wrapper, for resetting and reading the launch counts: the four
+# dropout-free ones first, then the seeded ones, the bits ones and the dump.
+KERNELS = (
+    global_attention, local_two_phase, global_attention_grads, local_two_phase_grads,
+    global_attention_dropout, local_two_phase_dropout,
+    global_attention_grads_prng, local_two_phase_grads_prng,
+    global_attention_dropout_bits, local_two_phase_dropout_bits, local_two_phase_grads_bits,
+    philox_bits,
+)

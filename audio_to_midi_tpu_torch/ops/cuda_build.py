@@ -91,14 +91,17 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.a2m_global_attention.argtypes = [ptr] * 4 + [i32] * 6 + [f32, i32, ptr]
-    lib.a2m_global_attention.restype = i32
-    lib.a2m_local_two_phase.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
-    lib.a2m_local_two_phase.restype = i32
-    lib.a2m_global_attention_grads.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr]
-    lib.a2m_global_attention_grads.restype = i32
-    lib.a2m_local_two_phase_grads.argtypes = [ptr] * 11 + [i32] * 4 + [f32, i32, ptr]
-    lib.a2m_local_two_phase_grads.restype = i32
+    # Pointers (inputs, mask sources, outputs), ints, the scale, dtype code, stream.
+    entries = {
+        "a2m_global_attention": [ptr] * 6 + [i32] * 7 + [f32, i32, ptr],
+        "a2m_local_two_phase": [ptr] * 9 + [i32] * 5 + [f32, i32, ptr],
+        "a2m_global_attention_grads": [ptr] * 10 + [i32] * 7 + [f32, i32, ptr],
+        "a2m_local_two_phase_grads": [ptr] * 14 + [i32] * 5 + [f32, i32, ptr],
+        "a2m_philox_dump": [ptr] * 2 + [i32] * 3 + [ptr],
+    }
+    for name, argtypes in entries.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i32
     lib.a2m_error_string.argtypes = [i32]
     lib.a2m_error_string.restype = ctypes.c_char_p
     return lib

@@ -41,7 +41,8 @@ def batch_loss(
 
     The forward runs in ``compute_dtype``: the audio is cast to it and every
     parameter is cast at its use, so the parameters themselves (and their
-    ``.grad``) stay in their own dtype.  The loss is f32.
+    ``.grad``) stay in their own dtype.  The loss is f32.  ``generator`` (on
+    the audio's device) drives the dropout of this one forward.
     """
     logits, _probs = model_lib.forward(
         model, cfg, audio.to(compute_dtype), rope,

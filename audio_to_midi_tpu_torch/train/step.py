@@ -14,7 +14,11 @@ Differences from the JAX step, which is one jitted pure function:
   * the guard reads ``grads_valid`` on the host (one synchronisation per
     step, after the last backward) and skips the optimizer altogether on an
     invalid step, which leaves parameters, moments and count as they were;
-  * activations are saved by autograd and not rematerialized.
+  * activations are saved by autograd and not rematerialized;
+  * dropout draws from ``torch.Generator``s instead of split keys: each
+    minibatch gets a generator of its own on the model's device, seeded from
+    the step's generator, as the JAX step splits its key per minibatch.  The
+    same state of the step's generator gives the same step, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +49,9 @@ def make_train_step(
       step(model, audio, labels, grad_scale, generator=None) -> TrainStepOutput
     with audio (num_minibatches, minibatch, 2, N) and labels
     (num_minibatches, minibatch, F, K) on the model's device.  ``model`` must
-    be the one ``optimizer`` was set up for.
+    be the one ``optimizer`` was set up for.  ``generator`` seeds the
+    dropout of every minibatch and is needed when the configuration drops
+    anything; a CPU generator keeps the host from waiting for the card.
     """
     if cfg.train.ensemble_size > 1:
         raise NotImplementedError(
@@ -64,8 +70,9 @@ def make_train_step(
         scaled_losses = []
         with torch.enable_grad():
             for mb_audio, mb_labels in zip(audio, labels):
-                scaled_loss = batch_loss(model, model_cfg, mb_audio, mb_labels, rope,
-                                         grad_scale, compute_dtype, generator=generator)
+                scaled_loss = batch_loss(
+                    model, model_cfg, mb_audio, mb_labels, rope, grad_scale, compute_dtype,
+                    generator=minibatch_generator(generator, mb_audio.device))
                 scaled_loss.backward()  # accumulates into the f32 .grad buffers
                 scaled_losses.append(scaled_loss.detach())
         scaled_loss = torch.stack(scaled_losses).mean()
@@ -85,6 +92,16 @@ def make_train_step(
         return TrainStepOutput(scaled_loss / grad_scale, valid, scaled_loss)
 
     return step
+
+
+def minibatch_generator(generator: torch.Generator | None,
+                        device: torch.device) -> torch.Generator | None:
+    """A generator on ``device`` for one minibatch's dropout, seeded with the
+    next draw of the step's ``generator`` (None stays None)."""
+    if generator is None:
+        return None
+    seed = torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device)
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def reshape_to_minibatches(batch: torch.Tensor, minibatch_size: int) -> torch.Tensor:

@@ -11,7 +11,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
   2. kernels: build from csrc/, then each kernel against its plain version
      -- the forward kernels at the serving shapes (16 windows, S=250 /
      P=256, 4 heads x 64) and at the training shapes (32 windows), the
-     backward kernels at the training shapes, f32 and bf16 -- with its time
+     backward kernels and every dropout kernel (seeded: against the plain
+     version on the bytes the dump kernel gives for the seed; bits: on
+     random bytes) at the training shapes, f32 and bf16 -- with its time
      beside the plain version's, the
      least time the card could take (bytes over its memory rate or
      operations over its peak rate, whichever is larger) and, for the global
@@ -29,7 +31,17 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      minibatches of 32, with 16 launches of each of the four kernels per
      step; the f32 gradient of a minibatch of 4 through the kernels is held
      against the same through the plain path, the bf16 loss of a minibatch
-     of 32 likewise, and a step on labels that hold a nan must change nothing.
+     of 32 likewise, and a step on labels that hold a nan must change nothing;
+  6. training with dropout: the reference-parity step -- the same model with
+     transformer_dropout_rate 0.1, the same batch, one seeded generator, 4
+     optimizer steps with 16 launches per step of each seeded dropout kernel
+     (forward and backward, local and global) and none of the dropout-free
+     ones; the f32 gradient of a minibatch of 4 through the kernels against
+     the plain path under the same seed; the same steps again from the same
+     state and seed, which must give the same losses bit for bit; and one
+     step by the precomputed-bits route (A2M_PRNG_DROPOUT=0: the dump kernel
+     writes the bytes, the bits kernels read them), which must give the
+     seeded route's loss.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}
 as the last line.  Artifacts go to build/smoke/ in the checkout.
 """
@@ -86,6 +98,7 @@ MODEL_GRAD_TOL = 1e-5
 # 1.5e-6 on an H100; the limit is ~65x that.
 LOSS_TOL_BF16 = 1e-4
 TRAIN_STEPS = 4
+DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
 # rate, and the operation rate of the input type -- bf16 on the tensor
 # cores, f32 outside them (TF32 would change the f32 kernels' numerics).
@@ -277,6 +290,100 @@ def check_kernels(ak, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads(*ts, HEADS, 16),
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16), grads_tol,
             bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
+
+        # --- the dropout kernels at the training shapes ---
+        thr = DROPOUT_THRESHOLD
+        drop = dict(threshold=thr)
+        seed = torch.tensor([20260 + len(name), -7], dtype=torch.int32, device="cuda")
+        # The library call: SDPA drops at the same rate from its own generator.
+        sdpa_drop = lambda: F.scaled_dot_product_attention(heads4(q), heads4(k), heads4(v),
+                                                           dropout_p=thr / 256)
+        sdpa_drop_out = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=thr / 256)
+        for case, qkvg, block, valid, groups in (
+                ("S=250", (q, k, v, g), 0, None, n), ("S=250 valid_len=200", (q, k, v, g), 0, 200, n),
+                ("S=496 block=16", (fq, fk, fv, fg), 16, None, BATCH)):
+            s_len = qkvg[0].shape[1]
+            cols = 16 if block else (valid or s_len)
+            dumped = ak.philox_bits(seed, groups, HEADS, s_len)
+            run(f"global dropout {case}", name,
+                lambda: ak.global_attention_dropout(*qkvg[:3], seed, HEADS, block, valid, **drop),
+                lambda: ak.global_attention_plain(*qkvg[:3], HEADS, block, valid, dumped, thr),
+                kernel_tol, bound(4, qkvg[0].numel(), name, attn_flops(groups, s_len, cols, 2)),
+                library=sdpa_drop if case == "S=250" else None)
+            run(f"global grads prng {case}", name,
+                lambda: ak.global_attention_grads_prng(*qkvg[:3], seed, qkvg[3], HEADS, block,
+                                                       valid, **drop),
+                lambda: ak.global_attention_grads_plain(*qkvg, HEADS, block, valid, dumped, thr),
+                grads_tol, bound(7, qkvg[0].numel(), name, attn_flops(groups, s_len, cols, 5)),
+                library=(lambda: torch.autograd.grad(sdpa_drop_out, (q4, k4, v4), heads4(g),
+                                                     retain_graph=True))
+                if case == "S=250" else None)
+        run("global dropout bits S=250", name,
+            lambda: ak.global_attention_dropout_bits(q, k, v, bits, HEADS, **drop),
+            lambda: ak.global_attention_plain(q, k, v, HEADS, 0, None, bits, thr), kernel_tol,
+            bound(4, q.numel(), name, attn_flops(n, SEQ, SEQ, 2), extra_bytes=bits.numel()),
+            library=sdpa_drop)
+        dumped_a, dumped_b = ak.two_phase_planes(ak.philox_bits(seed, n, 2 * HEADS, PADDED), HEADS)
+        run("local dropout P=256", name,
+            lambda: ak.local_two_phase_dropout(*ts[:5], seed, HEADS, 16, **drop),
+            lambda: ak.local_two_phase_plain(*ts[:5], HEADS, 16, dumped_a, dumped_b, thr),
+            kernel_tol, bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2)))
+        run("local grads prng P=256", name,
+            lambda: ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], HEADS, 16, **drop),
+            lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16, dumped_a, dumped_b, thr),
+            grads_tol, bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
+        gen = torch.Generator(device="cpu").manual_seed(41)
+        bits_a, bits_b = (torch.randint(0, 256, (n, HEADS, PADDED, PADDED), generator=gen,
+                                        dtype=torch.uint8).cuda() for _ in range(2))
+        # Of the two (B, H, P, P) planes only the in-window bytes must move:
+        # 16 per row, head and phase.
+        window_bytes = 2 * n * HEADS * PADDED * 16
+        run("local dropout bits P=256", name,
+            lambda: ak.local_two_phase_dropout_bits(*ts[:5], bits_a, bits_b, HEADS, 16, **drop),
+            lambda: ak.local_two_phase_plain(*ts[:5], HEADS, 16, bits_a, bits_b, thr),
+            kernel_tol, bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2),
+                              extra_bytes=window_bytes))
+        run("local grads bits P=256", name,
+            lambda: ak.local_two_phase_grads_bits(*ts[:5], bits_a, bits_b, ts[5], HEADS, 16,
+                                                  **drop),
+            lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16, bits_a, bits_b, thr),
+            grads_tol, bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5),
+                             extra_bytes=window_bytes))
+
+        # The same seed twice gives the same bits of output; another seed does not.
+        other = seed + 1
+        for what, call in (
+                ("global", lambda sd: ak.global_attention_dropout(q, k, v, sd, HEADS, **drop)),
+                ("local", lambda sd: ak.local_two_phase_dropout(*ts[:5], sd, HEADS, 16, **drop))):
+            same = torch.equal(call(seed), call(seed.clone()))
+            differs = not torch.equal(call(seed), call(other))
+            log(f"seeded {what} dropout {name}: same seed, same output {same}; another seed, "
+                f"another output {differs}")
+            if not (same and differs):
+                raise AssertionError(f"seeded {what} dropout does not follow its seed")
+
+    # Kernel 14: the dump kernel against the plain Philox, bytes equal, and the
+    # keep rate of its bytes.  Its work is integer arithmetic, for which the
+    # data sheet gives no rate: the bound is its output's bytes.  Library:
+    # torch.randint of the same shape (another stream; timed only).
+    n = train_minibatch
+    seed = torch.tensor([123456789, -42], dtype=torch.int32, device="cuda")
+    for case, cores, p_len in (("global S=250", HEADS, SEQ), ("local P=256", 2 * HEADS, PADDED)):
+        shape = (n, cores, p_len, p_len)
+        run(f"philox bits {case}", "uint8",
+            lambda: ak.philox_bits(seed, n, cores, p_len),
+            lambda: ak.philox_bits_plain(seed, n, cores, p_len), lambda ref: 0.0,
+            {"bound_ms": math.prod(shape) / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+            library=lambda: torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda"))
+        dumped = ak.philox_bits(seed, n, cores, p_len)
+        if not torch.equal(dumped.cpu(), ak.philox_bits_plain(seed.cpu(), n, cores, p_len)):
+            raise AssertionError("the card's mask bytes differ from the CPU's for one seed")
+        keep, p_keep = (dumped >= DROPOUT_THRESHOLD).float().mean().item(), 1 - DROPOUT_THRESHOLD / 256
+        sigma = math.sqrt(p_keep * (1 - p_keep) / dumped.numel())
+        log(f"philox bits {case}: keep rate {keep:.6f} vs {p_keep:.6f}, "
+            f"{abs(keep - p_keep) / sigma:.2f} sigma (limit 4)")
+        if abs(keep - p_keep) > 4 * sigma:
+            raise AssertionError("the mask bytes do not keep at 230/256")
     return results
 
 
@@ -309,7 +416,8 @@ def check_forward(ak, model_lib, cfg, model) -> None:
             f"first-call wall {wall:.3f} s {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} forward: kernel path disagrees with the plain path")
-        expected = [cfg.model.num_transformer_layers] * 2 + [0, 0]  # no backward in serving
+        # No backward and no dropout in serving.
+        expected = [cfg.model.num_transformer_layers] * 2 + [0] * (len(ak.KERNELS) - 2)
         if launches != expected:
             raise AssertionError(f"{name} forward launched {launches}, expected {expected}")
         if name == "f32":
@@ -406,21 +514,22 @@ def seeded_model(model_lib, cfg):
     return model_lib.Model(cfg.model, torch.Generator().manual_seed(0)).cuda().eval()
 
 
-def training_setup(model_lib, cfg, model):
-    """The training phase's configuration, batch and step, for ``model``:
+def training_setup(model_lib, cfg, model, dropout_rate: float = 0.0):
+    """A training phase's configuration, batch and step, for ``model``:
     (train_cfg, rope, optimizer, step, audio, labels).
 
-    Dropout-free: the attention routes take the dropout-free kernels and
-    their backward kernels, the ConvNeXt stages ordinary autograd (the
-    counterpart of the scanned backward).  No warm-up, so the first update
-    is not zero.  One seeded batch of ``cfg.train.batch_size`` windows in
+    At ``dropout_rate`` 0 the attention routes take the dropout-free kernels
+    and their backward kernels, above 0 the seeded dropout kernels; the
+    ConvNeXt stages take ordinary autograd (the counterpart of the scanned
+    backward).  No warm-up, so the first update is not zero.  One seeded batch of ``cfg.train.batch_size`` windows in
     minibatches of ``minibatch_size_per_device``, labels sparse as piano
     rolls are."""
     from audio_to_midi_tpu_torch.train import optim, step as step_lib
 
     train_cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, warmup_steps=0),
-        model=dataclasses.replace(cfg.model, transformer_dropout_rate=0.0, cnn_bwd_kernel=False))
+        model=dataclasses.replace(cfg.model, transformer_dropout_rate=dropout_rate,
+                                  cnn_bwd_kernel=False))
     rope = model_lib.make_rope(train_cfg.model, "cuda")
     batch, minibatch = train_cfg.train.batch_size, train_cfg.train.minibatch_size_per_device
     gen = torch.Generator(device="cpu").manual_seed(4)
@@ -459,32 +568,13 @@ def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
     gen = torch.Generator(device="cpu").manual_seed(3)
     audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
     labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
-    grads = {}
     with _parity_precision(torch.float32):
-        for impl in ("pallas", "xla"):
-            for p in model.parameters():
-                p.grad = None
-            impl_cfg = dataclasses.replace(train_model_cfg, attention_impl=impl)
-            with torch.enable_grad():
-                loss_lib.batch_loss(model, impl_cfg, audio4, labels4, rope, 1.0,
-                                    torch.float32).backward()
-            grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()}
-    worst, worst_name = 0.0, ""
-    for n, ref in grads["xla"].items():
-        rel = max_err(grads["pallas"][n], ref) / max(ref.abs().max().item(), 1e-30)
-        if not torch.isfinite(grads["pallas"][n]).all():
-            raise AssertionError(f"gradient of {n} is not finite")
-        if rel > worst:
-            worst, worst_name = rel, n
-    ok = worst <= MODEL_GRAD_TOL
-    log(f"f32 gradients, 4 windows, kernel path vs plain path over {len(grads['xla'])} leaves: "
-        f"worst max_abs_err / max|ref| {worst:.3e} at {worst_name} (tol {MODEL_GRAD_TOL:.0e}) "
-        f"{'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the kernel path's gradient disagrees with the plain path's")
+        grads = {impl: model_grads(model, loss_lib,
+                                   dataclasses.replace(train_model_cfg, attention_impl=impl),
+                                   audio4, labels4, rope)
+                 for impl in ("pallas", "xla")}
+    compare_model_grads(grads, "")
     del grads
-    for p in model.parameters():
-        p.grad = None
 
     # The bf16 loss of one training minibatch, kernel path vs plain path:
     # the forward kernels at the shapes and in the dtype the steps give them.
@@ -505,32 +595,9 @@ def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
     # The steps: bf16 compute over f32 parameters, batch 64 = 2 x 32.
     # Each of the 8 pairs holds one local and one global layer.
     per_step = train_model_cfg.num_transformer_layers * audio.shape[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    total = dict.fromkeys(names, 0)
-    losses, times = [], []
-    for i in range(TRAIN_STEPS):
-        for fn in ak.KERNELS:
-            fn.launches = 0
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(model, audio, labels, 1.0)
-        end.record()
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in ak.KERNELS}
-        losses.append(out.loss.item())
-        times.append(start.elapsed_time(end))
-        log(f"train step {i}: loss {losses[-1]:.3f}, grads_valid {out.grads_valid}, "
-            f"lr {optimizer.learning_rate():.3e}, {times[-1]:.1f} ms, launches {launches}")
-        if not out.grads_valid or not np.isfinite(losses[-1]):
-            raise AssertionError(f"train step {i}: loss or gradients not finite")
-        if list(launches.values()) != [per_step] * len(names):
-            raise AssertionError(f"train step {i} launched {launches}, expected {per_step} each")
-        for n, count in launches.items():
-            total[n] += count
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(names, 0) | dict.fromkeys(names[:4], per_step)
+    total, losses, times, peak = run_steps(ak, "train step", step, model, optimizer, audio,
+                                           labels, TRAIN_STEPS, expected)
 
     # The guard on the card: a step on labels that hold a nan changes neither
     # the parameters nor the optimizer's moments and count.
@@ -547,12 +614,162 @@ def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
         raise AssertionError("a step with a non-finite loss was applied")
     del before
 
+    summary = step_summary(times, peak)
     log(f"training: batch {audio.shape[0] * audio.shape[1]} = {audio.shape[0]} x "
-        f"{audio.shape[1]}, bf16 compute, "
-        f"f32 params, {sorted(times[1:])[len(times[1:]) // 2]:.1f} ms/step (median of the last "
-        f"{TRAIN_STEPS - 1}; first {times[0]:.1f}), losses {losses[0]:.1f} -> {losses[-1]:.1f}, "
-        f"peak memory {peak / 2**30:.2f} GiB, on {card}")
-    return total
+        f"{audio.shape[1]}, bf16 compute, f32 params, dropout-free, {summary}, "
+        f"losses {losses[0]:.1f} -> {losses[-1]:.1f}, on {card}")
+    return total, summary
+
+
+def step_summary(times: list[float], peak: int) -> str:
+    later = sorted(times[1:])
+    return (f"{later[len(later) // 2]:.1f} ms/step (median of the last {len(later)}, range "
+            f"{later[0]:.1f}-{later[-1]:.1f}; first {times[0]:.1f}), "
+            f"peak memory {peak / 2**30:.2f} GiB")
+
+
+def run_steps(ak, label, step, model, optimizer, audio, labels, steps, expected,
+              generator=None):
+    """Takes ``steps`` optimizer steps; every step must be valid and launch
+    exactly ``expected`` (wrapper name -> launches per step), and the loss
+    must fall.  Returns (total launches, losses, ms per step, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = dict.fromkeys(expected, 0)
+    losses, times = [], []
+    for i in range(steps):
+        for fn in ak.KERNELS:
+            fn.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(model, audio, labels, 1.0, generator)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ak.KERNELS}
+        losses.append(out.loss.item())
+        times.append(start.elapsed_time(end))
+        launched = {n: c for n, c in launches.items() if c}
+        log(f"{label} {i}: loss {losses[-1]:.3f}, grads_valid {out.grads_valid}, "
+            f"lr {optimizer.learning_rate():.3e}, {times[-1]:.1f} ms, launches {launched}")
+        if not out.grads_valid or not np.isfinite(losses[-1]):
+            raise AssertionError(f"{label} {i}: loss or gradients not finite")
+        if launches != expected:
+            raise AssertionError(f"{label} {i} launched {launches}, expected {expected}")
+        for n, count in launches.items():
+            total[n] += count
+    if steps > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {steps} steps: {losses}")
+    return total, losses, times, torch.cuda.max_memory_allocated()
+
+
+def model_grads(model, loss_lib, model_cfg, audio, labels, rope, seed=None) -> dict:
+    """The f32 parameter gradients of one minibatch, by name; with ``seed``,
+    dropout on from a generator on the card seeded with it."""
+    for p in model.parameters():
+        p.grad = None
+    gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+    with torch.enable_grad():
+        loss_lib.batch_loss(model, model_cfg, audio, labels, rope, 1.0, torch.float32,
+                            generator=gen).backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return grads
+
+
+def compare_model_grads(grads: dict, what: str) -> None:
+    """Kernel path ("pallas") against plain path ("xla"), leaf by leaf."""
+    worst, worst_name = 0.0, ""
+    for n, ref in grads["xla"].items():
+        rel = max_err(grads["pallas"][n], ref) / max(ref.abs().max().item(), 1e-30)
+        if not torch.isfinite(grads["pallas"][n]).all():
+            raise AssertionError(f"gradient of {n} is not finite")
+        if rel > worst:
+            worst, worst_name = rel, n
+    ok = worst <= MODEL_GRAD_TOL
+    log(f"f32 gradients{what}, 4 windows, kernel path vs plain path over {len(grads['xla'])} "
+        f"leaves: worst max_abs_err / max|ref| {worst:.3e} at {worst_name} "
+        f"(tol {MODEL_GRAD_TOL:.0e}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the kernel path's gradient disagrees with the plain path's")
+
+
+def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: str):
+    """Phase 6: the reference-parity step, with dropout; returns the launches
+    of its steps by the seeded route and by the precomputed-bits route."""
+    import os
+
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    rate = cfg.model.transformer_dropout_rate
+    if ak.dropout_threshold(rate) != DROPOUT_THRESHOLD:
+        raise AssertionError(f"the default rate {rate} no longer quantizes to {DROPOUT_THRESHOLD}")
+    names = [fn.__name__ for fn in ak.KERNELS]
+    start_state = copy.deepcopy(model.state_dict())
+
+    # f32 gradients of one minibatch of 4 windows under one seed: forward and
+    # backward kernels must apply the mask the plain path draws for it.
+    train_cfg, rope, *_ = training_setup(model_lib, cfg, model, rate)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
+    with _parity_precision(torch.float32):
+        grads = {impl: model_grads(model, loss_lib,
+                                   dataclasses.replace(train_cfg.model, attention_impl=impl),
+                                   audio4, labels4, rope, seed=11)
+                 for impl in ("pallas", "xla")}
+        free = model_grads(model, loss_lib, train_cfg.model, audio4, labels4, rope, seed=12)
+    compare_model_grads(grads, " with dropout 0.1 under one seed")
+    moved = max(max_err(free[n], g) / max(g.abs().max().item(), 1e-30)
+                for n, g in grads["pallas"].items())
+    log(f"f32 gradients under another seed differ by up to {moved:.3e} of a leaf's largest")
+    if moved <= 100 * MODEL_GRAD_TOL:
+        raise AssertionError("another seed gave the same gradients: nothing was dropped")
+    del grads, free
+
+    # The steps, twice from the same state and the same seed.
+    per_step = train_cfg.model.num_transformer_layers * 2  # two minibatches
+    seeded = ["global_attention_dropout", "local_two_phase_dropout",
+              "global_attention_grads_prng", "local_two_phase_grads_prng"]
+    expected = dict.fromkeys(names, 0) | dict.fromkeys(seeded, per_step)
+    runs = []
+    for attempt in ("train step (dropout 0.1)", "the same again"):
+        model.load_state_dict(start_state)
+        _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate)
+        runs.append(run_steps(ak, attempt, step, model, optimizer, audio, labels, TRAIN_STEPS,
+                              expected, torch.Generator().manual_seed(7)))
+    (total, losses, times, peak), (_, again, _, _) = runs
+    log(f"rerun from the same state and seed: losses {again} "
+        f"{'identical' if again == losses else 'DIFFER from ' + str(losses)}")
+    if again != losses:
+        raise AssertionError("the same state and seed did not give the same step")
+
+    # One step by the precomputed-bits route from that start: the dump kernel
+    # writes the bytes of each seed and the bits kernels read them, so the
+    # loss is the seeded route's first loss.
+    model.load_state_dict(start_state)
+    _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate)
+    bits_route = {"philox_bits": 2 * per_step, "global_attention_dropout_bits": per_step,
+                  "local_two_phase_dropout_bits": per_step, "global_attention_grads": per_step,
+                  "local_two_phase_grads_bits": per_step}
+    os.environ["A2M_PRNG_DROPOUT"] = "0"
+    try:
+        bits_total, bits_losses, _, bits_peak = run_steps(
+            ak, "train step (dropout 0.1, precomputed bits)", step, model, optimizer, audio,
+            labels, 1, dict.fromkeys(names, 0) | bits_route, torch.Generator().manual_seed(7))
+    finally:
+        del os.environ["A2M_PRNG_DROPOUT"]
+    log(f"precomputed-bits route: loss {bits_losses[0]!r} vs seeded route {losses[0]!r}, "
+        f"peak memory {bits_peak / 2**30:.2f} GiB")
+    if bits_losses[0] != losses[0]:
+        raise AssertionError("the bits route and the seeded route disagree on one seed")
+
+    log(f"training with dropout {rate}: batch {audio.shape[0] * audio.shape[1]} = "
+        f"{audio.shape[0]} x {audio.shape[1]}, bf16 compute, f32 params, "
+        f"{step_summary(times, peak)}, losses {losses[0]:.1f} -> {losses[-1]:.1f}, on {card}")
+    log(f"  beside the dropout-free step: {dropout_free}")
+    return total, bits_total
 
 
 def main() -> int:
@@ -585,30 +802,56 @@ def main() -> int:
     check_forward(ak, model_lib, cfg, model)
     serving = end_to_end(ak, model_lib, cfg, model, card)
     log(f"serving main-path launches: {serving}")
-    training = check_training(ak, model_lib, cfg, copy.deepcopy(model).train(), card)
+    training, dropout_free = check_training(ak, model_lib, cfg, copy.deepcopy(model).train(),
+                                            card)
     log(f"training main-path launches: {training}")
-    on_path = {"global_attention": (serving, training), "local_two_phase": (serving, training),
-               "global_attention_grads": (training,), "local_two_phase_grads": (training,)}
-    for name, paths in on_path.items():
-        if any(path[name] == 0 for path in paths):
-            raise AssertionError(f"{name} was never launched on a path that runs it: "
-                                 f"serving {serving}, training {training}")
+    dropout, bits_route = check_training_dropout(ak, model_lib, cfg,
+                                                 copy.deepcopy(model).train(), card, dropout_free)
+    log(f"training-with-dropout main-path launches: seeded route {dropout}, "
+        f"precomputed-bits route {bits_route}")
+    paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route}
+    on_path = {
+        "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
+        "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
+        "global_attention_dropout": ("dropout",), "local_two_phase_dropout": ("dropout",),
+        "global_attention_grads_prng": ("dropout",), "local_two_phase_grads_prng": ("dropout",),
+        "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
+        "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
+    }
+    if set(on_path) != {fn.__name__ for fn in ak.KERNELS}:
+        raise AssertionError("a kernel wrapper has no main path that drives it")
+    for name, runs_it in on_path.items():
+        if any(paths[path][name] == 0 for path in runs_it):
+            raise AssertionError(f"{name} was never launched on a path that runs it: {paths}")
 
     src, tpu = "audio_to_midi_tpu_torch/csrc/", "audio_to_midi_tpu/ops/pallas_attention.py:"
+    # wrapper -> (source, the line of the TPU kernel's function, the phase-2 case reported)
     sources = {
-        "global_attention": (src + "global_attention.cu", tpu + "140", "global S=250 f32"),
-        "local_two_phase": (src + "local_attention.cu", tpu + "608", "local P=256 f32"),
-        "global_attention_grads": (src + "global_attention_bwd.cu", tpu + "1104",
-                                   "global grads S=250 bf16"),
-        "local_two_phase_grads": (src + "local_attention_bwd.cu", tpu + "992",
-                                  "local grads P=256 bf16"),
+        "global_attention": ("global_attention.cu", "140", "global S=250 f32"),
+        "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
+        "global_attention_grads": ("global_attention_bwd.cu", "1104", "global grads S=250 bf16"),
+        "local_two_phase_grads": ("local_attention_bwd.cu", "992", "local grads P=256 bf16"),
+        "global_attention_dropout": ("global_attention.cu", "1783", "global dropout S=250 bf16"),
+        "local_two_phase_dropout": ("local_attention.cu", "1622", "local dropout P=256 bf16"),
+        "global_attention_grads_prng": ("global_attention_bwd.cu", "1833",
+                                        "global grads prng S=250 bf16"),
+        "local_two_phase_grads_prng": ("local_attention_bwd.cu", "1682",
+                                       "local grads prng P=256 bf16"),
+        "global_attention_dropout_bits": ("global_attention.cu", "381",
+                                          "global dropout bits S=250 bf16"),
+        "local_two_phase_dropout_bits": ("local_attention.cu", "697",
+                                         "local dropout bits P=256 bf16"),
+        "local_two_phase_grads_bits": ("local_attention_bwd.cu", "1025",
+                                       "local grads bits P=256 bf16"),
+        "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
     }
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": serving[name] + training[name],
-                        "launches_serving": serving[name], "launches_training": training[name],
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": tpu + replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "case": case})

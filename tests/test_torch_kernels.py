@@ -58,7 +58,7 @@ def test_grads_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
                         ak.local_two_phase_grads_plain(q, k, q, k, v, g, 2, 16)):
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert [fn.launches for fn in ak.KERNELS] == before
-    assert len(ak.KERNELS) == 4
+    assert len(ak.KERNELS) == 12
 
 
 def test_global_attention_grads_of_fully_masked_rows():
@@ -245,7 +245,8 @@ def test_wrappers_are_differentiable_through_the_kernels_on_card(cuda_device):
     refs = ak.local_two_phase_grads_plain(*(t.detach() for t in ts), cot, 4, 16)
     _assert_grads_close(grads, refs, 2e-5)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in ak.KERNELS] == [n + 1 for n in before]
+    # One launch of each of the four dropout-free kernels, none of the others.
+    assert [fn.launches for fn in ak.KERNELS] == [n + 1 for n in before[:4]] + before[4:]
 
 
 @pytest.mark.cuda
@@ -263,3 +264,233 @@ def test_grads_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
         ak.global_attention_grads(f, f, f, f, 4, bits=bits, threshold=0)
     with pytest.raises(ValueError):  # bits of another shape
         ak.global_attention_grads(f, f, f, f, 4, bits=bits[:, :, :128], threshold=26)
+
+
+# --- the dropout kernels on the card ---------------------------------------
+
+THRESHOLD = 26  # round(0.1 * 256)
+
+
+def _seed(a: int, b: int, device="cpu") -> torch.Tensor:
+    return torch.tensor([a, b], dtype=torch.int32, device=device)
+
+
+def _random_bits(shape, seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,cores,p_len", [(32, 4, 250), (32, 8, 256), (3, 2, 37),
+                                                 (2, 8, 16), (1, 1, 496)])
+def test_philox_dump_kernel_equals_plain_philox_on_card(cuda_device, samples, cores, p_len):
+    """Kernel 14: the bytes of the kernel are those of the plain Philox, on
+    the card and on the CPU."""
+    seed = _seed(1234567, -89, cuda_device)
+    before = ak.philox_bits.launches
+    out = ak.philox_bits(seed, samples, cores, p_len)
+    torch.cuda.synchronize()
+    assert ak.philox_bits.launches == before + 1
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (samples, cores, p_len, p_len)
+    assert torch.equal(out, ak.philox_bits_plain(seed, samples, cores, p_len))
+    assert torch.equal(out.cpu(), ak.philox_bits_plain(seed.cpu(), samples, cores, p_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("source", ["philox", "bits"])
+@pytest.mark.parametrize("s,block,valid", [(250, 0, 250), (250, 0, 200), (496, 16, 496),
+                                           (37, 0, 37), (80, 16, 40)])
+def test_global_attention_dropout_kernels_match_plain_on_card(cuda_device, dtype, tol, source,
+                                                              s, block, valid):
+    """Kernels 15 and 4 against the plain bits version: the seeded kernel on
+    the bytes kernel 14 dumps for its seed, the bits kernel on random bytes."""
+    n = 32 if s == 250 else 8
+    q, k, v = (_randn(n, s, 256, seed=s + valid + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    if source == "philox":
+        seed = _seed(s, valid, cuda_device)
+        bits = ak.philox_bits(seed, n, 4, s)
+        wrapper = ak.global_attention_dropout
+        out = wrapper(q, k, v, seed, 4, block, valid, threshold=THRESHOLD)
+    else:
+        bits = _random_bits((n, 4, s, s), s, cuda_device)
+        wrapper = ak.global_attention_dropout_bits
+        out = wrapper(q, k, v, bits, 4, block, valid, threshold=THRESHOLD)
+    before = wrapper.launches
+    ref = ak.global_attention_plain(q, k, v, 4, block, valid, bits, THRESHOLD)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before  # the plain version launches no kernel
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    plain_free = ak.global_attention_plain(q, k, v, 4, block, valid)
+    assert (out.float() - plain_free.float()).abs().max().item() > 10 * tol  # it did drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GRAD_CASES)
+@pytest.mark.parametrize("s,block,valid", [(250, 0, 250), (250, 0, 200), (496, 16, 496),
+                                           (37, 0, 37), (80, 16, 40)])
+def test_global_attention_grads_prng_kernel_matches_plain_on_card(cuda_device, dtype, tol, s,
+                                                                  block, valid):
+    """Kernel 16 against the plain backward on the bytes kernel 14 dumps."""
+    n = 32 if s == 250 else 8
+    q, k, v, g = (_randn(n, s, 256, seed=s + valid + i, device=cuda_device, dtype=dtype)
+                  for i in range(4))
+    seed = _seed(-s, valid, cuda_device)
+    before = ak.global_attention_grads_prng.launches
+    outs = ak.global_attention_grads_prng(q, k, v, seed, g, 4, block, valid, threshold=THRESHOLD)
+    refs = ak.global_attention_grads_plain(q, k, v, g, 4, block, valid,
+                                           ak.philox_bits(seed, n, 4, s), THRESHOLD)
+    torch.cuda.synchronize()
+    assert ak.global_attention_grads_prng.launches == before + 1
+    _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("source", ["philox", "bits"])
+@pytest.mark.parametrize("p_len", [256, 32, 16])
+def test_local_two_phase_dropout_kernels_match_plain_on_card(cuda_device, dtype, tol, source,
+                                                             p_len):
+    """Kernels 12 and 5 against the plain bits version."""
+    ts = [_randn(32, p_len, 256, seed=5 + i, device=cuda_device, dtype=dtype)
+          for i in range(5)]
+    if source == "philox":
+        seed = _seed(p_len, 77, cuda_device)
+        bits_a, bits_b = ak.two_phase_planes(ak.philox_bits(seed, 32, 8, p_len), 4)
+        out = ak.local_two_phase_dropout(*ts, seed, 4, 16, threshold=THRESHOLD)
+    else:
+        bits_a, bits_b = (_random_bits((32, 4, p_len, p_len), p_len + i, cuda_device)
+                          for i in range(2))
+        out = ak.local_two_phase_dropout_bits(*ts, bits_a, bits_b, 4, 16, threshold=THRESHOLD)
+    ref = ak.local_two_phase_plain(*ts, 4, 16, bits_a, bits_b, THRESHOLD)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    plain_free = ak.local_two_phase_plain(*ts, 4, 16)
+    assert (out.float() - plain_free.float()).abs().max().item() > 10 * tol  # it did drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GRAD_CASES)
+@pytest.mark.parametrize("source", ["philox", "bits"])
+@pytest.mark.parametrize("p_len", [256, 32, 16])
+def test_local_two_phase_dropout_grads_kernels_match_plain_on_card(cuda_device, dtype, tol,
+                                                                   source, p_len):
+    """Kernels 13 and 8 against the plain backward."""
+    ts = [_randn(32, p_len, 256, seed=15 + i, device=cuda_device, dtype=dtype)
+          for i in range(6)]
+    if source == "philox":
+        seed = _seed(-p_len, 3, cuda_device)
+        bits_a, bits_b = ak.two_phase_planes(ak.philox_bits(seed, 32, 8, p_len), 4)
+        wrapper = ak.local_two_phase_grads_prng
+        before = wrapper.launches
+        outs = wrapper(*ts[:5], seed, ts[5], 4, 16, threshold=THRESHOLD)
+    else:
+        bits_a, bits_b = (_random_bits((32, 4, p_len, p_len), p_len + i, cuda_device)
+                          for i in range(2))
+        wrapper = ak.local_two_phase_grads_bits
+        before = wrapper.launches
+        outs = wrapper(*ts[:5], bits_a, bits_b, ts[5], 4, 16, threshold=THRESHOLD)
+    refs = ak.local_two_phase_grads_plain(*ts, 4, 16, bits_a, bits_b, THRESHOLD)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads", [(16, 2), (32, 2)])
+def test_dropout_kernels_other_head_dims_on_card(cuda_device, hd, heads):
+    ts = [_randn(4, 64, heads * hd, seed=25 + i, device=cuda_device) for i in range(6)]
+    seed = _seed(hd, heads, cuda_device)
+    bits_a, bits_b = ak.two_phase_planes(ak.philox_bits(seed, 4, 2 * heads, 64), heads)
+    out = ak.local_two_phase_dropout(*ts[:5], seed, heads, 16, threshold=THRESHOLD)
+    ref = ak.local_two_phase_plain(*ts[:5], heads, 16, bits_a, bits_b, THRESHOLD)
+    assert (out - ref).abs().max().item() <= 1e-5
+    _assert_grads_close(
+        ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], heads, 16, threshold=THRESHOLD),
+        ak.local_two_phase_grads_plain(*ts, heads, 16, bits_a, bits_b, THRESHOLD), 2e-5)
+    q, k, v, g = ts[:4]
+    bits = ak.philox_bits(seed, 4, heads, 64)
+    out = ak.global_attention_dropout(q, k, v, seed, heads, 0, 50, threshold=THRESHOLD)
+    ref = ak.global_attention_plain(q, k, v, heads, 0, 50, bits, THRESHOLD)
+    assert (out - ref).abs().max().item() <= 1e-5
+    _assert_grads_close(
+        ak.global_attention_grads_prng(q, k, v, seed, g, heads, 0, 50, threshold=THRESHOLD),
+        ak.global_attention_grads_plain(q, k, v, g, heads, 0, 50, bits, THRESHOLD), 2e-5)
+
+
+@pytest.mark.cuda
+def test_seeded_dropout_is_reproducible_and_keeps_at_its_rate_on_card(cuda_device):
+    """The same seed twice gives the same bits of output, another seed
+    another mask, and the dumped bytes keep 230 in 256 within 4 sigma."""
+    q, k, v = (_randn(8, 250, 256, seed=60 + i, device=cuda_device, dtype=torch.bfloat16)
+               for i in range(3))
+    s1, s2 = _seed(1, 2, cuda_device), _seed(1, 3, cuda_device)
+    a = ak.global_attention_dropout(q, k, v, s1, 4, threshold=THRESHOLD)
+    b = ak.global_attention_dropout(q, k, v, s1.clone(), 4, threshold=THRESHOLD)
+    c = ak.global_attention_dropout(q, k, v, s2, 4, threshold=THRESHOLD)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    ts = [_randn(8, 256, 256, seed=70 + i, device=cuda_device, dtype=torch.bfloat16)
+          for i in range(5)]
+    a = ak.local_two_phase_dropout(*ts, s1, 4, 16, threshold=THRESHOLD)
+    b = ak.local_two_phase_dropout(*ts, s1.clone(), 4, 16, threshold=THRESHOLD)
+    c = ak.local_two_phase_dropout(*ts, s2, 4, 16, threshold=THRESHOLD)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    bits = ak.philox_bits(s1, 32, 8, 256)
+    keep, n = (bits >= THRESHOLD).float().mean().item(), bits.numel()
+    p = (256 - THRESHOLD) / 256
+    assert abs(keep - p) <= 4 * math.sqrt(p * (1 - p) / n)
+
+
+@pytest.mark.cuda
+def test_dropout_wrappers_are_differentiable_through_the_kernels_on_card(cuda_device):
+    """Forward and backward of the seeded wrappers use the same mask: the
+    gradients equal the plain backward on the dumped bytes, and only the
+    seeded kernels are launched."""
+    seed = _seed(9, 10, cuda_device)
+    q, k, v = (_randn(4, 250, 256, seed=31 + i, device=cuda_device).requires_grad_()
+               for i in range(3))
+    before = [fn.launches for fn in ak.KERNELS]
+    out = ak.global_attention_dropout(q, k, v, seed, 4, threshold=THRESHOLD)
+    cot = _randn(4, 250, 512, seed=40, device=cuda_device)[:, :, ::2]
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    ts = [_randn(4, 256, 256, seed=50 + i, device=cuda_device).requires_grad_()
+          for i in range(5)]
+    out_l = ak.local_two_phase_dropout(*ts, seed, 4, 16, threshold=THRESHOLD)
+    grads_l = torch.autograd.grad(out_l[:, :250].square().sum(), ts)
+    torch.cuda.synchronize()
+    launched = [fn.launches - n for fn, n in zip(ak.KERNELS, before)]
+    assert launched == [0, 0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 0]
+
+    refs = ak.global_attention_grads_plain(q.detach(), k.detach(), v.detach(), cot.contiguous(),
+                                           4, 0, None, ak.philox_bits(seed, 4, 4, 250), THRESHOLD)
+    _assert_grads_close(grads, refs, 2e-5)
+    cot_l = torch.zeros_like(out_l)
+    cot_l[:, :250] = 2 * out_l.detach()[:, :250]
+    bits_a, bits_b = ak.two_phase_planes(ak.philox_bits(seed, 4, 8, 256), 4)
+    refs_l = ak.local_two_phase_grads_plain(*(t.detach() for t in ts), cot_l, 4, 16,
+                                            bits_a, bits_b, THRESHOLD)
+    _assert_grads_close(grads_l, refs_l, 2e-5)
+
+
+@pytest.mark.cuda
+def test_dropout_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
+    f = torch.zeros(1, 256, 256, device=cuda_device)
+    seed = _seed(1, 2, cuda_device)
+    with pytest.raises(ValueError):  # a threshold that keeps all or nothing
+        ak.global_attention_dropout(f, f, f, seed, 4, threshold=256)
+    with pytest.raises(ValueError):  # the seed must lie on the inputs' device
+        ak.global_attention_dropout(f, f, f, seed.cpu(), 4, threshold=THRESHOLD)
+    with pytest.raises(ValueError):  # (2,) int32
+        ak.local_two_phase_dropout(f, f, f, f, f, seed.long(), 4, 16, threshold=THRESHOLD)
+    bits = torch.zeros(1, 4, 256, 256, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):  # bits of another shape
+        ak.local_two_phase_dropout_bits(f, f, f, f, f, bits, bits[:, :2], 4, 16,
+                                        threshold=THRESHOLD)
+    with pytest.raises(ValueError):
+        ak.global_attention_dropout_bits(f, f, f, bits[:, :, :128], 4, threshold=THRESHOLD)
+    h = f.half()
+    with pytest.raises(NotImplementedError):
+        ak.global_attention_dropout(h, h, h, seed, 4, threshold=THRESHOLD)

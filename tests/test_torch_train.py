@@ -151,8 +151,15 @@ def test_dropout_above_zero_raises_until_its_kernels_are_ported(tree):
     audio = torch.zeros(1, 2, 8_000)
     rope = pt_model.make_rope(cfg.model)
     with_dropout = dataclasses.replace(cfg.model, transformer_dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
+    # The kernels are ported: a rate above 0 runs, from an explicit generator
+    # only (tests/test_torch_train_dropout.py holds it against the JAX model).
+    with pytest.raises(ValueError, match="generator"):
         pt_model.forward(model, with_dropout, audio, rope, enable_dropout=True)
+    with torch.no_grad():
+        _, dropped = pt_model.forward(model, with_dropout, audio, rope, enable_dropout=True,
+                                      generator=torch.Generator().manual_seed(0))
+        _, free = pt_model.forward(model, with_dropout, audio, rope)
+    assert torch.isfinite(dropped).all() and not torch.equal(dropped, free)
     # Rate 0.1 without dropout enabled, and dropout enabled at rate 0.0, are
     # the serving forward.
     with torch.no_grad():

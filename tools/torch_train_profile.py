@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on one GPU.
 
-    python3 tools/torch_train_profile.py [--out DIR]
+    python3 tools/torch_train_profile.py [--out DIR] [--dropout-rate RATE]
 
-Takes the training steps of chip_smoke.py's training phase, through that
-script's own set-up: the default model from seed 0, dropout-free, bf16
-compute over f32 parameters, `cnn_bwd_kernel=False`, one seeded batch of the
-configuration's batch and minibatch sizes.  After two warm-up steps it
+Takes the training steps of chip_smoke.py's training phases, through that
+script's own set-up: the default model from seed 0, bf16 compute over f32
+parameters, `cnn_bwd_kernel=False`, one seeded batch of the configuration's
+batch and minibatch sizes; dropout at the configuration's rate (0.1, the
+reference-parity step) or, with `--dropout-rate 0`, dropout-free.  After two warm-up steps it
 prints, with the card's name and power limit:
   * the host wall and the device time (CUDA events) of three whole steps;
   * forward, backward and optimizer of one minibatch, each as host wall to
@@ -14,8 +15,9 @@ prints, with the card's name and power limit:
   * from one step under torch.profiler: the device's busy time (union of
     kernel and copy intervals), its idle share of the step, the number of
     device operations, and the kernels that take the most device time.
-Writes the same as JSON to DIR/torch_train_profile.json (default
-build/smoke/ in the checkout).  Needs one CUDA device and nvcc; imports no JAX.
+Writes the same as JSON to DIR/torch_train_profile.json, or
+torch_train_profile_dropout_free.json at rate 0 (default DIR: build/smoke/
+in the checkout).  Needs one CUDA device and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def timed(fn) -> tuple[float, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=chip_smoke.WORK)
+    ap.add_argument("--dropout-rate", type=float,
+                    default=DEFAULT_CONFIG.model.transformer_dropout_rate)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device available", file=sys.stderr)
@@ -62,21 +66,23 @@ def main() -> int:
 
     model = chip_smoke.seeded_model(model_lib, DEFAULT_CONFIG).train()
     cfg, rope, optimizer, step, audio, labels = chip_smoke.training_setup(
-        model_lib, DEFAULT_CONFIG, model)
+        model_lib, DEFAULT_CONFIG, model, args.dropout_rate)
     model_cfg = cfg.model
     compute_dtype = DTYPES[cfg.precision.compute_dtype]
+    generator = torch.Generator().manual_seed(7)  # the steps' dropout, unused at rate 0
     for _ in range(2):
-        step(model, audio, labels, 1.0)
+        step(model, audio, labels, 1.0, generator)
 
     result = {"card": card, "batch": audio.shape[0] * audio.shape[1],
-              "minibatch": audio.shape[1],
+              "minibatch": audio.shape[1], "dropout_rate": args.dropout_rate,
               "compute_dtype": cfg.precision.compute_dtype}
+    print(f"dropout rate {args.dropout_rate}")
 
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, device_ms = timed(lambda: step(model, audio, labels, 1.0))
+        _, device_ms = timed(lambda: step(model, audio, labels, 1.0, generator))
         walls.append(((time.perf_counter() - t0) * 1e3, device_ms))
     result["step_ms"] = [{"wall": w, "device_events": d} for w, d in walls]
     print("steps (wall ms, device ms): " + ", ".join(f"({w:.1f}, {d:.1f})" for w, d in walls))
@@ -90,8 +96,9 @@ def main() -> int:
 
     def forward():
         with torch.enable_grad():
-            holder["loss"] = loss_lib.batch_loss(model, model_cfg, audio[0], labels[0], rope, 1.0,
-                                                 compute_dtype)
+            holder["loss"] = loss_lib.batch_loss(
+                model, model_cfg, audio[0], labels[0], rope, 1.0, compute_dtype,
+                generator=torch.Generator(device="cuda").manual_seed(8))
 
     phases = {"forward": timed(forward), "backward": timed(lambda: holder["loss"].backward())}
     grads = [p.grad for p in optimizer.params]
@@ -106,7 +113,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(model, audio, labels, 1.0)
+        step(model, audio, labels, 1.0, generator)
         torch.cuda.synchronize()
     traced_wall = (time.perf_counter() - t0) * 1e3
     device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -142,7 +149,8 @@ def main() -> int:
         print(f"  {us / 1e3:8.2f} ms {us / busy_us:6.1%} x{c:<5d} {n[:100]}")
 
     args.out.mkdir(parents=True, exist_ok=True)
-    (args.out / "torch_train_profile.json").write_text(json.dumps(result, indent=1))
+    name = "torch_train_profile.json" if args.dropout_rate else "torch_train_profile_dropout_free.json"
+    (args.out / name).write_text(json.dumps(result, indent=1))
     return 0
 
 
