@@ -11,10 +11,9 @@ Scheduling knobs that only mean something to XLA on a TPU
 ``fused_flat_optimizer``) are kept as no-op fields so that configs
 round-trip, and so are the training fields whose modules are not ported yet
 (``input_ring_*``, ``augment_on_device``, ``model_parallel_size``,
-``use_custom_init``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select no code
-either, but they decide whether a training step on the card would need the
-ConvNeXt stage-backward kernel, which is not ported: see
-``models/convnext.stage_bwd_kernel_wanted``.
+``use_custom_init``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
+in the JAX package: which ConvNeXt stages go to the fused stage kernels
+(``models/convnext.stage_route``).
 """
 
 from __future__ import annotations
@@ -80,13 +79,19 @@ class ModelConfig:
     attention_impl: str = "pallas"
 
     # No-op here: XLA scheduling knobs of the JAX package, kept so that
-    # configs round-trip (autograd saves every block's activations; at
-    # minibatch 32 they fit the card many times over).
+    # configs round-trip (autograd saves every block's activations, the fused
+    # stage backward every block's input; at minibatch 32 they fit the card
+    # many times over).
     cnn_remat: bool = True
     transformer_remat: bool = False
     transformer_scan_unroll: int = 8
     cnn_scan_unroll: int = 21
     fast_dropout_rng: bool = True
+    # "pallas": stages whose geometry the stage-backward kernel takes (5 and 6
+    # of the default dims) run the block loop forward and, with
+    # cnn_bwd_kernel, that kernel backward.  "pallas_stage": the fused stage
+    # forward kernel where it takes the stage (4, 5, 6), differentiated by
+    # autograd through the block loop.  "xla": the block loop everywhere.
     cnn_impl: str = "pallas"
     cnn_bwd_kernel: bool = True
 

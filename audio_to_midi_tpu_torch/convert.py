@@ -16,6 +16,11 @@ writes it from a checkpoint).  The mapping, leaf by leaf:
   torch's ``(C, 1, K)`` only at the ``F.conv1d`` call -- and q_up/k_up
   columns already in RoPE-halves order.  Values are copied bit for bit.
 * Every other path maps ``/`` to ``.``.
+
+For one stage on its own, :func:`stage_blocks_from_jax` turns the stacked
+``blocks`` subtree into the port's ``Block`` modules, and
+:func:`stage_grads_to_jax` lays the gradients of the stage kernels' stacked
+operands (``ops/convnext_kernels.WEIGHT_NAMES``) out like that subtree.
 """
 
 from __future__ import annotations
@@ -98,3 +103,31 @@ def save_npz(path: str | Path, flat: Mapping[str, np.ndarray]) -> None:
 def load_npz(path: str | Path) -> dict[str, np.ndarray]:
     with np.load(path, allow_pickle=False) as data:
         return {k: data[k] for k in data.files}
+
+
+def stage_blocks_from_jax(blocks: Any) -> torch.nn.ModuleList:
+    """The stacked ``blocks`` subtree of one CNN stage (leaves lead with
+    ``(depth,)``) -> that stage's ``models/convnext.Block`` modules."""
+    from .models.convnext import Block
+
+    flat = flatten_tree(blocks)
+    depth, k, _, channels = flat["depth_conv/w"].shape
+    hidden = flat["pw1/w"].shape[-1]
+    modules = torch.nn.ModuleList(Block(channels, hidden, None, k) for _ in range(depth))
+    for j, module in enumerate(modules):
+        module.load_state_dict({path.replace("/", "."): torch.from_numpy(np.array(leaf[j]))
+                                for path, leaf in flat.items()}, strict=True)
+    return modules
+
+
+def stage_grads_to_jax(grads) -> dict[str, np.ndarray]:
+    """The eight gradients of the stage kernels' stacked operands (dw, dwb,
+    ln, pw1, pw1b, pw2, pw2b, gamma) -> ``{"depth_conv/w": ...}`` with the
+    shapes of the stacked ``blocks`` subtree."""
+    dw, dwb, ln, pw1, pw1b, pw2, pw2b, gamma = (g.detach().float().cpu().numpy() for g in grads)
+    return {
+        "depth_conv/w": dw[:, :, None, :], "depth_conv/b": dwb[:, 0],
+        "norm/scale": ln[:, 0], "norm/bias": ln[:, 1],
+        "pw1/w": pw1, "pw1/b": pw1b[:, 0], "pw2/w": pw2, "pw2/b": pw2b[:, 0],
+        "gamma": gamma[:, 0],
+    }

@@ -13,11 +13,17 @@ ramp from 0 to ``sdd_rate`` over the blocks) runs only with
 ``enable_dropout`` and ``enable_cnn_stochastic_depth``; the reference's
 configuration leaves it off.
 
-Training differentiates the blocks through ordinary autograd, the
-counterpart of the JAX package's scanned backward (``cnn_bwd_kernel=False``).
-Its fused stage-backward kernel (``ops/pallas_convnext_bwd.py``) is not
-ported yet; :func:`cnn_forward` refuses to train on the card a configuration
-that asks for it.
+A stage's blocks take one of three routes, chosen as the JAX package's
+``cnn_forward`` chooses (:func:`stage_route`): with
+``cnn_impl="pallas_stage"`` the fused stage forward
+(``ops/convnext_kernels.fused_convnext_stage``, kernel 19); else, with
+``cnn_bwd_kernel`` and ``cnn_impl`` "pallas" or "pallas_stage", the plain
+block loop forward with the fused stage backward
+(``ops/convnext_kernels.stage_blocks_fused_bwd``, kernel 20) -- stages 5 and
+6 of the default configuration; else the block loop under ordinary autograd,
+the counterpart of the JAX package's scanned backward.  ``cnn_impl="xla"``
+takes the block loop everywhere.  ``cnn_remat`` selects nothing: the fused
+backward saves every block's input, autograd every block's activations.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import convnext_kernels
 from . import nn as a2m_nn
 
 
@@ -124,20 +131,24 @@ def block(x: torch.Tensor, p: Block, *, sdd_rate: float = 0.0,
     return out + x
 
 
-def stage_bwd_kernel_wanted(cfg: ModelConfig, stage: int, dtype: torch.dtype) -> bool:
-    """Whether the JAX package would differentiate this stage's blocks with
-    its fused stage-backward kernel: the gate of its ``cnn_forward`` with
-    ``bwd_stage_supported`` (lane-aligned channels and hidden width, weight
-    gradients that fit its fast memory, a dtype its compiler takes)."""
-    c, hidden = cfg.dims[stage], cfg.cnn_hidden_dims[stage]
-    return (
-        cfg.cnn_bwd_kernel
-        and cfg.cnn_impl in ("pallas", "pallas_stage")
-        and c % 128 == 0
-        and hidden % 128 == 0
-        and c * hidden <= 128 * 1024
-        and dtype != torch.float16
-    )
+def stage_route(cfg: ModelConfig, stage: int, length: int, dtype: torch.dtype,
+                enable_sdd: bool = False) -> str:
+    """Which code runs the blocks of ``stage`` on ``length`` rows in
+    ``dtype``: "stage_fwd" (kernel 19 forward, rematerializing autograd
+    backward), "stage_bwd" (block loop forward, kernel 20 backward) or
+    "blocks" (the block loop under autograd).  The JAX package's
+    ``cnn_forward`` decides the same way; f16 and stochastic depth take the
+    block loop."""
+    c, hidden, depth = cfg.dims[stage], cfg.cnn_hidden_dims[stage], cfg.depths[stage]
+    if enable_sdd:
+        return "blocks"
+    if cfg.cnn_impl == "pallas_stage" and convnext_kernels.stage_fwd_supported(
+            length, c, depth, dtype):
+        return "stage_fwd"
+    if (cfg.cnn_bwd_kernel and cfg.cnn_impl in ("pallas", "pallas_stage")
+            and convnext_kernels.stage_bwd_supported(length, c, hidden, depth, dtype)):
+        return "stage_bwd"
+    return "blocks"
 
 
 def cnn_forward(
@@ -148,11 +159,7 @@ def cnn_forward(
 
     Stochastic depth draws from ``generator`` (on x's device) when
     ``enable_dropout`` and ``cfg.enable_cnn_stochastic_depth`` are both set.
-
-    With ``cfg``, a stage that autograd would have to differentiate on the
-    card although the configuration asks for the stage-backward kernel
-    raises ``NotImplementedError``: no kernel is skipped silently.  Serving
-    (no gradient) and the CPU are unaffected."""
+    Without ``cfg`` every stage takes the block loop."""
     enable_sdd = enable_dropout and cfg is not None and cfg.enable_cnn_stochastic_depth
     if enable_sdd and generator is None:
         raise ValueError("stochastic depth needs a generator when enabled")
@@ -160,15 +167,18 @@ def cnn_forward(
     h = x
     for i, stage in enumerate(cnn.stages):
         h = stem(h, stage.down) if i == 0 else downsample(h, stage.down)
-        if (cfg is not None and h.is_cuda and h.requires_grad and not enable_sdd
-                and stage_bwd_kernel_wanted(cfg, i, h.dtype)):
-            raise NotImplementedError(
-                f"cnn_bwd_kernel=True asks for the ConvNeXt stage-backward kernel in stage "
-                f"{i} (TPU kernel 20, ops/pallas_convnext_bwd.py), which arrives with slice "
-                f"2c of the port; train with cnn_bwd_kernel=False until then")
-        for blk in stage.blocks:
-            if enable_sdd:
-                h = block(h, blk, sdd_rate=next(rates), generator=generator)
-            else:
-                h = block(h, blk)
+        route = "blocks" if cfg is None else stage_route(cfg, i, h.shape[1], h.dtype, enable_sdd)
+        if route == "stage_fwd":
+            h = convnext_kernels.fused_convnext_stage(
+                h, convnext_kernels.stage_weights(stage.blocks, h.dtype))
+        elif route == "stage_bwd" and torch.is_grad_enabled():
+            # Serving (no gradient) keeps the block loop and stacks nothing.
+            h = convnext_kernels.stage_blocks_fused_bwd(
+                h, convnext_kernels.stage_weights(stage.blocks, h.dtype))
+        else:
+            for blk in stage.blocks:
+                if enable_sdd:
+                    h = block(h, blk, sdd_rate=next(rates), generator=generator)
+                else:
+                    h = block(h, blk)
     return a2m_nn.layer_norm(h, cnn.final_norm.scale, cnn.final_norm.bias)

@@ -98,10 +98,17 @@ def library() -> ctypes.CDLL:
         "a2m_global_attention_grads": [ptr] * 10 + [i32] * 7 + [f32, i32, ptr],
         "a2m_local_two_phase_grads": [ptr] * 14 + [i32] * 5 + [f32, i32, ptr],
         "a2m_philox_dump": [ptr] * 2 + [i32] * 3 + [ptr],
+        # carries, dy, 8 weights, dx, 8 gradients, workspace; depth, B, L, C, H, K, dtype.
+        "a2m_convnext_stage_bwd": [ptr] * 20 + [i32] * 7 + [ptr],
+        # x, 8 weights, out, workspace; depth, B, L, C, H, K, dtype.
+        "a2m_convnext_stage_fwd": [ptr] * 11 + [i32] * 7 + [ptr],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i32
+    for name in ("a2m_convnext_stage_bwd_workspace", "a2m_convnext_stage_fwd_workspace"):
+        getattr(lib, name).argtypes = [i32] * 5   # B, L, C, H, dtype -> bytes (0: not taken)
+        getattr(lib, name).restype = ctypes.c_longlong
     lib.a2m_error_string.argtypes = [i32]
     lib.a2m_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,7 +18,10 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      least time the card could take (bytes over its memory rate or
      operations over its peak rate, whichever is larger) and, for the global
      attention, the time of F.scaled_dot_product_attention on the same
-     tensors (CUDA events);
+     tensors (CUDA events); the ConvNeXt stage backward at the geometry of
+     stages 5 and 6 at 32 windows and the stage forward at stages 4, 5, 6 at
+     16 windows, each beside autograd through (or the forward of) the plain
+     block loop, which is many calls and not one;
   3. forward: the default model (~11.6 M params) from seeded weights on 16
      seeded windows (16, 2, 80000), kernel path vs plain path, bf16 and f32,
      and 8 launches of each forward kernel per forward;
@@ -26,7 +29,8 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      seeded weights saved as a port checkpoint, then the CLI
      (file -> MIDI, f32) with its launches counted; the MIDI is read back and
      the stitched probabilities are held against the plain path's;
-  5. training: the same model, dropout-free, bf16 compute over f32
+  5. training: the same model, dropout-free and with cnn_bwd_kernel=False
+     (autograd through the ConvNeXt blocks), bf16 compute over f32
      parameters, 4 optimizer steps on one seeded batch of 64 windows in 2
      minibatches of 32, with 16 launches of each of the four kernels per
      step; the f32 gradient of a minibatch of 4 through the kernels is held
@@ -41,7 +45,18 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      state and seed, which must give the same losses bit for bit; and one
      step by the precomputed-bits route (A2M_PRNG_DROPOUT=0: the dump kernel
      writes the bytes, the bits kernels read them), which must give the
-     seeded route's loss.
+     seeded route's loss;
+  7. training, the default configuration untouched (cnn_bwd_kernel=True,
+     dropout 0.1): 4 steps with 4 launches of the stage backward per step
+     (stages 5 and 6 of 2 minibatches) beside the 16 of each seeded kernel;
+     the f32 gradient of a minibatch of 4 with cnn_impl "pallas" against
+     "xla"; the first bf16 loss equal to phase 6's bit for bit (the forward
+     is the same block loop); the same steps again, identical;
+  8. serving with cnn_impl="pallas_stage": 16 windows through
+     infer.predict_and_stitch, bf16 and f32, 3 launches of the stage forward
+     per forward, the stitched probabilities against the cnn_impl="xla"
+     path, and ms per forward beside the default path's at 16 and 128
+     windows.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}
 as the last line.  Artifacts go to build/smoke/ in the checkout.
 """
@@ -97,6 +112,15 @@ MODEL_GRAD_TOL = 1e-5
 # either sign and average out over the 32 x 250 x 90 summed outputs, to
 # 1.5e-6 on an H100; the limit is ~65x that.
 LOSS_TOL_BF16 = 1e-4
+# The stage kernels vs their plain versions, per output: f32 as GRAD_TOL_F32;
+# bf16 in ulps of the output's top binade.  A rounding flipped by an fp32 sum
+# taken in another order is one ulp, and the residual hands each block's
+# flips to the next block: 3 ulps for the 3 blocks of stages 4 and 6, 8 for
+# the 21 of stage 5 (read on an H100: up to 0.75 and 3).  A wrong tap, row or
+# column moves an output by a share of its largest, hundreds of ulps.
+STAGE_TOL_BF16_ULPS = {3: GRAD_TOL_BF16_ULPS, 21: 8}
+# (depth, L, C, H) of the stages the kernels take in the default model.
+STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
 TRAIN_STEPS = 4
 DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
@@ -108,6 +132,22 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def all_kernels() -> tuple:
+    """Every kernel wrapper of the port, the attention ones first."""
+    from audio_to_midi_tpu_torch.ops import attention_kernels, convnext_kernels
+
+    return attention_kernels.KERNELS + convnext_kernels.KERNELS
+
+
+def reset_launches() -> None:
+    for fn in all_kernels():
+        fn.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in all_kernels()}
 
 
 def card_line() -> str:
@@ -146,14 +186,14 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def grad_tol(ref: torch.Tensor, dtype: str) -> float:
+def grad_tol(ref: torch.Tensor, dtype: str, ulps: int = GRAD_TOL_BF16_ULPS) -> float:
     """The allowed max abs error of one output of a backward kernel."""
     top = ref.float().abs().max().item()
     if dtype == "f32":
         return GRAD_TOL_F32 * max(1.0, top)
     # One bf16 ulp of the binade that holds the output's largest magnitude.
     ulp = 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)
-    return GRAD_TOL_BF16_ULPS * ulp
+    return ulps * ulp
 
 
 def bound(n_tensors: int, numel: int, dtype: str, flops: float, extra_bytes: int = 0) -> dict:
@@ -184,7 +224,25 @@ def sdpa_backend(q4, k4, v4) -> str:
     return "MATH"
 
 
-def check_kernels(ak, train_minibatch: int) -> dict[str, dict]:
+def stage_operands(depth: int, b: int, l: int, c: int, hidden: int, dtype: torch.dtype, seed: int):
+    """Seeded (carries, weights, dy) of a stage on the card: weights at the
+    init's scales but gamma in (0.5, 1.5) and a LayerNorm off the identity,
+    so the branch and every gradient count."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    uni = lambda scale, *shape: (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+    normal = lambda *shape: torch.randn(*shape, generator=gen)
+    weights = (uni(7 ** -0.5, depth, 7, c), uni(7 ** -0.5, depth, 1, c),
+               torch.stack([1 + 0.1 * normal(depth, c), 0.1 * normal(depth, c)], 1),
+               uni(c ** -0.5, depth, c, hidden), uni(c ** -0.5, depth, 1, hidden),
+               uni(hidden ** -0.5, depth, hidden, c), uni(hidden ** -0.5, depth, 1, c),
+               0.5 + torch.rand(depth, 1, c, generator=gen))
+    weights = tuple((w.to(dtype).float() if i == 2 else w.to(dtype)).cuda().contiguous()
+                    for i, w in enumerate(weights))   # 2: ln stays fp32
+    return (normal(depth, b, l, c).to(device="cuda", dtype=dtype), weights,
+            normal(b, l, c).to(device="cuda", dtype=dtype))
+
+
+def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     """Phase 2: each kernel vs its plain version, with its bound and, where
     one PyTorch call computes the same function, that call's time.  ``tol``
     maps an output of the plain version to its allowed max abs error."""
@@ -362,6 +420,53 @@ def check_kernels(ak, train_minibatch: int) -> dict[str, dict]:
             if not (same and differs):
                 raise AssertionError(f"seeded {what} dropout does not follow its seed")
 
+    # Kernels 20 and 19: the ConvNeXt stage backward at the training shapes
+    # (stages 5 and 6, 32 windows) and the stage forward at the serving shapes
+    # (stages 4, 5, 6, 16 windows).  Operations: six (backward) or two
+    # (forward) products of 2 R C H per block, R = B L rows.  Bytes: the rows
+    # in and out once, the weights, and for the backward the fp32 gradients.
+    # "Library": no one PyTorch call computes a stage; the time beside the
+    # kernel is autograd through the plain block loop on the same tensors (the
+    # path the backward kernel replaces) and the loop's forward under no_grad
+    # -- many calls, not one.
+    for name, dt in dtypes.items():
+        itemsize = 4 if name == "f32" else 2
+        for stage, batch, backward in ((5, train_minibatch, True), (6, train_minibatch, True),
+                                       (4, BATCH, False), (5, BATCH, False), (6, BATCH, False)):
+            depth, l, c, hidden = STAGES[stage]
+            carries, weights, dy = stage_operands(depth, batch, l, c, hidden, dt, seed=60 + stage)
+            rows_flops = 2.0 * batch * l * c * hidden * depth
+            weight_elems = sum(w.numel() for w in weights)
+            stage_tol = lambda ref: grad_tol(ref, name, STAGE_TOL_BF16_ULPS[depth])
+            x = carries[0].contiguous()
+            if backward:
+                flat = lambda out: (out[0], *out[1])   # (dx, grads) -> the nine outputs
+                leaves = [t.clone().requires_grad_() for t in (x, *weights)]
+                looped = ck.plain_stage(leaves[0], leaves[1:])
+                run(f"stage bwd stage {stage} B={batch}", name,
+                    lambda: flat(ck.stage_bwd(carries, weights, dy)),
+                    lambda: flat(ck.stage_bwd_plain(carries, weights, dy)), stage_tol,
+                    bound(depth + 2, dy.numel(), name, 6 * rows_flops,
+                          extra_bytes=weight_elems * (itemsize + 4)),
+                    library=lambda: torch.autograd.grad(looped, leaves, dy, retain_graph=True))
+                first, again = (flat(ck.stage_bwd(carries, weights, dy)) for _ in range(2))
+                same = all(torch.equal(a, b) for a, b in zip(first, again))
+                log(f"stage bwd stage {stage} {name}: the same inputs twice, identical bits {same}")
+                if not same:
+                    raise AssertionError("the stage backward does not repeat bit for bit")
+                del leaves, looped, first, again
+            else:
+                def loop_forward():
+                    with torch.no_grad():
+                        return ck.plain_stage(x, weights)
+                run(f"stage fwd stage {stage} B={batch}", name,
+                    lambda: ck.stage_fwd(x, weights), lambda: ck.stage_fwd_plain(x, weights),
+                    stage_tol,
+                    bound(2, x.numel(), name, 2 * rows_flops, extra_bytes=weight_elems * itemsize),
+                    library=loop_forward)
+            del carries, weights, dy, x
+            torch.cuda.empty_cache()
+
     # Kernel 14: the dump kernel against the plain Philox, bytes equal, and the
     # keep rate of its bytes.  Its work is integer arithmetic, for which the
     # data sheet gives no rate: the bound is its output's bytes.  Library:
@@ -387,7 +492,7 @@ def check_kernels(ak, train_minibatch: int) -> dict[str, dict]:
     return results
 
 
-def check_forward(ak, model_lib, cfg, model) -> None:
+def check_forward(model_lib, cfg, model) -> None:
     """Phase 3: full-width forward, kernel path vs plain path, 8 launches."""
     from audio_to_midi_tpu_torch.infer import _parity_precision
 
@@ -399,25 +504,24 @@ def check_forward(ak, model_lib, cfg, model) -> None:
         m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
         x = audio.to(dt)
         with torch.inference_mode(), _parity_precision(dt):
-            for fn in ak.KERNELS:
-                fn.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             _, probs = model_lib.forward(m, cfg.model, x, rope)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = [fn.launches for fn in ak.KERNELS]
+            launches = list(read_launches().values())
             _, ref = model_lib.forward(m, plain_cfg, x, rope)
         err = max_err(probs, ref)
         ok = (tuple(probs.shape) == (BATCH, SEQ, cfg.model.output_vocab)
               and bool(torch.isfinite(probs.float()).all()) and err <= FORWARD_TOL[name])
         log(f"forward {name} {tuple(x.shape)} -> {tuple(probs.shape)}: kernel vs plain "
             f"max_abs_err {err:.3e} (tol {FORWARD_TOL[name]:.0e}), launches "
-            f"{dict(zip((fn.__name__ for fn in ak.KERNELS), launches))}, "
+            f"{dict(zip(read_launches(), launches))}, "
             f"first-call wall {wall:.3f} s {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} forward: kernel path disagrees with the plain path")
-        # No backward and no dropout in serving.
-        expected = [cfg.model.num_transformer_layers] * 2 + [0] * (len(ak.KERNELS) - 2)
+        # No backward, no dropout and (cnn_impl="pallas") no stage kernel in serving.
+        expected = [cfg.model.num_transformer_layers] * 2 + [0] * (len(launches) - 2)
         if launches != expected:
             raise AssertionError(f"{name} forward launched {launches}, expected {expected}")
         if name == "f32":
@@ -442,7 +546,7 @@ def synth_audio(seconds: float, rate: int, seed: int) -> np.ndarray:
     return (0.5 * out / np.abs(out).max()).astype(np.float32)
 
 
-def end_to_end(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
+def end_to_end(model_lib, cfg, model, card: str) -> dict[str, int]:
     """Phase 4: WAV -> CLI -> MIDI; returns the launches of that run."""
     from audio_to_midi_tpu_torch import convert
     from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
@@ -455,15 +559,14 @@ def end_to_end(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
     write_wav(wav, synth_audio(30.0, cfg.data.sample_rate, seed=2), cfg.data.sample_rate)
     convert.save_npz(ckpt, convert.state_dict_to_jax(model.state_dict()))
 
-    for fn in ak.KERNELS:
-        fn.launches = 0
+    reset_launches()
     captured = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(captured):
         rc = cli_main([str(wav), str(mid), "--checkpoint", str(ckpt)])
     torch.cuda.synchronize()
     cli_wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in ak.KERNELS}
+    launches = read_launches()
     cli_out = captured.getvalue()
     log("cli: " + " | ".join(cli_out.strip().splitlines()))
     if rc != 0:
@@ -514,14 +617,17 @@ def seeded_model(model_lib, cfg):
     return model_lib.Model(cfg.model, torch.Generator().manual_seed(0)).cuda().eval()
 
 
-def training_setup(model_lib, cfg, model, dropout_rate: float = 0.0):
+def training_setup(model_lib, cfg, model, dropout_rate: float, cnn_bwd_kernel: bool):
     """A training phase's configuration, batch and step, for ``model``:
     (train_cfg, rope, optimizer, step, audio, labels).
 
     At ``dropout_rate`` 0 the attention routes take the dropout-free kernels
-    and their backward kernels, above 0 the seeded dropout kernels; the
-    ConvNeXt stages take ordinary autograd (the counterpart of the scanned
-    backward).  No warm-up, so the first update is not zero.  One seeded batch of ``cfg.train.batch_size`` windows in
+    and their backward kernels, above 0 the seeded dropout kernels.  With
+    ``cnn_bwd_kernel`` the ConvNeXt stages 5 and 6 take the fused stage
+    backward, without it ordinary autograd (the counterpart of the scanned
+    backward); at the configuration's own rate with it, the model
+    configuration is the default, untouched.  No warm-up, so the first update
+    is not zero.  One seeded batch of ``cfg.train.batch_size`` windows in
     minibatches of ``minibatch_size_per_device``, labels sparse as piano
     rolls are."""
     from audio_to_midi_tpu_torch.train import optim, step as step_lib
@@ -529,7 +635,7 @@ def training_setup(model_lib, cfg, model, dropout_rate: float = 0.0):
     train_cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, warmup_steps=0),
         model=dataclasses.replace(cfg.model, transformer_dropout_rate=dropout_rate,
-                                  cnn_bwd_kernel=False))
+                                  cnn_bwd_kernel=cnn_bwd_kernel))
     rope = model_lib.make_rope(train_cfg.model, "cuda")
     batch, minibatch = train_cfg.train.batch_size, train_cfg.train.minibatch_size_per_device
     gen = torch.Generator(device="cpu").manual_seed(4)
@@ -543,26 +649,15 @@ def training_setup(model_lib, cfg, model, dropout_rate: float = 0.0):
     return train_cfg, rope, optimizer, step, audio, labels
 
 
-def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
+def check_training(model_lib, cfg, model, card: str) -> dict[str, int]:
     """Phase 5: a few optimizer steps at full width; returns their launches."""
     from audio_to_midi_tpu_torch.infer import _parity_precision
     from audio_to_midi_tpu_torch.train import loss as loss_lib
 
-    train_cfg, rope, optimizer, step, audio, labels = training_setup(model_lib, cfg, model)
+    train_cfg, rope, optimizer, step, audio, labels = training_setup(
+        model_lib, cfg, model, dropout_rate=0.0, cnn_bwd_kernel=False)
     train_model_cfg = train_cfg.model
-    names = [fn.__name__ for fn in ak.KERNELS]
-
-    # With cnn_bwd_kernel=True the same step must refuse to skip kernel 20.
-    probe = torch.zeros(1, 2, 80_000, device="cuda")
-    try:
-        with torch.enable_grad():
-            loss_lib.batch_loss(model, dataclasses.replace(train_model_cfg, cnn_bwd_kernel=True),
-                                probe, torch.zeros(1, SEQ, 90, device="cuda"), rope, 1.0,
-                                torch.bfloat16)
-    except NotImplementedError as err:
-        log(f"training with cnn_bwd_kernel=True raises: {str(err)[:90]}...")
-    else:
-        raise AssertionError("training with cnn_bwd_kernel=True did not raise")
+    names = list(read_launches())
 
     # f32 gradients of one minibatch of 4 windows, kernel path vs plain path.
     gen = torch.Generator(device="cpu").manual_seed(3)
@@ -596,8 +691,8 @@ def check_training(ak, model_lib, cfg, model, card: str) -> dict[str, int]:
     # Each of the 8 pairs holds one local and one global layer.
     per_step = train_model_cfg.num_transformer_layers * audio.shape[0]
     expected = dict.fromkeys(names, 0) | dict.fromkeys(names[:4], per_step)
-    total, losses, times, peak = run_steps(ak, "train step", step, model, optimizer, audio,
-                                           labels, TRAIN_STEPS, expected)
+    total, losses, times, peak = run_steps("train step", step, model, optimizer, audio, labels,
+                                           TRAIN_STEPS, expected)
 
     # The guard on the card: a step on labels that hold a nan changes neither
     # the parameters nor the optimizer's moments and count.
@@ -628,7 +723,7 @@ def step_summary(times: list[float], peak: int) -> str:
             f"peak memory {peak / 2**30:.2f} GiB")
 
 
-def run_steps(ak, label, step, model, optimizer, audio, labels, steps, expected,
+def run_steps(label, step, model, optimizer, audio, labels, steps, expected,
               generator=None):
     """Takes ``steps`` optimizer steps; every step must be valid and launch
     exactly ``expected`` (wrapper name -> launches per step), and the loss
@@ -638,14 +733,13 @@ def run_steps(ak, label, step, model, optimizer, audio, labels, steps, expected,
     total = dict.fromkeys(expected, 0)
     losses, times = [], []
     for i in range(steps):
-        for fn in ak.KERNELS:
-            fn.launches = 0
+        reset_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = step(model, audio, labels, 1.0, generator)
         end.record()
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in ak.KERNELS}
+        launches = read_launches()
         losses.append(out.loss.item())
         times.append(start.elapsed_time(end))
         launched = {n: c for n, c in launches.items() if c}
@@ -705,12 +799,12 @@ def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: s
     rate = cfg.model.transformer_dropout_rate
     if ak.dropout_threshold(rate) != DROPOUT_THRESHOLD:
         raise AssertionError(f"the default rate {rate} no longer quantizes to {DROPOUT_THRESHOLD}")
-    names = [fn.__name__ for fn in ak.KERNELS]
+    names = list(read_launches())
     start_state = copy.deepcopy(model.state_dict())
 
     # f32 gradients of one minibatch of 4 windows under one seed: forward and
     # backward kernels must apply the mask the plain path draws for it.
-    train_cfg, rope, *_ = training_setup(model_lib, cfg, model, rate)
+    train_cfg, rope, *_ = training_setup(model_lib, cfg, model, rate, cnn_bwd_kernel=False)
     gen = torch.Generator(device="cpu").manual_seed(3)
     audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
     labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
@@ -736,8 +830,9 @@ def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: s
     runs = []
     for attempt in ("train step (dropout 0.1)", "the same again"):
         model.load_state_dict(start_state)
-        _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate)
-        runs.append(run_steps(ak, attempt, step, model, optimizer, audio, labels, TRAIN_STEPS,
+        _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate,
+                                                              cnn_bwd_kernel=False)
+        runs.append(run_steps(attempt, step, model, optimizer, audio, labels, TRAIN_STEPS,
                               expected, torch.Generator().manual_seed(7)))
     (total, losses, times, peak), (_, again, _, _) = runs
     log(f"rerun from the same state and seed: losses {again} "
@@ -749,15 +844,16 @@ def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: s
     # writes the bytes of each seed and the bits kernels read them, so the
     # loss is the seeded route's first loss.
     model.load_state_dict(start_state)
-    _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate)
+    _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate,
+                                                          cnn_bwd_kernel=False)
     bits_route = {"philox_bits": 2 * per_step, "global_attention_dropout_bits": per_step,
                   "local_two_phase_dropout_bits": per_step, "global_attention_grads": per_step,
                   "local_two_phase_grads_bits": per_step}
     os.environ["A2M_PRNG_DROPOUT"] = "0"
     try:
         bits_total, bits_losses, _, bits_peak = run_steps(
-            ak, "train step (dropout 0.1, precomputed bits)", step, model, optimizer, audio,
-            labels, 1, dict.fromkeys(names, 0) | bits_route, torch.Generator().manual_seed(7))
+            "train step (dropout 0.1, precomputed bits)", step, model, optimizer, audio, labels,
+            1, dict.fromkeys(names, 0) | bits_route, torch.Generator().manual_seed(7))
     finally:
         del os.environ["A2M_PRNG_DROPOUT"]
     log(f"precomputed-bits route: loss {bits_losses[0]!r} vs seeded route {losses[0]!r}, "
@@ -765,11 +861,145 @@ def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: s
     if bits_losses[0] != losses[0]:
         raise AssertionError("the bits route and the seeded route disagree on one seed")
 
+    summary = step_summary(times, peak)
     log(f"training with dropout {rate}: batch {audio.shape[0] * audio.shape[1]} = "
         f"{audio.shape[0]} x {audio.shape[1]}, bf16 compute, f32 params, "
-        f"{step_summary(times, peak)}, losses {losses[0]:.1f} -> {losses[-1]:.1f}, on {card}")
+        f"{summary}, losses {losses[0]:.1f} -> {losses[-1]:.1f}, on {card}")
     log(f"  beside the dropout-free step: {dropout_free}")
-    return total, bits_total
+    return total, bits_total, losses, summary
+
+
+def check_training_default(model_lib, cfg, model, card: str, autograd_losses, autograd: str):
+    """Phase 7: the default configuration as it stands -- the ConvNeXt stage
+    backward in stages 5 and 6, dropout 0.1; returns the launches of its
+    steps.  ``autograd_losses`` and ``autograd``: phase 6's losses and
+    summary (the same step with autograd through the ConvNeXt blocks)."""
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    rate = cfg.model.transformer_dropout_rate
+    names = list(read_launches())
+    start_state = copy.deepcopy(model.state_dict())
+    train_cfg, rope, *_ = training_setup(model_lib, cfg, model, rate, cnn_bwd_kernel=True)
+    if train_cfg.model != cfg.model:
+        raise AssertionError("phase 7 must train the default model configuration, untouched")
+
+    # f32 gradients of one minibatch of 4 windows under one seed: the stage
+    # backward kernel (cnn_impl "pallas") against autograd through the blocks
+    # ("xla"), every other kernel the same on both sides.
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
+    reset_launches()
+    with _parity_precision(torch.float32):
+        grads = {impl: model_grads(model, loss_lib,
+                                   dataclasses.replace(train_cfg.model, cnn_impl=impl),
+                                   audio4, labels4, rope, seed=11)
+                 for impl in ("pallas", "xla")}
+    if read_launches()["stage_bwd"] != 2:
+        raise AssertionError(f"the f32 gradients launched {read_launches()}, expected 2 stage_bwd")
+    compare_model_grads(grads, " with the stage backward kernel (cnn_impl pallas vs xla)")
+    del grads
+
+    # The steps, twice from the same state and the same seed: stages 5 and 6
+    # of two minibatches, and the seeded dropout kernels as in phase 6.
+    per_step = train_cfg.model.num_transformer_layers * 2
+    seeded = ["global_attention_dropout", "local_two_phase_dropout",
+              "global_attention_grads_prng", "local_two_phase_grads_prng"]
+    expected = dict.fromkeys(names, 0) | dict.fromkeys(seeded, per_step) | {"stage_bwd": 4}
+    runs = []
+    for attempt in ("train step (default config)", "the same again"):
+        model.load_state_dict(start_state)
+        _, _, optimizer, step, audio, labels = training_setup(model_lib, cfg, model, rate,
+                                                              cnn_bwd_kernel=True)
+        runs.append(run_steps(attempt, step, model, optimizer, audio, labels, TRAIN_STEPS,
+                              expected, torch.Generator().manual_seed(7)))
+    (total, losses, times, peak), (_, again, _, _) = runs
+    log(f"rerun from the same state and seed: losses {again} "
+        f"{'identical' if again == losses else 'DIFFER from ' + str(losses)}")
+    if again != losses:
+        raise AssertionError("the same state and seed did not give the same step")
+    # The forward is the same block loop with or without the kernel, so the
+    # first loss (before any update) is phase 6's, bit for bit.
+    log(f"first loss {losses[0]!r} vs {autograd_losses[0]!r} with autograd through the blocks")
+    if losses[0] != autograd_losses[0]:
+        raise AssertionError("the stage backward kernel changed the forward's loss")
+    log(f"training, default config (cnn_bwd_kernel=True, dropout {rate}): batch "
+        f"{audio.shape[0] * audio.shape[1]} = {audio.shape[0]} x {audio.shape[1]}, bf16 compute, "
+        f"f32 params, {step_summary(times, peak)}, losses {losses[0]:.1f} -> {losses[-1]:.1f} "
+        f"(autograd through the blocks: {autograd_losses[0]:.1f} -> {autograd_losses[-1]:.1f}), "
+        f"on {card}")
+    log(f"  beside the same step with cnn_bwd_kernel=False: {autograd}")
+    return total
+
+
+def check_stage_serving(model_lib, cfg, model, card: str) -> dict[str, int]:
+    """Phase 8: serving with cnn_impl="pallas_stage" -- the stage forward
+    kernel in stages 4, 5 and 6; returns the launches of one
+    predict_and_stitch."""
+    from audio_to_midi_tpu_torch.infer import _parity_precision, predict_and_stitch
+
+    def with_cnn(impl):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, cnn_impl=impl))
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    windows = torch.randn(BATCH, 2, 80_000, generator=gen) * 0.5
+    total = dict.fromkeys(read_launches(), 0)
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
+        reset_launches()
+        probs, stitched, _ = predict_and_stitch(m, with_cnn("pallas_stage"), windows, 5.0, 0.5)
+        launches = read_launches()
+        _, ref, _ = predict_and_stitch(m, with_cnn("xla"), windows, 5.0, 0.5)
+        err = float(np.abs(stitched - ref).max())
+        layers = cfg.model.num_transformer_layers
+        expected = dict.fromkeys(launches, 0) | {"global_attention": layers,
+                                                 "local_two_phase": layers, "stage_fwd": 3}
+        ok = (probs.shape == (BATCH, SEQ, cfg.model.output_vocab) and stitched.shape[1] == 90
+              and np.isfinite(stitched).all() and err <= FORWARD_TOL[name])
+        log(f"pallas_stage serving {name}: {BATCH} windows -> stitched {stitched.shape}, vs the "
+            f"cnn_impl=xla path max_abs_err {err:.3e} (tol {FORWARD_TOL[name]:.0e}), launches "
+            f"{ {n: c for n, c in launches.items() if c} } {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} pallas_stage serving disagrees with the plain path")
+        if launches != expected:
+            raise AssertionError(f"pallas_stage serving launched {launches}, expected {expected}")
+        for n, c in launches.items():
+            total[n] += c
+        # ms per forward, the stage kernel beside the default path, in turns.
+        rope = model_lib.make_rope(cfg.model, "cuda")
+        for batch in (BATCH, 128):
+            x = (torch.randn(batch, 2, 80_000, generator=gen) * 0.5).to(device="cuda", dtype=dt)
+            times = {}
+            with torch.inference_mode(), _parity_precision(dt):
+                for impl in ("pallas", "pallas_stage", "pallas_stage", "pallas"):
+                    model_cfg = with_cnn(impl).model
+                    ms = time_ms(lambda: model_lib.forward(m, model_cfg, x, rope), iters=5,
+                                 warmup=2)
+                    times.setdefault(impl, []).append(ms)
+            shown = {impl: " / ".join(f"{t:.2f}" for t in ms) for impl, ms in times.items()}
+            log(f"forward {name}, {batch} windows: cnn_impl=pallas {shown['pallas']} ms, "
+                f"cnn_impl=pallas_stage {shown['pallas_stage']} ms per forward, on {card}")
+
+    # At init gamma is 1e-6, and a block's branch all but vanishes beside its
+    # residual.  With gamma 0.1 in the three stages the kernel's branches
+    # reach the output: f32 again, against the plain path.
+    scaled = copy.deepcopy(model)
+    with torch.no_grad():
+        for stage in scaled.cnn.stages[4:]:
+            for blk in stage.blocks:
+                blk.gamma.fill_(0.1)
+    _, init_out, _ = predict_and_stitch(model, with_cnn("xla"), windows, 5.0, 0.5)
+    _, stitched, _ = predict_and_stitch(scaled, with_cnn("pallas_stage"), windows, 5.0, 0.5)
+    _, ref, _ = predict_and_stitch(scaled, with_cnn("xla"), windows, 5.0, 0.5)
+    err, moved = float(np.abs(stitched - ref).max()), float(np.abs(ref - init_out).max())
+    ok = np.isfinite(stitched).all() and err <= FORWARD_TOL["f32"] < moved
+    log(f"pallas_stage serving f32 with gamma 0.1 in stages 4-6: vs the cnn_impl=xla path "
+        f"max_abs_err {err:.3e} (tol {FORWARD_TOL['f32']:.0e}); the branches move the output by "
+        f"{moved:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pallas_stage serving with gamma 0.1 disagrees with the plain path")
+    return total
 
 
 def main() -> int:
@@ -779,6 +1009,7 @@ def main() -> int:
     from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
     from audio_to_midi_tpu_torch.models import model as model_lib
     from audio_to_midi_tpu_torch.ops import attention_kernels as ak
+    from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
     from audio_to_midi_tpu_torch.ops import cuda_build
 
     card = card_line()
@@ -794,22 +1025,27 @@ def main() -> int:
             log("  ptxas: " + line.strip())
 
     cfg = DEFAULT_CONFIG
-    kernel_results = check_kernels(ak, cfg.train.minibatch_size_per_device)
+    kernel_results = check_kernels(ak, ck, cfg.train.minibatch_size_per_device)
 
     model = seeded_model(model_lib, cfg)
     log(f"model: {model_lib.param_count(model):,} params, dims {cfg.model.dims}, "
         f"depths {cfg.model.depths}, {cfg.model.num_transformer_layers} pairs")
-    check_forward(ak, model_lib, cfg, model)
-    serving = end_to_end(ak, model_lib, cfg, model, card)
+    check_forward(model_lib, cfg, model)
+    serving = end_to_end(model_lib, cfg, model, card)
     log(f"serving main-path launches: {serving}")
-    training, dropout_free = check_training(ak, model_lib, cfg, copy.deepcopy(model).train(),
-                                            card)
+    training, dropout_free = check_training(model_lib, cfg, copy.deepcopy(model).train(), card)
     log(f"training main-path launches: {training}")
-    dropout, bits_route = check_training_dropout(ak, model_lib, cfg,
-                                                 copy.deepcopy(model).train(), card, dropout_free)
+    dropout, bits_route, dropout_losses, with_dropout = check_training_dropout(
+        ak, model_lib, cfg, copy.deepcopy(model).train(), card, dropout_free)
     log(f"training-with-dropout main-path launches: seeded route {dropout}, "
         f"precomputed-bits route {bits_route}")
-    paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route}
+    default_training = check_training_default(model_lib, cfg, copy.deepcopy(model).train(), card,
+                                              dropout_losses, with_dropout)
+    log(f"default-config training main-path launches: {default_training}")
+    stage_serving = check_stage_serving(model_lib, cfg, model, card)
+    log(f"pallas_stage serving main-path launches: {stage_serving}")
+    paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
+             "default-config training": default_training, "pallas_stage serving": stage_serving}
     on_path = {
         "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
@@ -817,16 +1053,23 @@ def main() -> int:
         "global_attention_grads_prng": ("dropout",), "local_two_phase_grads_prng": ("dropout",),
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
+        "stage_bwd": ("default-config training",), "stage_fwd": ("pallas_stage serving",),
     }
-    if set(on_path) != {fn.__name__ for fn in ak.KERNELS}:
+    if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")
     for name, runs_it in on_path.items():
         if any(paths[path][name] == 0 for path in runs_it):
             raise AssertionError(f"{name} was never launched on a path that runs it: {paths}")
 
-    src, tpu = "audio_to_midi_tpu_torch/csrc/", "audio_to_midi_tpu/ops/pallas_attention.py:"
-    # wrapper -> (source, the line of the TPU kernel's function, the phase-2 case reported)
+    src, tpu = "audio_to_midi_tpu_torch/csrc/", "audio_to_midi_tpu/ops/"
+    # wrapper -> (source, the TPU kernel's file:line, the phase-2 case reported)
     sources = {
+        "stage_bwd": ("convnext_stage_bwd.cu", "pallas_convnext_bwd.py:287",
+                      "stage bwd stage 5 B=32 bf16"),
+        "stage_fwd": ("convnext_stage_fwd.cu", "pallas_convnext.py:131",
+                      "stage fwd stage 5 B=16 bf16"),
+    }
+    attention = {
         "global_attention": ("global_attention.cu", "140", "global S=250 f32"),
         "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
         "global_attention_grads": ("global_attention_bwd.cu", "1104", "global grads S=250 bf16"),
@@ -845,6 +1088,8 @@ def main() -> int:
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
     }
+    sources = {name: (source, "pallas_attention.py:" + line, case)
+               for name, (source, line, case) in attention.items()} | sources
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]

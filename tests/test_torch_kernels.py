@@ -1,4 +1,5 @@
-"""The attention kernel wrappers of the PyTorch port, without JAX.
+"""The kernel wrappers of the PyTorch port (attention, then the ConvNeXt
+stage kernels), without JAX.
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 On the CPU it checks the wrappers' routing; the ``cuda``-marked tests hold
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from audio_to_midi_tpu_torch.ops import attention_kernels as ak
+from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
 
 torch.set_num_threads(2)
 
@@ -494,3 +496,159 @@ def test_dropout_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     h = f.half()
     with pytest.raises(NotImplementedError):
         ak.global_attention_dropout(h, h, h, seed, 4, threshold=THRESHOLD)
+
+
+# --- the ConvNeXt stage kernels (kernels 20 and 19) ---------------------------
+
+
+def _stage(depth, b, l, c, hidden, dtype, device="cpu", seed=0, taps=7):
+    """Seeded (carries, weights, dy) of a stage: weights at the init's scales,
+    gamma in (0.5, 1.5), each rounded to ``dtype`` (ln kept in fp32)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen)
+    uni = lambda scale, *shape: (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+    weights = [uni(taps ** -0.5, depth, taps, c), uni(taps ** -0.5, depth, 1, c),
+               torch.stack([1 + 0.1 * randn(depth, c), 0.1 * randn(depth, c)], 1),
+               uni(c ** -0.5, depth, c, hidden), uni(c ** -0.5, depth, 1, hidden),
+               uni(hidden ** -0.5, depth, hidden, c), uni(hidden ** -0.5, depth, 1, c),
+               0.5 + torch.rand(depth, 1, c, generator=gen)]
+    weights = tuple((w.to(dtype).float() if n == "ln" else w.to(dtype)).to(device).contiguous()
+                    for n, w in zip(ck.WEIGHT_NAMES, weights))
+    carries = randn(depth, b, l, c).to(device=device, dtype=dtype)
+    return carries, weights, randn(b, l, c).to(device=device, dtype=dtype)
+
+
+def test_stage_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
+    before = [fn.launches for fn in ck.KERNELS]
+    carries, weights, dy = _stage(2, 2, 12, 128, 256, torch.float32)
+    dx, grads = ck.stage_bwd(carries, weights, dy)
+    ref_dx, ref_grads = ck.stage_bwd_plain(carries, weights, dy)
+    assert torch.equal(dx, ref_dx) and all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    assert torch.equal(ck.stage_fwd(carries[0], weights), ck.stage_fwd_plain(carries[0], weights))
+    assert [fn.launches for fn in ck.KERNELS] == before and len(ck.KERNELS) == 2
+
+
+def test_stage_wrappers_refuse_other_devices():
+    carries, weights, dy = _stage(1, 1, 8, 128, 256, torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        ck.stage_bwd(carries, weights, dy)
+    with pytest.raises(ValueError):
+        ck.stage_fwd(dy, weights)
+
+
+def test_stage_bwd_plain_is_the_gradient_of_the_blocks():
+    """In f32 nothing rounds, so the plain backward is autograd's of the plain
+    block loop up to the order of its sums."""
+    carries, weights, dy = _stage(2, 2, 19, 128, 256, torch.float32, seed=1)
+    leaves = [carries[0].clone().requires_grad_()] + [w.clone().requires_grad_() for w in weights]
+    x, stack = leaves[0], []
+    for d in range(2):
+        stack.append(x.detach())
+        x = ck.plain_block(x, leaves[1:], d)
+    ref = torch.autograd.grad(x, leaves, dy)
+    dx, grads = ck.stage_bwd_plain(torch.stack(stack), weights, dy)
+    for out, r in zip((dx, *grads), ref):
+        assert (out - r).abs().max() <= 2e-5 * r.abs().max()
+
+
+# Stage kernels vs their plain versions, per output, as a share of its largest
+# magnitude (f32: the same fp32 sums in another order) or in bf16 ulps of its
+# top binade: a flipped rounding is one ulp, and the residual carries each
+# block's flips into the next block's -- 3 ulps for up to 3 blocks, 8 for the
+# 21 of stage 5 (read on an H100: 0.5 and 3).
+def _stage_limit(ref: torch.Tensor, dtype, depth: int) -> float:
+    top = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return 2e-5 * max(1.0, top)
+    return (3 if depth <= 3 else 8) * 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)
+
+
+STAGE_GEOMETRIES = [(21, 2, 500, 128, 256), (3, 2, 250, 256, 512), (3, 2, 40, 128, 256),
+                    (2, 3, 37, 128, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,b,l,c,hidden", STAGE_GEOMETRIES)
+def test_stage_bwd_kernel_matches_plain_on_card(cuda_device, dtype, depth, b, l, c, hidden):
+    carries, weights, dy = _stage(depth, b, l, c, hidden, dtype, cuda_device, seed=l)
+    before = ck.stage_bwd.launches
+    dx, grads = ck.stage_bwd(carries, weights, dy)
+    torch.cuda.synchronize()
+    assert ck.stage_bwd.launches == before + 1
+    ref_dx, ref_grads = ck.stage_bwd_plain(carries, weights, dy)
+    assert dx.dtype == dtype and all(g.dtype == torch.float32 for g in grads)
+    for name, out, ref in zip(("dx", *ck.WEIGHT_NAMES), (dx, *grads), (ref_dx, *ref_grads)):
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all(), name
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= _stage_limit(ref, dtype, depth), (name, err)
+    again_dx, again = ck.stage_bwd(carries, weights, dy)
+    assert torch.equal(again_dx, dx) and all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,b,l,c,hidden", STAGE_GEOMETRIES + [(3, 2, 1000, 64, 128)])
+def test_stage_fwd_kernel_matches_plain_on_card(cuda_device, dtype, depth, b, l, c, hidden):
+    carries, weights, _ = _stage(depth, b, l, c, hidden, dtype, cuda_device, seed=l + 1)
+    x = carries[0].contiguous()
+    before = ck.stage_fwd.launches
+    out = ck.stage_fwd(x, weights)
+    torch.cuda.synchronize()
+    assert ck.stage_fwd.launches == before + 1
+    ref = ck.stage_fwd_plain(x, weights)
+    assert out.dtype == dtype and out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _stage_limit(ref, dtype, depth)
+    assert torch.equal(ck.stage_fwd(x, weights), out)
+
+
+@pytest.mark.cuda
+def test_stage_functions_differentiate_through_the_kernels_on_card(cuda_device):
+    carries, weights, dy = _stage(3, 2, 40, 128, 256, torch.float32, cuda_device, seed=3)
+    x = carries[0].contiguous()
+
+    def grads_of(fn):
+        leaves = [x.clone().requires_grad_()] + [w.clone().requires_grad_() for w in weights]
+        out = fn(leaves[0], leaves[1:])
+        return out, torch.autograd.grad(out, leaves, dy)
+
+    ref_out, ref = grads_of(ck.plain_stage)
+    before = [fn.launches for fn in ck.KERNELS]
+    out, mine = grads_of(ck.stage_blocks_fused_bwd)
+    assert [fn.launches for fn in ck.KERNELS] == [before[0] + 1, before[1]]
+    assert torch.equal(out, ref_out)
+    for a, r in zip(mine, ref):
+        assert a.dtype == r.dtype and (a - r).abs().max() <= 2e-5 * max(1.0, r.abs().max())
+    out, mine = grads_of(ck.fused_convnext_stage)
+    assert [fn.launches for fn in ck.KERNELS] == [before[0] + 1, before[1] + 1]
+    assert (out - ref_out).abs().max() <= 2e-5 * ref_out.abs().max()
+    for a, r in zip(mine, ref):
+        assert torch.equal(a, r)   # autograd of the plain blocks from the saved input
+    with torch.no_grad():
+        assert torch.equal(ck.stage_blocks_fused_bwd(x, weights), ref_out)
+    assert ck.stage_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_stage_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
+    carries, weights, dy = _stage(2, 2, 16, 128, 256, torch.float32, cuda_device)
+    before = [fn.launches for fn in ck.KERNELS]
+    half = tuple(w if n == "ln" else w.half() for n, w in zip(ck.WEIGHT_NAMES, weights))
+    with pytest.raises(NotImplementedError):
+        ck.stage_bwd(carries.half(), half, dy.half())
+    with pytest.raises(NotImplementedError):
+        ck.stage_fwd(dy.half(), half)
+    five = _stage(2, 2, 16, 128, 256, torch.float32, cuda_device, taps=5)
+    with pytest.raises(ValueError, match="taps"):
+        ck.stage_bwd(*five)
+    with pytest.raises(ValueError, match="taps"):
+        ck.stage_fwd(five[2], five[1])
+    with pytest.raises(ValueError):                     # carries of another depth
+        ck.stage_bwd(carries[:1], weights, dy)
+    with pytest.raises(ValueError):                     # not contiguous
+        ck.stage_fwd(dy.transpose(0, 1), weights)
+    with pytest.raises(ValueError):                     # bf16 rows, f32 weights
+        ck.stage_fwd(dy.bfloat16(), weights)
+    with pytest.raises(ValueError):                     # channels that are not the weights'
+        ck.stage_fwd(dy[..., :64].contiguous(), weights)
+    assert [fn.launches for fn in ck.KERNELS] == before

@@ -180,26 +180,39 @@ def test_ensemble_raises_until_it_is_ported(tree):
 
 
 def test_stage_backward_kernel_gate_follows_the_jax_gate():
-    """The default config asks for the stage-backward kernel in stages 5 and
-    6 (128 and 256 channels); training on the card refuses it until the
-    kernel is ported, and cnn_bwd_kernel=False asks for it nowhere."""
+    """The default config sends stages 5 and 6 (128 and 256 channels) to the
+    stage-backward kernel, as the JAX gate does; cnn_bwd_kernel=False and f16
+    send none; and the default config trains through it."""
     from audio_to_midi_tpu.ops.pallas_convnext_bwd import bwd_stage_supported
 
     default = pt_config.ModelConfig()
-    wanted = [pt_convnext.stage_bwd_kernel_wanted(default, i, torch.bfloat16) for i in range(7)]
-    assert wanted == [bwd_stage_supported(0, c, h, jnp.bfloat16)
-                      for c, h in zip(default.dims, default.cnn_hidden_dims)]
+    lengths = [80_000 // 5 // 2 ** i for i in range(7)]
+    routes = lambda cfg, dtype: [pt_convnext.stage_route(cfg, i, n, dtype)
+                                 for i, n in enumerate(lengths)]
+    wanted = [r == "stage_bwd" for r in routes(default, torch.bfloat16)]
+    assert wanted == [bwd_stage_supported(n, c, h, jnp.bfloat16)
+                      for n, c, h in zip(lengths, default.dims, default.cnn_hidden_dims)]
     assert wanted == [False] * 5 + [True, True]
-    assert not pt_convnext.stage_bwd_kernel_wanted(default, 6, torch.float16)
+    assert routes(default, torch.float16) == ["blocks"] * 7
     off = dataclasses.replace(default, cnn_bwd_kernel=False)
-    assert not any(pt_convnext.stage_bwd_kernel_wanted(off, i, torch.bfloat16) for i in range(7))
-    # On the CPU the default config trains through ordinary autograd.
+    assert routes(off, torch.bfloat16) == ["blocks"] * 7
+    # The default config trains: the two wide stages go through the fused
+    # backward (its plain version on the CPU), the others through autograd.
     narrow = dataclasses.replace(default, depths=(1,) * 7, num_transformer_layers=1,
                                  transformer_dropout_rate=0.0)
     model = pt_model.Model(narrow, torch.Generator().manual_seed(0))
-    logits, _ = pt_model.forward(model, narrow, torch.zeros(1, 2, 8_000),
-                                 pt_model.make_rope(narrow), enable_dropout=True)
-    assert logits.requires_grad
+    before = pt_convnext.convnext_kernels.StageBlocksFusedBwd.apply
+    calls = []
+    pt_convnext.convnext_kernels.StageBlocksFusedBwd.apply = (
+        lambda *a: (calls.append(1), before(*a))[1])
+    try:
+        logits, _ = pt_model.forward(model, narrow, torch.zeros(1, 2, 8_000),
+                                     pt_model.make_rope(narrow), enable_dropout=True)
+    finally:
+        pt_convnext.convnext_kernels.StageBlocksFusedBwd.apply = before
+    assert logits.requires_grad and len(calls) == 2
+    logits.sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_train_config_reads_the_jax_json_and_round_trips():

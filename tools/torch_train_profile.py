@@ -2,12 +2,16 @@
 """Where a training step of the PyTorch port spends its time on one GPU.
 
     python3 tools/torch_train_profile.py [--out DIR] [--dropout-rate RATE]
+                                         [--cnn-bwd-kernel on|off|turns]
 
 Takes the training steps of chip_smoke.py's training phases, through that
 script's own set-up: the default model from seed 0, bf16 compute over f32
-parameters, `cnn_bwd_kernel=False`, one seeded batch of the configuration's
-batch and minibatch sizes; dropout at the configuration's rate (0.1, the
-reference-parity step) or, with `--dropout-rate 0`, dropout-free.  After two warm-up steps it
+parameters, one seeded batch of the configuration's batch and minibatch
+sizes; dropout at the configuration's rate (0.1, the reference-parity step)
+or, with `--dropout-rate 0`, dropout-free; the ConvNeXt stages 5 and 6
+differentiated by the fused stage-backward kernel (`on`, the default
+configuration), by autograd (`off`), or both in turns in one call (`turns`:
+off, on, on, off, each from a fresh model).  After two warm-up steps it
 prints, with the card's name and power limit:
   * the host wall and the device time (CUDA events) of three whole steps;
   * forward, backward and optimizer of one minibatch, each as host wall to
@@ -16,8 +20,9 @@ prints, with the card's name and power limit:
     kernel and copy intervals), its idle share of the step, the number of
     device operations, and the kernels that take the most device time.
 Writes the same as JSON to DIR/torch_train_profile.json, or
-torch_train_profile_dropout_free.json at rate 0 (default DIR: build/smoke/
-in the checkout).  Needs one CUDA device and nvcc; imports no JAX.
+torch_train_profile_dropout_free.json at rate 0, with `_autograd_cnn` or
+`_turns` (a list, one entry per turn) before `.json` for `off` and `turns`
+(default DIR: build/smoke/ in the checkout).  Needs one CUDA device and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -52,21 +57,11 @@ def timed(fn) -> tuple[float, float]:
     return host, start.elapsed_time(end)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", type=Path, default=chip_smoke.WORK)
-    ap.add_argument("--dropout-rate", type=float,
-                    default=DEFAULT_CONFIG.model.transformer_dropout_rate)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_train_profile: no CUDA device available", file=sys.stderr)
-        return 1
-    card = chip_smoke.card_line()
-    print(card, flush=True)
-
+def profile_steps(card: str, dropout_rate: float, cnn_bwd_kernel: bool) -> dict | None:
+    """One configuration's steps taken apart, printed and returned."""
     model = chip_smoke.seeded_model(model_lib, DEFAULT_CONFIG).train()
     cfg, rope, optimizer, step, audio, labels = chip_smoke.training_setup(
-        model_lib, DEFAULT_CONFIG, model, args.dropout_rate)
+        model_lib, DEFAULT_CONFIG, model, dropout_rate, cnn_bwd_kernel)
     model_cfg = cfg.model
     compute_dtype = DTYPES[cfg.precision.compute_dtype]
     generator = torch.Generator().manual_seed(7)  # the steps' dropout, unused at rate 0
@@ -74,9 +69,9 @@ def main() -> int:
         step(model, audio, labels, 1.0, generator)
 
     result = {"card": card, "batch": audio.shape[0] * audio.shape[1],
-              "minibatch": audio.shape[1], "dropout_rate": args.dropout_rate,
-              "compute_dtype": cfg.precision.compute_dtype}
-    print(f"dropout rate {args.dropout_rate}")
+              "minibatch": audio.shape[1], "dropout_rate": dropout_rate,
+              "cnn_bwd_kernel": cnn_bwd_kernel, "compute_dtype": cfg.precision.compute_dtype}
+    print(f"dropout rate {dropout_rate}, cnn_bwd_kernel {cnn_bwd_kernel}", flush=True)
 
     walls = []
     for _ in range(3):
@@ -119,7 +114,7 @@ def main() -> int:
     device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device_events:
         print("torch.profiler recorded no device events", file=sys.stderr)
-        return 1
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
     busy_us, cur_start, cur_end = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -148,9 +143,31 @@ def main() -> int:
     for n, (us, c) in top:
         print(f"  {us / 1e3:8.2f} ms {us / busy_us:6.1%} x{c:<5d} {n[:100]}")
 
+    return result
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=chip_smoke.WORK)
+    ap.add_argument("--dropout-rate", type=float,
+                    default=DEFAULT_CONFIG.model.transformer_dropout_rate)
+    ap.add_argument("--cnn-bwd-kernel", choices=("on", "off", "turns"), default="on")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device available", file=sys.stderr)
+        return 1
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    turns = {"on": (True,), "off": (False,), "turns": (False, True, True, False)}
+    results = [profile_steps(card, args.dropout_rate, kernel)
+               for kernel in turns[args.cnn_bwd_kernel]]
+    if any(r is None for r in results):
+        return 1
     args.out.mkdir(parents=True, exist_ok=True)
-    name = "torch_train_profile.json" if args.dropout_rate else "torch_train_profile_dropout_free.json"
-    (args.out / name).write_text(json.dumps(result, indent=1))
+    name = "torch_train_profile" + ("" if args.dropout_rate else "_dropout_free") + {
+        "on": "", "off": "_autograd_cnn", "turns": "_turns"}[args.cnn_bwd_kernel] + ".json"
+    (args.out / name).write_text(json.dumps(
+        results if args.cnn_bwd_kernel == "turns" else results[0], indent=1))
     return 0
 
 
