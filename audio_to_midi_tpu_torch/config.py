@@ -74,8 +74,13 @@ class ModelConfig:
     # "pallas": both attention cores run as the port's CUDA kernels
     # (ops/attention_kernels.py) on CUDA tensors, and as their plain
     # versions on CPU tensors.  "xla": the plain PyTorch versions on any
-    # device -- the counterpart of the JAX package's einsum route.  The other
-    # JAX values name kernels that are not ported yet and raise.
+    # device -- the counterpart of the JAX package's einsum route.
+    # "pallas_block" (the attention block, kernel 11), "pallas_fused" (the
+    # attention sublayers, kernel 18) and "pallas_pair" (a whole pair,
+    # kernel 17) run ops/fused_layer_kernels.py where the JAX package runs
+    # those kernels, and the plain cores elsewhere (dropout, f16, geometries
+    # the gates refuse).  "pallas_rw" raises NotImplementedError until its
+    # slice.
     attention_impl: str = "pallas"
 
     # No-op here: XLA scheduling knobs of the JAX package, kept so that

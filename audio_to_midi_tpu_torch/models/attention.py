@@ -16,17 +16,27 @@ through their plain versions.  The routing between the two-phase kernel and
 the flattened-window route (``padded % 16``) mirrors the JAX package.  The
 kernel wrappers are differentiable (their backward is a kernel too); the
 plain versions are differentiated by ordinary autograd.
+``"pallas_block"`` runs the whole block (projections, RoPE, attention,
+average, out-proj) as kernel 11 (``ops/fused_layer_kernels``) where the JAX
+package does: no dropout, 3-D input, f32 or bf16; its backward is autograd
+through the kernel's plain formulation.  ``"pallas_fused"`` and
+``"pallas_pair"`` take their kernels in ``models/transformer.py``.  Wherever
+their own kernel is not taken, the three run the plain cores, as the JAX
+package sends them to its einsum route.
 
 Attention-weight dropout (``enable_dropout`` with a rate above 0) follows the
-JAX package's routing.  Where the rate quantizes to a uint8 threshold inside
-(0, 256) -- 0.1 -> 26/256 -- and the geometry suits the kernel (global: S >=
-128; local: the two-phase route), one (2,) int32 seed is drawn from the
-generator on the activations' device and the seeded kernel applies the mask
-it stands for; with ``"xla"`` the plain version applies the same mask, from
-the plain Philox.  ``A2M_PRNG_DROPOUT=0`` in the environment selects, as in
-the JAX package, the precomputed-bits kernels instead, fed the same bytes.  Everything else -- a rate too small or too large to
-quantize, short sequences, the windowed local route -- computes the weights
-in plain PyTorch and drops them at the exact rate with ``nn.dropout``.
+JAX package's routing.  With ``"pallas"``, where the rate quantizes to a
+uint8 threshold inside (0, 256) -- 0.1 -> 26/256 -- and the geometry suits
+the kernel (global: S >= 128; local: the two-phase route), one (2,) int32
+seed is drawn from the generator on the activations' device and the seeded
+kernel applies the mask it stands for; ``A2M_PRNG_DROPOUT=0`` in the
+environment selects, as in the JAX package, the precomputed-bits kernels
+instead, fed the same bytes.  Everything else -- every other
+``attention_impl``, a rate too small or too large to quantize, short
+sequences, the windowed local route -- computes the weights in plain
+PyTorch and drops them at the exact rate with ``nn.dropout`` (keep 0.9,
+scale 1/0.9 at rate 0.1), as the JAX einsum route does; the local layers
+take the windowed (B, W, 16, 16) route for it.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import attention_kernels as ak
+from ..ops import fused_layer_kernels as flk
 from . import nn as a2m_nn
 from .rope import RopeFreqs, apply_rope_halves, rope_with
 
@@ -58,15 +69,28 @@ class SelfAttention(nn.Module):
         self.out = a2m_nn.Linear(width, d, generator, use_bias=False)
 
 
+# The values that run the plain cores wherever their own kernel is not taken.
+PLAIN_CORE_IMPLS = ("xla", "pallas_block", "pallas_fused", "pallas_pair")
+
+
 def _plain_impl(cfg: ModelConfig) -> bool:
-    """Whether ``cfg.attention_impl`` asks for the plain versions."""
+    """Whether ``cfg.attention_impl`` runs the plain cores (rather than the
+    attention kernels of ``"pallas"``)."""
     if cfg.attention_impl == "pallas":
         return False
-    if cfg.attention_impl == "xla":
+    if cfg.attention_impl in PLAIN_CORE_IMPLS:
         return True
-    raise NotImplementedError(
-        f"attention_impl={cfg.attention_impl!r} is not ported; use 'pallas' or 'xla'"
-    )
+    if cfg.attention_impl == "pallas_rw":
+        raise NotImplementedError(
+            "attention_impl='pallas_rw' (the two-phase kernel with per-window logit tiles) is "
+            "not ported yet: it comes with slice 3b of the port (ROADMAP.md)")
+    raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+
+
+def _block_kernel_applicable(cfg: ModelConfig, x: torch.Tensor, dropout: bool) -> bool:
+    """Where ``"pallas_block"`` takes kernel 11, as in the JAX package."""
+    return (cfg.attention_impl == "pallas_block" and not dropout and x.dim() == 3
+            and x.dtype != torch.float16)
 
 
 def _dropout_on(cfg: ModelConfig, enable_dropout: bool,
@@ -119,10 +143,10 @@ def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
     plain = _plain_impl(cfg)
     rate = cfg.transformer_dropout_rate
     threshold = ak.dropout_threshold(rate)
-    # The dropout kernel wants sequences of some length; the windowed route's
-    # S = 16, and rates that quantize to keep-all or keep-nothing, drop at
-    # the exact rate in plain PyTorch.
-    if dropout and not (s >= 128 and 0 < threshold < 256):
+    # The plain routes, sequences too short for the dropout kernel (the
+    # windowed route's S = 16) and rates that quantize to keep-all or
+    # keep-nothing drop at the exact rate in plain PyTorch.
+    if dropout and (plain or not (s >= 128 and 0 < threshold < 256)):
         return _attend_exact_rate(q, k, v, rate, generator)
     fq, fk, fv = (t.reshape(-1, s, h * hd) for t in (q, k, v))
     if not dropout:
@@ -130,10 +154,7 @@ def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
         out = core(fq, fk, fv, h, block)
     else:
         seed = new_dropout_seed(generator, q.device)
-        if plain:
-            bits = ak.philox_bits_plain(seed, fq.shape[0], h, s)
-            out = ak.global_attention_plain(fq, fk, fv, h, block, None, bits, threshold)
-        elif ak.prng_dropout_available():
+        if ak.prng_dropout_available():
             out = ak.global_attention_dropout(fq, fk, fv, seed, h, block,
                                               threshold=threshold)
         else:
@@ -143,12 +164,58 @@ def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
     return out.reshape(*lead, s, h * hd)
 
 
+def _rope_tables(rope: RopeFreqs, n: int, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, hd/2) cos/sin tables: absolute positions (global) or positions
+    restarting every ``window`` rows (windowed rows)."""
+    if window > 0:
+        reps = -(-n // window)
+        return (rope.cos[:window].repeat(reps, 1)[:n].contiguous(),
+                rope.sin[:window].repeat(reps, 1)[:n].contiguous())
+    return rope.cos[:n], rope.sin[:n]
+
+
+class _AttentionBlock(torch.autograd.Function):
+    """Kernel 11 forward (``flk.attention_block``); the backward is autograd
+    through its plain formulation on the saved inputs, as the JAX package's
+    ``_layer_bwd`` differentiates ``_attention_layer_reference``.  The RoPE
+    tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window):
+        ctx.save_for_backward(x, wq, wkv, wk, wv, wo, cos, sin)
+        ctx.geometry = (num_heads, valid_len, window)
+        return flk.attention_block(x, wq, wkv, wk, wv, wo, cos, sin, *ctx.geometry)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        *inputs, cos, sin = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        with torch.enable_grad():
+            out = flk.attention_block_plain(*leaves, cos, sin, *ctx.geometry)
+        return (*torch.autograd.grad(out, leaves, g), None, None, None, None, None)
+
+
+def _attention_block(x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig,
+                     valid_len: int, window: int) -> torch.Tensor:
+    """The whole attention block as kernel 11.  x: (B, P, D) pre-normed (P
+    the local padded length when window > 0)."""
+    p_len = x.shape[1]
+    rows = (p_len // (window // 2) - 1) * window if window > 0 else p_len
+    cos, sin = _rope_tables(rope, rows, window)
+    w = lambda lin: lin.w.to(x.dtype)
+    return _AttentionBlock.apply(x.contiguous(), w(p.q_up), w(p.kv_down), w(p.k_up), w(p.v_up),
+                                 w(p.out), cos, sin, cfg.num_transformer_heads, valid_len, window)
+
+
 def self_attention(
     x: torch.Tensor, p: SelfAttention, rope: RopeFreqs, cfg: ModelConfig, *,
     generator: torch.Generator | None = None, enable_dropout: bool = False,
 ) -> torch.Tensor:
     """Global compressed-KV attention.  x: (..., S, D) -> same shape."""
     dropout = _dropout_on(cfg, enable_dropout, generator)
+    if _block_kernel_applicable(cfg, x, dropout):
+        return _attention_block(x, p, rope, cfg, valid_len=x.shape[1], window=0)
     q, k, v = _qkv(x, p, cfg.num_transformer_heads, rope)
     attn = _attend(q, k, v, cfg, generator=generator, dropout=dropout)
     return a2m_nn.linear(attn, p.out.w)
@@ -190,13 +257,19 @@ def local_self_attention(
     num_blocks = padded // stride
     heads, hd = cfg.num_transformer_heads, cfg.attention_size
 
+    if _block_kernel_applicable(cfg, x, dropout):
+        # Kernel 11 on the padded rows; the crop reproduces the reference's
+        # padded-coordinate quirk.
+        return _attention_block(xp, p, rope, cfg, valid_len=padded, window=window)[:, :seq_len, :]
+
     if padded % window == 0 and padded % 16 == 0 and (
-            not dropout or 0 < threshold < 256):
+            not dropout or (not plain and 0 < threshold < 256)):
         # Two-phase route: q/k/v projected once on the padded rows, RoPE'd
         # with per-phase tables whose positions restart every window (phase
         # B's windows start `stride` rows later), one core for both phases
-        # and the overlap average.  With dropout each original window lies in
-        # exactly one phase, so per-window weights are dropped independently.
+        # and the overlap average.  With dropout (the kernels only) each
+        # original window lies in exactly one phase, so per-window weights
+        # are dropped independently.
         q = a2m_nn.linear(xp, p.q_up.w).reshape(b, padded, heads, hd)
         ckv = a2m_nn.linear(xp, p.kv_down.w)
         k = a2m_nn.linear(ckv, p.k_up.w).reshape(b, padded, heads, hd)
@@ -215,11 +288,7 @@ def local_self_attention(
             out = core(*inputs, heads, window)
         else:
             seed = new_dropout_seed(generator, x.device)
-            if plain:
-                bits = ak.two_phase_planes(
-                    ak.philox_bits_plain(seed, b, 2 * heads, padded), heads)
-                out = ak.local_two_phase_plain(*inputs, heads, window, *bits, threshold)
-            elif ak.prng_dropout_available():
+            if ak.prng_dropout_available():
                 out = ak.local_two_phase_dropout(*inputs, seed, heads, window,
                                                  threshold=threshold)
             else:
@@ -238,7 +307,8 @@ def local_self_attention(
     q, k, v = _qkv(windows, p, heads, rope)
     if dropout:
         # (B, W, 16, 16) weights per head in plain PyTorch, dropped at the
-        # exact rate: with dropout on, the flattened route is not taken.
+        # exact rate, as the JAX einsum route: with dropout on, the flattened
+        # route is not taken.
         out_w = _attend(q, k, v, cfg, generator=generator, dropout=True)
     else:
         # Flattened: the (windows, window) axes become one sequence and a

@@ -511,7 +511,7 @@ for _fn in (global_attention, global_attention_dropout_bits, global_attention_dr
 # ---------------------------------------------------------------------------
 
 
-def _two_phase_masks(p_len: int, window: int, device):
+def two_phase_masks(p_len: int, window: int, device):
     """(mask_a, mask_b, b_rows): the P x P window masks of the two phases
     and the (P, 1) rows that have a phase-B window."""
     stride = window // 2
@@ -538,7 +538,7 @@ def local_two_phase_plain(
     b, p_len, dm = qa.shape
     hd = dm // num_heads
     scale = _query_scale(hd, qa.dtype).to(qa.device)
-    mask_a, mask_b, b_rows = _two_phase_masks(p_len, window, qa.device)
+    mask_a, mask_b, b_rows = two_phase_masks(p_len, window, qa.device)
     vh = v.float().reshape(b, p_len, num_heads, hd)
 
     def mha(q, k, mask, bits):
@@ -569,7 +569,7 @@ def local_two_phase_grads_plain(
     JAX package's ``_two_phase_bwd_core``."""
     p_len = qa.shape[1]
     scale = _query_scale(qa.shape[-1] // num_heads, qa.dtype).to(qa.device)
-    mask_a, mask_b, b_rows = _two_phase_masks(p_len, window, qa.device)
+    mask_a, mask_b, b_rows = two_phase_masks(p_len, window, qa.device)
 
     # The overlap average first, in fp32; phase B sees no edge rows.
     g_a = g.float() * torch.where(b_rows, 0.5, 1.0)

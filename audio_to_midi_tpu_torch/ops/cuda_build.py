@@ -102,12 +102,30 @@ def library() -> ctypes.CDLL:
         "a2m_convnext_stage_bwd": [ptr] * 20 + [i32] * 7 + [ptr],
         # x, 8 weights, out, workspace; depth, B, L, C, H, K, dtype.
         "a2m_convnext_stage_fwd": [ptr] * 11 + [i32] * 7 + [ptr],
+        # x, 5 weights, cos, sin, out, workspace; B, P, D, H, hd, C, valid_len,
+        # window, table rows; scale, dtype, stream.
+        "a2m_attention_block": [ptr] * 10 + [i32] * 9 + [f32, i32, ptr],
+        # x, ln, 5 weights, 4 (local) or 2 (global) tables, out, workspace;
+        # B, P, D, H, hd, C, S, pad_l; scale, dtype, stream.
+        "a2m_fused_local_sublayer": [ptr] * 13 + [i32] * 8 + [f32, i32, ptr],
+        "a2m_fused_global_sublayer": [ptr] * 11 + [i32] * 8 + [f32, i32, ptr],
+        # x, the arrays of 22 weight and 6 table pointers, out, workspace;
+        # B, P, D, H, hd, C, I, S, pad_l; scale, dtype, stream.
+        "a2m_transformer_pair": [ptr] * 5 + [i32] * 9 + [f32, i32, ptr],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i32
-    for name in ("a2m_convnext_stage_bwd_workspace", "a2m_convnext_stage_fwd_workspace"):
-        getattr(lib, name).argtypes = [i32] * 5   # B, L, C, H, dtype -> bytes (0: not taken)
+    # Geometry and dtype -> workspace bytes (0: not taken).
+    workspaces = {
+        "a2m_convnext_stage_bwd_workspace": 5,     # B, L, C, H, dtype
+        "a2m_convnext_stage_fwd_workspace": 5,
+        "a2m_attention_block_workspace": 7,        # B, P, D, H, hd, C, dtype
+        "a2m_fused_sublayer_workspace": 7,
+        "a2m_transformer_pair_workspace": 8,       # B, P, D, H, hd, C, I, dtype
+    }
+    for name, count in workspaces.items():
+        getattr(lib, name).argtypes = [i32] * count
         getattr(lib, name).restype = ctypes.c_longlong
     lib.a2m_error_string.argtypes = [i32]
     lib.a2m_error_string.restype = ctypes.c_char_p

@@ -56,7 +56,22 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      infer.predict_and_stitch, bf16 and f32, 3 launches of the stage forward
      per forward, the stitched probabilities against the cnn_impl="xla"
      path, and ms per forward beside the default path's at 16 and 128
-     windows.
+     windows;
+  9. serving with the fused transformer-layer kernels, attention_impl
+     "pallas_block" (kernel 11: 8 local + 8 global launches per forward),
+     "pallas_fused" (kernel 18: 8 + 8) and "pallas_pair" (kernel 17: 8), none
+     of the attention cores: 16 windows through infer.predict_and_stitch,
+     bf16 and f32, against the "xla" path; ms per forward beside "pallas" at
+     16 and 128 windows; the f32 gradients of a dropout-free minibatch of 4
+     through each against "xla"; the CLI with a --config that asks for
+     "pallas_pair" on phase 4's WAV and checkpoint, its MIDI events against
+     phase 4's.
+Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
+serving shapes, beside the same layer by the default "pallas" route (torch
+LayerNorm and products, kernels 1 and 2: many calls, not one).  Phase 6's
+plain comparator is "pallas" with the seeded dropout wrappers replaced, in
+this script only, by their plain versions on the plain Philox bytes of the
+same seed: "xla" drops at the exact rate, as the JAX einsum route does.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}
 as the last line.  Artifacts go to build/smoke/ in the checkout.
 """
@@ -66,6 +81,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -107,6 +123,13 @@ GRAD_TOL_BF16_ULPS = 3
 # what one wrong edge row or masked column of a backward kernel leaves in
 # the projections' gradients (a share of 1/S of a leaf's terms, ~4e-3).
 MODEL_GRAD_TOL = 1e-5
+# The fused layer kernels (11, 17, 18) vs their plain versions: f32 as
+# KERNEL_TOL.  bf16: KERNEL_TOL, or 2 ulps of the output's top binade where
+# that is larger -- kernels 17 and 18 return the residual stream, whose
+# magnitudes reach ~5 on these inputs (one ulp: 0.031).  A rounding flipped
+# by an fp32 sum taken in another order moves an output by one ulp; a wrong
+# row, column or window moves it by a share of its largest.
+FUSED_TOL_BF16_ULPS = 2
 # The bf16 loss of one training minibatch, kernel path vs plain path, as a
 # share of the loss: the per-output differences of FORWARD_TOL come with
 # either sign and average out over the 32 x 250 x 90 summed outputs, to
@@ -122,6 +145,7 @@ STAGE_TOL_BF16_ULPS = {3: GRAD_TOL_BF16_ULPS, 21: 8}
 # (depth, L, C, H) of the stages the kernels take in the default model.
 STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
 TRAIN_STEPS = 4
+TIMED_BATCHES = (BATCH, 128)  # windows per forward in the serving timings
 DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
 # rate, and the operation rate of the input type -- bf16 on the tensor
@@ -134,11 +158,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+FUSED_IMPLS = ("pallas_block", "pallas_fused", "pallas_pair")
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port, the attention ones first."""
     from audio_to_midi_tpu_torch.ops import attention_kernels, convnext_kernels
+    from audio_to_midi_tpu_torch.ops import fused_layer_kernels
 
-    return attention_kernels.KERNELS + convnext_kernels.KERNELS
+    return attention_kernels.KERNELS + convnext_kernels.KERNELS + fused_layer_kernels.KERNELS
 
 
 def reset_launches() -> None:
@@ -196,6 +225,12 @@ def grad_tol(ref: torch.Tensor, dtype: str, ulps: int = GRAD_TOL_BF16_ULPS) -> f
     return ulps * ulp
 
 
+def fused_tol(ref: torch.Tensor, dtype: str) -> float:
+    if dtype == "f32":
+        return KERNEL_TOL["f32"]
+    return max(KERNEL_TOL["bf16"], grad_tol(ref, "bf16", FUSED_TOL_BF16_ULPS))
+
+
 def bound(n_tensors: int, numel: int, dtype: str, flops: float, extra_bytes: int = 0) -> dict:
     """The least time the card could take: every input read and every output
     written once over the memory rate, or the operations over the peak rate
@@ -242,41 +277,44 @@ def stage_operands(depth: int, b: int, l: int, c: int, hidden: int, dtype: torch
             normal(b, l, c).to(device="cuda", dtype=dtype))
 
 
+def run_case(results: dict, case, name, kernel, plain, tol, bound_, library=None) -> None:
+    """One phase-2 case: the kernel against its plain version (``tol`` maps
+    an output of the plain version to its allowed max abs error), then the
+    kernel's, the plain version's and the library call's times."""
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err, allowed, ok = 0.0, 0.0, True
+    for o, r in zip(outs, refs):
+        e, limit = max_err(o, r), tol(r)
+        if e >= err:
+            err, allowed = e, limit
+        ok = ok and bool(torch.isfinite(o.float()).all()) and e <= limit
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    library_ms = time_ms(library) if library is not None else None
+    lib = f", library {library_ms:.4f} ms" if library is not None else ""
+    log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {allowed:.1e}) "
+        f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+        f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}")
+    if not ok:
+        raise AssertionError(f"kernel {case} {name} disagrees with its plain version")
+    results[f"{case} {name}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": library_ms, **bound_}
+
+
 def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     """Phase 2: each kernel vs its plain version, with its bound and, where
-    one PyTorch call computes the same function, that call's time.  ``tol``
-    maps an output of the plain version to its allowed max abs error."""
+    one PyTorch call computes the same function, that call's time."""
     import torch.nn.functional as F
 
     width = HEADS * HEAD_DIM
     results = {}
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-    def run(case, name, kernel, plain, tol, bound_, library=None):
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
-        err, allowed, ok = 0.0, 0.0, True
-        for o, r in zip(outs, refs):
-            e, limit = max_err(o, r), tol(r)
-            if e >= err:
-                err, allowed = e, limit
-            ok = ok and bool(torch.isfinite(o.float()).all()) and e <= limit
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        library_ms = time_ms(library) if library is not None else None
-        lib = f", library {library_ms:.4f} ms" if library is not None else ""
-        log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {allowed:.1e}) "
-            f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-            f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}")
-        if not ok:
-            raise AssertionError(f"kernel {case} {name} disagrees with its plain version")
-        results[f"{case} {name}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                     "library_ms": library_ms, **bound_}
+    run = functools.partial(run_case, results)
 
     def heads4(t):  # (G, S, H*hd) -> the (G, H, S, hd) view SDPA takes
         return t.reshape(t.shape[0], t.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
 
-    for name, dt in dtypes.items():
+    for name, dt in DTYPES.items():
         kernel_tol = lambda ref: KERNEL_TOL[name]
         grads_tol = lambda ref: grad_tol(ref, name)
         # --- forward kernels at the serving shapes ---
@@ -429,7 +467,7 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     # kernel is autograd through the plain block loop on the same tensors (the
     # path the backward kernel replaces) and the loop's forward under no_grad
     # -- many calls, not one.
-    for name, dt in dtypes.items():
+    for name, dt in DTYPES.items():
         itemsize = 4 if name == "f32" else 2
         for stage, batch, backward in ((5, train_minibatch, True), (6, train_minibatch, True),
                                        (4, BATCH, False), (5, BATCH, False), (6, BATCH, False)):
@@ -489,6 +527,108 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             f"{abs(keep - p_keep) / sigma:.2f} sigma (limit 4)")
         if abs(keep - p_keep) > 4 * sigma:
             raise AssertionError("the mask bytes do not keep at 230/256")
+    return results
+
+
+def check_fused_kernels(flk, model_lib, cfg) -> dict[str, dict]:
+    """Phase 2, kernels 11, 18 and 17 at the serving shapes: 16 windows, S =
+    250 -> P = 256 (pad_l 3), D = 256, 4 heads x 64, kv 64, FFN 512, one
+    seeded pair with its LayerNorms off the identity.  Operations: the
+    products, 2 R (D W + D C + 2 C W + W D) for R rows (+ 6 R D I for the two
+    FFN products), and the attention's two products over the keys each row
+    sees (16 per window; S global columns).  Bytes: x in and out once, the
+    weights.  "Library": the same layer by the default "pallas" route on the
+    same tensors (torch LayerNorm and products, kernels 1 and 2) -- many
+    calls, not one."""
+    import torch.nn.functional as F
+
+    from audio_to_midi_tpu_torch.models import attention as attn_lib
+    from audio_to_midi_tpu_torch.models import nn as a2m_nn
+    from audio_to_midi_tpu_torch.models import transformer as tf_lib
+
+    c = cfg.model
+    results = {}
+    run = functools.partial(run_case, results)
+    gen = torch.Generator().manual_seed(71)
+    pair = tf_lib.AlternatingLayer(c, gen)
+    with torch.no_grad():
+        for pname, prm in pair.named_parameters():
+            if "norm" in pname:
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    pair = pair.cuda()
+    local, global_ = pair.get_submodule("local"), pair.get_submodule("global")
+    rope = model_lib.make_rope(c, "cuda")
+    window = c.local_context_window
+    pad_l, pad_r = attn_lib._local_padding(SEQ, window)
+    tables = tf_lib._pair_rope_tables(rope, c, PADDED, pad_l)
+    d, width = c.transformer_hidden_dim, HEADS * HEAD_DIM
+    ckv, inter = c.compressed_attention_kv_size, c.transformer_intermediate_size
+    proj = 2.0 * (d * width + d * ckv + 2 * ckv * width + width * d)     # per row
+    ffn = 6.0 * d * inter                                                # per row
+    local_attn = (PADDED // (window // 2) - 1) * window * window * 4.0 * width  # per sample
+    global_attn = lambda rows, cols: 4.0 * rows * cols * width                 # per sample
+    geometry = dict(num_heads=HEADS, valid_len=SEQ, pad_l=pad_l)
+    with torch.no_grad():
+        for name, dt in DTYPES.items():
+            itemsize = 4 if name == "f32" else 2
+            tol = lambda ref: fused_tol(ref, name)
+            x = randn(BATCH, SEQ, d, seed=72, dtype=dt)
+            xp = F.pad(x, (0, 0, pad_l, pad_r))
+            att = local.attention
+            ws = [lin.w.to(dt) for lin in (att.q_up, att.kv_down, att.k_up, att.v_up, att.out)]
+            wbytes = sum(w.numel() for w in ws) * itemsize
+            cos_w, sin_w = attn_lib._rope_tables(rope, (PADDED // (window // 2) - 1) * window,
+                                                 window)
+            run("attention block local P=256", name,
+                lambda: flk.attention_block(xp, *ws, cos_w, sin_w, HEADS, PADDED, window),
+                lambda: flk.attention_block_plain(xp, *ws, cos_w, sin_w, HEADS, PADDED, window),
+                tol, bound(2, xp.numel(), name, BATCH * (PADDED * proj + local_attn),
+                           extra_bytes=wbytes),
+                library=lambda: attn_lib.local_self_attention(x, att, rope, c))
+            cos_g, sin_g = attn_lib._rope_tables(rope, SEQ, 0)
+            run("attention block global S=250", name,
+                lambda: flk.attention_block(x, *ws, cos_g, sin_g, HEADS, SEQ, 0),
+                lambda: flk.attention_block_plain(x, *ws, cos_g, sin_g, HEADS, SEQ, 0),
+                tol, bound(2, x.numel(), name, BATCH * (SEQ * proj + global_attn(SEQ, SEQ)),
+                           extra_bytes=wbytes),
+                library=lambda: attn_lib.self_attention(x, att, rope, c))
+
+            def sublayer_library(layer, attend):
+                normed = a2m_nn.layer_norm(x, layer.attention_norm.scale,
+                                           layer.attention_norm.bias)
+                return x + attend(normed, layer.attention, rope, c)
+
+            for side, layer, case_tables, attn_flops, attend in (
+                    ("local", local, tables[:4], local_attn, attn_lib.local_self_attention),
+                    ("global", global_, tables[4:], global_attn(PADDED, SEQ),
+                     attn_lib.self_attention)):
+                sw = flk.sublayer_weights(layer, dt)
+                kernel = flk.fused_local_sublayer if side == "local" else flk.fused_global_sublayer
+                extra = dict(window=window) if side == "local" else {}
+                plain_window = window if side == "local" else 0
+                run(f"fused {side} sublayer P=256", name,
+                    lambda: kernel(xp, sw, case_tables, **extra, **geometry),
+                    lambda: flk.fused_sublayer_plain(xp, sw, case_tables, window=plain_window,
+                                                     **geometry),
+                    tol, bound(2, xp.numel(), name, BATCH * (PADDED * proj + attn_flops),
+                               extra_bytes=wbytes + 2 * d * 4),
+                    library=lambda: sublayer_library(layer, attend))
+            pw = flk.pair_weights(pair, dt)
+            pair_flops = BATCH * (PADDED * (2 * proj + 2 * ffn) + local_attn
+                                  + global_attn(PADDED, SEQ))
+            run("transformer pair P=256", name,
+                lambda: flk.transformer_pair(xp, pw, tables, window=window, **geometry),
+                lambda: flk.transformer_pair_plain(xp, pw, tables, window=window, **geometry),
+                tol, bound(2, xp.numel(), name, pair_flops,
+                           extra_bytes=sum(w.numel() * w.element_size() for w in pw)),
+                library=lambda: tf_lib.alternating_layer(x, pair, rope, c))
+            first, again = (flk.transformer_pair(xp, pw, tables, window=window, **geometry)
+                            for _ in range(2))
+            rows_zero = not first[:, :pad_l].any() and not first[:, pad_l + SEQ:].any()
+            log(f"transformer pair {name}: the same inputs twice, identical bits "
+                f"{torch.equal(first, again)}; rows outside the sequence zero {rows_zero}")
+            if not (torch.equal(first, again) and rows_zero):
+                raise AssertionError("the pair kernel does not repeat or leaves padding rows")
     return results
 
 
@@ -788,6 +928,30 @@ def compare_model_grads(grads: dict, what: str) -> None:
         raise AssertionError("the kernel path's gradient disagrees with the plain path's")
 
 
+@contextlib.contextmanager
+def seeded_dropout_by_plain(ak):
+    """Inside the block, the seeded dropout wrappers that the "pallas" route
+    calls are their plain versions on the plain Philox bytes of the same
+    seed, differentiated by autograd: the plain comparator of phase 6 (the
+    port has no switch for it; "xla" drops at the exact rate)."""
+    real = ak.global_attention_dropout, ak.local_two_phase_dropout
+
+    def global_plain(q, k, v, seed, num_heads, block=0, valid_len=None, *, threshold):
+        bits = ak.philox_bits_plain(seed, q.shape[0], num_heads, q.shape[1])
+        return ak.global_attention_plain(q, k, v, num_heads, block, valid_len, bits, threshold)
+
+    def local_plain(qa, ka, qb, kb, v, seed, num_heads, window, *, threshold):
+        planes = ak.two_phase_planes(
+            ak.philox_bits_plain(seed, qa.shape[0], 2 * num_heads, qa.shape[1]), num_heads)
+        return ak.local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window, *planes, threshold)
+
+    ak.global_attention_dropout, ak.local_two_phase_dropout = global_plain, local_plain
+    try:
+        yield
+    finally:
+        ak.global_attention_dropout, ak.local_two_phase_dropout = real
+
+
 def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: str):
     """Phase 6: the reference-parity step, with dropout; returns the launches
     of its steps by the seeded route and by the precomputed-bits route."""
@@ -803,16 +967,17 @@ def check_training_dropout(ak, model_lib, cfg, model, card: str, dropout_free: s
     start_state = copy.deepcopy(model.state_dict())
 
     # f32 gradients of one minibatch of 4 windows under one seed: forward and
-    # backward kernels must apply the mask the plain path draws for it.
+    # backward kernels must apply the mask the plain versions draw for it.
     train_cfg, rope, *_ = training_setup(model_lib, cfg, model, rate, cnn_bwd_kernel=False)
     gen = torch.Generator(device="cpu").manual_seed(3)
     audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
     labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
     with _parity_precision(torch.float32):
-        grads = {impl: model_grads(model, loss_lib,
-                                   dataclasses.replace(train_cfg.model, attention_impl=impl),
-                                   audio4, labels4, rope, seed=11)
-                 for impl in ("pallas", "xla")}
+        grads = {"pallas": model_grads(model, loss_lib, train_cfg.model, audio4, labels4, rope,
+                                       seed=11)}
+        with seeded_dropout_by_plain(ak):
+            grads["xla"] = model_grads(model, loss_lib, train_cfg.model, audio4, labels4, rope,
+                                       seed=11)
         free = model_grads(model, loss_lib, train_cfg.model, audio4, labels4, rope, seed=12)
     compare_model_grads(grads, " with dropout 0.1 under one seed")
     moved = max(max_err(free[n], g) / max(g.abs().max().item(), 1e-30)
@@ -968,7 +1133,7 @@ def check_stage_serving(model_lib, cfg, model, card: str) -> dict[str, int]:
             total[n] += c
         # ms per forward, the stage kernel beside the default path, in turns.
         rope = model_lib.make_rope(cfg.model, "cuda")
-        for batch in (BATCH, 128):
+        for batch in TIMED_BATCHES:
             x = (torch.randn(batch, 2, 80_000, generator=gen) * 0.5).to(device="cuda", dtype=dt)
             times = {}
             with torch.inference_mode(), _parity_precision(dt):
@@ -1002,6 +1167,140 @@ def check_stage_serving(model_lib, cfg, model, card: str) -> dict[str, int]:
     return total
 
 
+def check_fused_serving(model_lib, cfg, model, card: str) -> dict[str, dict[str, int]]:
+    """Phase 9: serving with attention_impl "pallas_block", "pallas_fused"
+    and "pallas_pair"; returns the launches of each value's path."""
+    from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
+    from audio_to_midi_tpu_torch.config import config_to_json
+    from audio_to_midi_tpu_torch.infer import (
+        _parity_precision, load_params, predict_and_stitch, transcribe_file,
+    )
+    from audio_to_midi_tpu_torch.models import attention as attn_lib
+    from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    def with_impl(impl, base=cfg):
+        return dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                                   attention_impl=impl))
+
+    layers = cfg.model.num_transformer_layers
+    per_forward = {"pallas_block": {"attention_block": 2 * layers},
+                   "pallas_fused": {"fused_local_sublayer": layers,
+                                    "fused_global_sublayer": layers},
+                   "pallas_pair": {"transformer_pair": layers}}
+    # Kernel 11's launches by mode, read where the model calls it.
+    windows_seen = []
+    block_route = attn_lib._attention_block
+
+    def counted_block(*args, **kwargs):
+        windows_seen.append(kwargs["window"])
+        return block_route(*args, **kwargs)
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    windows = torch.randn(BATCH, 2, 80_000, generator=gen) * 0.5
+    totals = {impl: dict.fromkeys(read_launches(), 0) for impl in FUSED_IMPLS}
+    models = {"bf16": model_lib.cast_params(copy.deepcopy(model), torch.bfloat16), "f32": model}
+    attn_lib._attention_block = counted_block
+    try:
+        for name, m in models.items():
+            _, ref, _ = predict_and_stitch(m, with_impl("xla"), windows, 5.0, 0.5)
+            for impl in FUSED_IMPLS:
+                reset_launches()
+                windows_seen.clear()
+                probs, stitched, _ = predict_and_stitch(m, with_impl(impl), windows, 5.0, 0.5)
+                launches = read_launches()
+                err = float(np.abs(stitched - ref).max())
+                ok = (probs.shape == (BATCH, SEQ, cfg.model.output_vocab)
+                      and stitched.shape[1] == 90 and np.isfinite(stitched).all()
+                      and err <= FORWARD_TOL[name])
+                modes = {"local": windows_seen.count(cfg.model.local_context_window),
+                         "global": windows_seen.count(0)}
+                log(f"{impl} serving {name}: {BATCH} windows -> stitched {stitched.shape}, vs the "
+                    f"xla path max_abs_err {err:.3e} (tol {FORWARD_TOL[name]:.0e}), launches "
+                    f"{ {n: c for n, c in launches.items() if c} }"
+                    f"{f', kernel 11 by mode {modes}' if impl == 'pallas_block' else ''} "
+                    f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {impl} serving disagrees with the plain path")
+                expected = dict.fromkeys(launches, 0) | per_forward[impl]
+                if launches != expected:
+                    raise AssertionError(f"{impl} serving launched {launches}, expected {expected}")
+                if impl == "pallas_block" and modes != {"local": layers, "global": layers}:
+                    raise AssertionError(f"kernel 11 ran {modes}, expected {layers} of each mode")
+                for n, c in launches.items():
+                    totals[impl][n] += c
+    finally:
+        attn_lib._attention_block = block_route
+
+    # ms per forward beside "pallas", in turns, at 16 and 128 windows.
+    rope = model_lib.make_rope(cfg.model, "cuda")
+    order = ("pallas", *FUSED_IMPLS, *reversed(FUSED_IMPLS), "pallas")
+    for name, m in models.items():
+        dt = DTYPES[name]
+        for batch in TIMED_BATCHES:
+            x = (torch.randn(batch, 2, 80_000, generator=gen) * 0.5).to(device="cuda", dtype=dt)
+            times = {}
+            with torch.inference_mode(), _parity_precision(dt):
+                for impl in order:
+                    model_cfg = with_impl(impl).model
+                    times.setdefault(impl, []).append(
+                        time_ms(lambda: model_lib.forward(m, model_cfg, x, rope), iters=5,
+                                warmup=2))
+            shown = ", ".join(f"{impl} {' / '.join(f'{t:.2f}' for t in ms)}"
+                              for impl, ms in times.items())
+            log(f"forward {name}, {batch} windows, ms per forward: {shown}, on {card}")
+            del x
+    del models["bf16"]
+    torch.cuda.empty_cache()
+
+    # f32 gradients of a dropout-free minibatch of 4 through each value.
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    audio4 = (torch.randn(4, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels4 = (torch.rand(4, SEQ, 90, generator=gen) < 0.03).float().cuda()
+    free = dataclasses.replace(cfg.model, transformer_dropout_rate=0.0)
+    train_model = copy.deepcopy(model).train()
+    with _parity_precision(torch.float32):
+        plain = model_grads(train_model, loss_lib, dataclasses.replace(free, attention_impl="xla"),
+                            audio4, labels4, rope)
+        for impl in FUSED_IMPLS:
+            reset_launches()
+            grads = model_grads(train_model, loss_lib,
+                                dataclasses.replace(free, attention_impl=impl), audio4, labels4,
+                                rope)
+            launched = read_launches()
+            if any(launched[n] != c for n, c in per_forward[impl].items()):
+                raise AssertionError(f"the {impl} gradients launched {launched}")
+            compare_model_grads({"pallas": grads, "xla": plain},
+                                f" through attention_impl={impl} (kernel) vs xla")
+    del train_model, plain, grads
+
+    # The CLI through its normal entry with a config that asks for pallas_pair.
+    wav, ckpt, cfg_file = WORK / "synth.wav", WORK / "params.npz", WORK / "pallas_pair.json"
+    mid = WORK / "out_pallas_pair.mid"
+    cfg_file.write_text(config_to_json(with_impl("pallas_pair")))
+    reset_launches()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = cli_main([str(wav), str(mid), "--checkpoint", str(ckpt), "--config", str(cfg_file)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log("cli (pallas_pair): " + " | ".join(captured.getvalue().strip().splitlines())
+        + f"; launches { {n: c for n, c in launches.items() if c} }")
+    if rc != 0 or launches["transformer_pair"] == 0:
+        raise AssertionError(f"the pallas_pair CLI returned {rc} with launches {launches}")
+    for n, c in launches.items():
+        totals["pallas_pair"][n] += c
+    events, ref_events = read_midi_file(mid), read_midi_file(WORK / "out.mid")
+    m32 = load_params(ckpt, cfg, "cuda", torch.float32)
+    stitched, _, _ = transcribe_file(m32, with_impl("xla"), wav)
+    near = min(float(np.abs(stitched - t).min()) for t in EVENT_THRESHOLDS)
+    log(f"cli (pallas_pair): {len(events)} MIDI events, identical to phase 4's "
+        f"{events == ref_events} (closest prob to a threshold {near:.2e})")
+    if events != ref_events and near > 1e-4:
+        raise AssertionError("the pallas_pair CLI's MIDI differs from phase 4's")
+    return {f"{impl} serving": counts for impl, counts in totals.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1011,13 +1310,14 @@ def main() -> int:
     from audio_to_midi_tpu_torch.ops import attention_kernels as ak
     from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
     from audio_to_midi_tpu_torch.ops import cuda_build
+    from audio_to_midi_tpu_torch.ops import fused_layer_kernels as flk
 
     card = card_line()
     log(card)  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     lib = cuda_build.build()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1026,6 +1326,7 @@ def main() -> int:
 
     cfg = DEFAULT_CONFIG
     kernel_results = check_kernels(ak, ck, cfg.train.minibatch_size_per_device)
+    kernel_results |= check_fused_kernels(flk, model_lib, cfg)
 
     model = seeded_model(model_lib, cfg)
     log(f"model: {model_lib.param_count(model):,} params, dims {cfg.model.dims}, "
@@ -1044,8 +1345,13 @@ def main() -> int:
     log(f"default-config training main-path launches: {default_training}")
     stage_serving = check_stage_serving(model_lib, cfg, model, card)
     log(f"pallas_stage serving main-path launches: {stage_serving}")
+    t9 = time.perf_counter()
+    fused_serving = check_fused_serving(model_lib, cfg, model, card)
+    log(f"fused-layer serving main-path launches: {fused_serving}; phase 9 took "
+        f"{time.perf_counter() - t9:.1f} s")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
-             "default-config training": default_training, "pallas_stage serving": stage_serving}
+             "default-config training": default_training, "pallas_stage serving": stage_serving,
+             **fused_serving}
     on_path = {
         "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
@@ -1054,6 +1360,10 @@ def main() -> int:
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
         "stage_bwd": ("default-config training",), "stage_fwd": ("pallas_stage serving",),
+        "attention_block": ("pallas_block serving",),
+        "fused_local_sublayer": ("pallas_fused serving",),
+        "fused_global_sublayer": ("pallas_fused serving",),
+        "transformer_pair": ("pallas_pair serving",),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")
@@ -1068,6 +1378,14 @@ def main() -> int:
                       "stage bwd stage 5 B=32 bf16"),
         "stage_fwd": ("convnext_stage_fwd.cu", "pallas_convnext.py:131",
                       "stage fwd stage 5 B=16 bf16"),
+        "attention_block": ("attention_block.cu", "pallas_attention.py:1391",
+                            "attention block global S=250 bf16"),
+        "fused_local_sublayer": ("fused_sublayer.cu", "pallas_sublayer.py:133",
+                                 "fused local sublayer P=256 bf16"),
+        "fused_global_sublayer": ("fused_sublayer.cu", "pallas_sublayer.py:133",
+                                  "fused global sublayer P=256 bf16"),
+        "transformer_pair": ("transformer_pair.cu", "pallas_pair.py:229",
+                             "transformer pair P=256 bf16"),
     }
     attention = {
         "global_attention": ("global_attention.cu", "140", "global S=250 f32"),
@@ -1100,6 +1418,7 @@ def main() -> int:
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "case": case})
+    log(f"smoke: {time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,7 @@ def test_unported_attention_impl_raises():
     import dataclasses
 
     _, module = _attention_pair(3)
-    cfg = dataclasses.replace(SMALL_CFG.model, attention_impl="pallas_pair")
+    cfg = dataclasses.replace(SMALL_CFG.model, attention_impl="pallas_rw")
     with pytest.raises(NotImplementedError):
         pt_attention.self_attention(torch.zeros(1, 20, 32), module,
                                     pt_model.make_rope(cfg), cfg)

@@ -309,10 +309,14 @@ def test_default_rate_takes_the_seeded_kernels(routes):
     assert torch.isfinite(out).all() and torch.isfinite(out_l).all()
     assert torch.equal(out, _run(pt_attention.self_attention, 250, cfg))      # same seed
     assert not torch.equal(out, _run(pt_attention.self_attention, 250, cfg, seed=1))
-    # The plain route draws the same mask from the plain Philox.
+    # "xla" takes the JAX package's einsum route: the exact rate through
+    # nn.dropout, for the global and the local layer alike.
     xla = dataclasses.replace(cfg, attention_impl="xla")
-    close(_run(pt_attention.self_attention, 250, xla), out, rtol=0, atol=1e-6)
-    close(_run(pt_attention.local_self_attention, 250, xla), out_l, rtol=0, atol=1e-6)
+    out_x = _run(pt_attention.self_attention, 250, xla)
+    out_xl = _run(pt_attention.local_self_attention, 250, xla)
+    assert routes == dict(global_seeded=3, local_seeded=1, global_free=0, local_free=0, exact=2)
+    assert torch.isfinite(out_x).all() and torch.isfinite(out_xl).all()
+    assert not torch.equal(out_x, out)
 
 
 @pytest.mark.parametrize("rate", [0.001, 1 / 600, 0.999, 1.0])
@@ -326,6 +330,44 @@ def test_rates_that_do_not_quantize_take_the_exact_rate_route(routes, rate):
         xla = _run(fn, 250, dataclasses.replace(cfg, attention_impl="xla"))
         assert torch.isfinite(out).all() and torch.equal(out, xla)
     assert routes == dict(global_seeded=0, local_seeded=0, global_free=0, local_free=0, exact=4)
+
+
+def test_plain_routes_drop_at_the_exact_rate_and_the_kernels_at_the_quantized_one(monkeypatch):
+    """Fault 2: under dropout "xla" keeps each attention weight with
+    probability 0.9 and scales the kept ones by exactly 1/0.9, as the JAX
+    einsum route does; "pallas" keeps 230/256.  ~8 M weights put the two
+    shares ~15 sigma apart; each must lie within 5 sigma of its own."""
+    seen = {}
+
+    def spy(module, name, key):
+        real = getattr(module, name)
+
+        def wrapped(x, *args, **kwargs):
+            out = real(x, *args, **kwargs)
+            seen[key] = (x, out)
+            return out
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(pt_nn, "dropout", "xla")
+    spy(ak, "_apply_bits", "pallas")
+    _, module = _attention_pair(4)
+    x = torch.from_numpy(inputs(11, 1, 64, 250, 32)[0])
+    rope = pt_model.make_rope(SMALL_CFG.model)
+    for impl in ("xla", "pallas"):
+        cfg = dataclasses.replace(SMALL_CFG.model, attention_impl=impl)
+        with torch.no_grad():
+            pt_attention.self_attention(x, module, rope, cfg, generator=torch.Generator().manual_seed(5),
+                                        enable_dropout=True)
+    for impl, keep in (("xla", 0.9), ("pallas", 230 / 256)):
+        weights, dropped = seen[impl]
+        assert weights.numel() >= 8_000_000
+        kept = dropped != 0
+        share = kept.double().mean().item()
+        sigma = math.sqrt(keep * (1 - keep) / weights.numel())
+        assert abs(share - keep) <= 5 * sigma, (impl, share)
+    weights, dropped = seen["xla"]
+    kept = dropped != 0
+    assert torch.equal(dropped[kept], weights[kept] / 0.9)
 
 
 def test_short_sequences_stay_off_the_global_dropout_kernel(routes):

@@ -652,3 +652,140 @@ def test_stage_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     with pytest.raises(ValueError):                     # channels that are not the weights'
         ck.stage_fwd(dy[..., :64].contiguous(), weights)
     assert [fn.launches for fn in ck.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# The fused transformer-layer kernels: 11 (attention block), 18 (attention
+# sublayers), 17 (pair), at the default widths (D 256, 4 heads x 64, kv 64,
+# FFN 512).
+# ---------------------------------------------------------------------------
+
+from audio_to_midi_tpu_torch.config import ModelConfig  # noqa: E402
+from audio_to_midi_tpu_torch.models import attention as pt_attention  # noqa: E402
+from audio_to_midi_tpu_torch.models import model as pt_model  # noqa: E402
+from audio_to_midi_tpu_torch.models import transformer as pt_transformer  # noqa: E402
+from audio_to_midi_tpu_torch.ops import fused_layer_kernels as flk  # noqa: E402
+
+FUSED_CFG = ModelConfig()
+FUSED_CASES = ("block local", "block global", "local sublayer", "global sublayer", "pair")
+
+
+def _fused_outputs(case: str, seq: int, batch: int, dtype, device="cpu", seed=0):
+    """(wrapper output, plain version's output) of one case on seeded inputs
+    and a seeded pair whose LayerNorms are off the identity."""
+    cfg = FUSED_CFG
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pair = pt_transformer.AlternatingLayer(cfg, gen)
+    with torch.no_grad():
+        for name, p in pair.named_parameters():
+            if "norm" in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    pair = pair.to(device)
+    rope = pt_model.make_rope(cfg, device)
+    pad_l, pad_r = pt_attention._local_padding(seq, 16)
+    p_len = seq + pad_l + pad_r
+    x = _randn(batch, seq, 256, seed=seed + 1, device=device, dtype=dtype)
+    xp = torch.nn.functional.pad(x, (0, 0, pad_l, pad_r))
+    geometry = dict(num_heads=4, valid_len=seq, pad_l=pad_l)
+    tables = pt_transformer._pair_rope_tables(rope, cfg, p_len, pad_l)
+    with torch.no_grad():
+        if case.startswith("block"):
+            att = pair.get_submodule("local").attention
+            ws = [lin.w.to(dtype) for lin in (att.q_up, att.kv_down, att.k_up, att.v_up, att.out)]
+            window, rows_in = (16, xp) if case == "block local" else (0, x)
+            p = rows_in.shape[1]
+            cos, sin = pt_attention._rope_tables(rope, (p // 8 - 1) * 16 if window else p, window)
+            args = (rows_in, *ws, cos, sin, 4, p, window)
+            return flk.attention_block(*args), flk.attention_block_plain(*args)
+        if case == "pair":
+            pw = flk.pair_weights(pair, dtype)
+            return (flk.transformer_pair(xp, pw, tables, window=16, **geometry),
+                    flk.transformer_pair_plain(xp, pw, tables, window=16, **geometry))
+        if case == "local sublayer":
+            sw = flk.sublayer_weights(pair.get_submodule("local"), dtype)
+            return (flk.fused_local_sublayer(xp, sw, tables[:4], window=16, **geometry),
+                    flk.fused_sublayer_plain(xp, sw, tables[:4], window=16, **geometry))
+        sw = flk.sublayer_weights(pair.get_submodule("global"), dtype)
+        return (flk.fused_global_sublayer(xp, sw, tables[4:], **geometry),
+                flk.fused_sublayer_plain(xp, sw, tables[4:], **geometry))
+
+
+def test_fused_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
+    before = [fn.launches for fn in flk.KERNELS]
+    for case in FUSED_CASES:
+        out, ref = _fused_outputs(case, 58, 1, torch.float32)
+        assert torch.equal(out, ref), case
+    assert [fn.launches for fn in flk.KERNELS] == before and len(flk.KERNELS) == 4
+
+
+def test_fused_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 64, 256, device="meta")
+    w = torch.zeros(256, 256, device="meta")
+    with pytest.raises(ValueError):
+        flk.attention_block(x, w, w, w, w, w, w, w, 4, 64, 16)
+    with pytest.raises(ValueError):
+        flk.fused_local_sublayer(x, (), (w,) * 4, num_heads=4, valid_len=58, pad_l=3, window=16)
+    with pytest.raises(ValueError):
+        flk.fused_global_sublayer(x, (), (w,) * 2, num_heads=4, valid_len=58, pad_l=3)
+    with pytest.raises(ValueError):
+        flk.transformer_pair(x, (), (), num_heads=4, valid_len=58, pad_l=3, window=16)
+
+
+# Kernels 11, 17, 18 vs their plain versions: f32 as CARD_CASES (the same fp32
+# sums in another order); bf16 the same 2e-2, or 2 ulps of the output's top
+# binade where that is larger: kernels 17 and 18 return the residual stream
+# (magnitudes up to ~5 here, one ulp 0.031), and a rounding flipped by a sum
+# taken in another order moves an output by one ulp.
+def _fused_limit(ref: torch.Tensor) -> float:
+    if ref.dtype == torch.float32:
+        return 1e-5
+    top = ref.float().abs().max().item()
+    return max(2e-2, 2 * 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq,batch", [(250, 16), (58, 3)])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_layer_kernels_match_plain_on_card(cuda_device, dtype, seq, batch, case):
+    before = sum(fn.launches for fn in flk.KERNELS)
+    out, ref = _fused_outputs(case, seq, batch, dtype, cuda_device, seed=seq)
+    torch.cuda.synchronize()
+    assert sum(fn.launches for fn in flk.KERNELS) == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(ref)
+    again, _ = _fused_outputs(case, seq, batch, dtype, cuda_device, seed=seq)
+    assert torch.equal(again, out)  # the same inputs give the same bits
+    if case in ("local sublayer", "global sublayer", "pair"):
+        pad_l = pt_attention._local_padding(seq, 16)[0]
+        assert not out[:, :pad_l].any() and not out[:, pad_l + seq:].any()
+
+
+@pytest.mark.cuda
+def test_fused_layer_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
+    before = [fn.launches for fn in flk.KERNELS]
+    for case in FUSED_CASES:
+        with pytest.raises(NotImplementedError):
+            _fused_outputs(case, 58, 1, torch.float16, cuda_device)
+    pair = pt_transformer.AlternatingLayer(FUSED_CFG, torch.Generator().manual_seed(0))
+    pair = pair.to(cuda_device)
+    rope = pt_model.make_rope(FUSED_CFG, cuda_device)
+    x = torch.zeros(2, 250, 256, device=cuda_device)          # P = 250: not a multiple of 16
+    tables = pt_transformer._pair_rope_tables(rope, FUSED_CFG, 250, 0)
+    geometry = dict(num_heads=4, valid_len=250, pad_l=0)
+    with pytest.raises(ValueError):
+        flk.transformer_pair(x, flk.pair_weights(pair, torch.float32), tables, window=16,
+                             **geometry)
+    with pytest.raises(ValueError):
+        flk.fused_global_sublayer(x, flk.sublayer_weights(pair.get_submodule("global"),
+                                                          torch.float32), tables[4:], **geometry)
+    att = pair.get_submodule("local").attention
+    ws = [lin.w for lin in (att.q_up, att.kv_down, att.k_up, att.v_up, att.out)]
+    cos, sin = pt_attention._rope_tables(rope, 256, 0)
+    with pytest.raises(ValueError):                            # 32 heads of 8
+        flk.attention_block(x, *ws, cos, sin, 32, 250, 0)
+    with pytest.raises(ValueError):                            # P = 250 is not a multiple of 8
+        flk.attention_block(x, *ws, cos, sin, 4, 250, 16)
+    with pytest.raises(ValueError):                            # bf16 rows, f32 weights
+        flk.attention_block(x.bfloat16(), *ws, cos, sin, 4, 250, 0)
+    assert [fn.launches for fn in flk.KERNELS] == before

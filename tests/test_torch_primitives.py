@@ -254,6 +254,7 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         assert len(names) >= 22, names
         assert {"audio_to_midi_tpu_torch.train." + m for m in ("loss", "optim", "step")} <= set(names)
+        assert "audio_to_midi_tpu_torch.ops.fused_layer_kernels" in names
         leaked = sorted(m for m in sys.modules
                         if m in ("jax", "optax", "audio_to_midi_tpu")
                         or m.startswith(("jax.", "optax.", "audio_to_midi_tpu.")))
