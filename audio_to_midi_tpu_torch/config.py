@@ -79,8 +79,9 @@ class ModelConfig:
     # attention sublayers, kernel 18) and "pallas_pair" (a whole pair,
     # kernel 17) run ops/fused_layer_kernels.py where the JAX package runs
     # those kernels, and the plain cores elsewhere (dropout, f16, geometries
-    # the gates refuse).  "pallas_rw" raises NotImplementedError until its
-    # slice.
+    # the gates refuse).  "pallas_rw" runs as "pallas" but for the
+    # dropout-free two-phase local route, which takes the reduced-width
+    # kernel 6 (ops/attention_kernels.local_two_phase_rw).
     attention_impl: str = "pallas"
 
     # No-op here: XLA scheduling knobs of the JAX package, kept so that

@@ -1,5 +1,5 @@
-// Shared helpers for the attention kernels: dtype conversion and the
-// in-dtype query scaling that the TPU kernels apply.
+// Shared helpers for the attention kernels: dtype conversion, the in-dtype
+// query scaling that the TPU kernels apply, and the halves-layout RoPE.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +37,23 @@ __device__ __forceinline__ float scaled_in_dtype(T x, float scale) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// Element d of the RoPE'd head vector `head` (hd values, halves layout) at
+// the table row (cos, sin: hd / 2 values), rounded to T.  The products and
+// the difference round separately, as in the plain versions.
+template <typename T>
+__device__ __forceinline__ float rope_elem(const T* __restrict__ head, int d, int hd,
+                                           const float* __restrict__ cos_row,
+                                           const float* __restrict__ sin_row) {
+  const int half = hd / 2;
+  const int f = d < half ? d : d - half;
+  const float x1 = to_float(head[f]);
+  const float x2 = to_float(head[f + half]);
+  const float c = cos_row[f], s = sin_row[f];
+  const float y = d < half ? __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s))
+                           : __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+  return round_to<T>(y);
 }
 
 }  // namespace a2m

@@ -143,23 +143,6 @@ glu_kernel(const T* __restrict__ h1, T* __restrict__ g, long long total, int int
   g[i] = from_float<T>(gelu * b);
 }
 
-// Element d of the RoPE'd head vector `head` (hd values, halves layout) at
-// the table row (cos, sin: hd / 2 values), rounded to T.  The products and
-// the difference round separately, as in the plain version.
-template <typename T>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ head, int d, int hd,
-                                           const float* __restrict__ cos_row,
-                                           const float* __restrict__ sin_row) {
-  const int half = hd / 2;
-  const int f = d < half ? d : d - half;
-  const float x1 = to_float(head[f]);
-  const float x2 = to_float(head[f + half]);
-  const float c = cos_row[f], s = sin_row[f];
-  const float y = d < half ? __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s))
-                           : __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
-  return round_to<T>(y);
-}
-
 // ---------------------------------------------------------------------------
 // The local core: windows of 16 rows at stride 8 over P rows (P a multiple
 // of 8), attention inside each window with RoPE positions restarting in

@@ -16,6 +16,11 @@ through their plain versions.  The routing between the two-phase kernel and
 the flattened-window route (``padded % 16``) mirrors the JAX package.  The
 kernel wrappers are differentiable (their backward is a kernel too); the
 plain versions are differentiated by ordinary autograd.
+``"pallas_rw"`` routes as ``"pallas"`` except on the dropout-free two-phase
+route, where it takes the reduced-width two-phase kernel 6
+(``ak.local_two_phase_rw``, per-window 16 x 16 logit tiles, phase B as phase
+A on rows rolled by 8) with kernel 7 as its backward, as the JAX package
+does.
 ``"pallas_block"`` runs the whole block (projections, RoPE, attention,
 average, out-proj) as kernel 11 (``ops/fused_layer_kernels``) where the JAX
 package does: no dropout, 3-D input, f32 or bf16; its backward is autograd
@@ -24,15 +29,21 @@ through the kernel's plain formulation.  ``"pallas_fused"`` and
 their own kernel is not taken, the three run the plain cores, as the JAX
 package sends them to its einsum route.
 
+f16 takes no kernel, whatever ``attention_impl`` says: the JAX package gates
+every kernel route with ``mosaic_dtype_ok`` (Mosaic has no f16), so under
+the f16 loss-scaling policy its attention runs the einsum route -- logits in
+the dtype, fp32 softmax cast back, the exact-rate dropout -- and its local
+layers the windowed (B, W, 16, 16) route.  The port does the same.
+
 Attention-weight dropout (``enable_dropout`` with a rate above 0) follows the
-JAX package's routing.  With ``"pallas"``, where the rate quantizes to a
-uint8 threshold inside (0, 256) -- 0.1 -> 26/256 -- and the geometry suits
-the kernel (global: S >= 128; local: the two-phase route), one (2,) int32
-seed is drawn from the generator on the activations' device and the seeded
-kernel applies the mask it stands for; ``A2M_PRNG_DROPOUT=0`` in the
-environment selects, as in the JAX package, the precomputed-bits kernels
+JAX package's routing.  With ``"pallas"`` or ``"pallas_rw"``, where the rate
+quantizes to a uint8 threshold inside (0, 256) -- 0.1 -> 26/256 -- and the
+geometry suits the kernel (global: S >= 128; local: the two-phase route), one
+(2,) int32 seed is drawn from the generator on the activations' device and
+the seeded kernel applies the mask it stands for; ``A2M_PRNG_DROPOUT=0`` in
+the environment selects, as in the JAX package, the precomputed-bits kernels
 instead, fed the same bytes.  Everything else -- every other
-``attention_impl``, a rate too small or too large to quantize, short
+``attention_impl``, f16, a rate too small or too large to quantize, short
 sequences, the windowed local route -- computes the weights in plain
 PyTorch and drops them at the exact rate with ``nn.dropout`` (keep 0.9,
 scale 1/0.9 at rate 0.1), as the JAX einsum route does; the local layers
@@ -69,21 +80,19 @@ class SelfAttention(nn.Module):
         self.out = a2m_nn.Linear(width, d, generator, use_bias=False)
 
 
-# The values that run the plain cores wherever their own kernel is not taken.
+# The values that run the attention-core kernels, and those that run the
+# plain cores wherever their own kernel is not taken.
+KERNEL_CORE_IMPLS = ("pallas", "pallas_rw")
 PLAIN_CORE_IMPLS = ("xla", "pallas_block", "pallas_fused", "pallas_pair")
 
 
 def _plain_impl(cfg: ModelConfig) -> bool:
     """Whether ``cfg.attention_impl`` runs the plain cores (rather than the
-    attention kernels of ``"pallas"``)."""
-    if cfg.attention_impl == "pallas":
+    attention kernels of ``"pallas"`` and ``"pallas_rw"``)."""
+    if cfg.attention_impl in KERNEL_CORE_IMPLS:
         return False
     if cfg.attention_impl in PLAIN_CORE_IMPLS:
         return True
-    if cfg.attention_impl == "pallas_rw":
-        raise NotImplementedError(
-            "attention_impl='pallas_rw' (the two-phase kernel with per-window logit tiles) is "
-            "not ported yet: it comes with slice 3b of the port (ROADMAP.md)")
     raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
@@ -123,15 +132,19 @@ def _qkv(x: torch.Tensor, p: SelfAttention, num_heads: int, rope: RopeFreqs):
     return q, k, v
 
 
-def _attend_exact_rate(q, k, v, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Plain attention with ``nn.dropout`` on the weights at the exact rate,
-    as the JAX package's einsum route: q scaled in its dtype, fp32 softmax
-    cast back, dropout, weights . v.  q, k, v: (..., S, H, hd)."""
+def _attend_einsum(q, k, v, rate: float = 0.0,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """Plain attention as the JAX package's einsum route: q scaled in its
+    dtype, logits in the dtype, fp32 softmax cast back, with a generator
+    ``nn.dropout`` on the weights at the exact rate, weights . v in the
+    dtype.  q, k, v: (..., S, H, hd); no mask (the routes that come here
+    have none)."""
     *lead, s, h, hd = q.shape
     q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
     logits = torch.einsum("...shd,...Shd->...hsS", q, k)
     weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
-    weights = a2m_nn.dropout(weights, rate, generator, True)
+    if generator is not None:
+        weights = a2m_nn.dropout(weights, rate, generator, True)
     return torch.einsum("...hsS,...Shd->...shd", weights, v).reshape(*lead, s, h * hd)
 
 
@@ -140,14 +153,18 @@ def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
     """q, k, v: (..., S, H, hd) -> (..., S, H*hd).  The (..., S, H, hd) ->
     (G, S, H*hd) reshape is free: no transposes around the core."""
     *lead, s, h, hd = q.shape
+    f16 = q.dtype == torch.float16
     plain = _plain_impl(cfg)
     rate = cfg.transformer_dropout_rate
     threshold = ak.dropout_threshold(rate)
-    # The plain routes, sequences too short for the dropout kernel (the
-    # windowed route's S = 16) and rates that quantize to keep-all or
-    # keep-nothing drop at the exact rate in plain PyTorch.
-    if dropout and (plain or not (s >= 128 and 0 < threshold < 256)):
-        return _attend_exact_rate(q, k, v, rate, generator)
+    # f16 (the JAX package's einsum route for every dtype Mosaic refuses),
+    # and under dropout the plain routes, sequences too short for the dropout
+    # kernel (the windowed route's S = 16) and rates that quantize to
+    # keep-all or keep-nothing: the einsum route, at the exact rate.  The
+    # flattened route's block mask never comes here: f16 and dropout take
+    # the windowed route instead.
+    if f16 or (dropout and (plain or not (s >= 128 and 0 < threshold < 256))):
+        return _attend_einsum(q, k, v, rate, generator if dropout else None)
     fq, fk, fv = (t.reshape(-1, s, h * hd) for t in (q, k, v))
     if not dropout:
         core = ak.global_attention_plain if plain else ak.global_attention
@@ -236,6 +253,7 @@ def local_self_attention(
 ) -> torch.Tensor:
     """Sliding-window attention with overlap averaging.  x: (B, S, D) -> same."""
     plain = _plain_impl(cfg)
+    f16 = x.dtype == torch.float16
     dropout = _dropout_on(cfg, enable_dropout, generator)
     threshold = ak.dropout_threshold(cfg.transformer_dropout_rate)
     b, seq_len, d = x.shape
@@ -262,7 +280,7 @@ def local_self_attention(
         # padded-coordinate quirk.
         return _attention_block(xp, p, rope, cfg, valid_len=padded, window=window)[:, :seq_len, :]
 
-    if padded % window == 0 and padded % 16 == 0 and (
+    if not f16 and padded % window == 0 and padded % 16 == 0 and (
             not dropout or (not plain and 0 < threshold < 256)):
         # Two-phase route: q/k/v projected once on the padded rows, RoPE'd
         # with per-phase tables whose positions restart every window (phase
@@ -284,7 +302,12 @@ def local_self_attention(
         qb, kb = rope_with(q, cos_b, sin_b), rope_with(k, cos_b, sin_b)
         inputs = (flat(qa), flat(ka), flat(qb), flat(kb), v)
         if not dropout:
-            core = ak.local_two_phase_plain if plain else ak.local_two_phase
+            if plain:
+                core = ak.local_two_phase_plain
+            elif cfg.attention_impl == "pallas_rw":
+                core = ak.local_two_phase_rw
+            else:
+                core = ak.local_two_phase
             out = core(*inputs, heads, window)
         else:
             seed = new_dropout_seed(generator, x.device)
@@ -305,11 +328,11 @@ def local_self_attention(
     blocks = xp.reshape(b, num_blocks, stride, d)
     windows = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
     q, k, v = _qkv(windows, p, heads, rope)
-    if dropout:
-        # (B, W, 16, 16) weights per head in plain PyTorch, dropped at the
-        # exact rate, as the JAX einsum route: with dropout on, the flattened
-        # route is not taken.
-        out_w = _attend(q, k, v, cfg, generator=generator, dropout=True)
+    if dropout or f16:
+        # (B, W, 16, 16) weights per head in plain PyTorch (dropped at the
+        # exact rate), as the JAX einsum route: with dropout on, or in f16,
+        # the flattened route is not taken.
+        out_w = _attend(q, k, v, cfg, generator=generator, dropout=dropout)
     else:
         # Flattened: the (windows, window) axes become one sequence and a
         # block-diagonal mask realizes the per-window softmax.

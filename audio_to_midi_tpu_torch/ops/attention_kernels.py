@@ -1,7 +1,7 @@
 """The attention kernels of the serving and training paths, with their plain
 versions.
 
-Counterpart of kernels 1, 2, 4, 5, 7, 8, 9 and 12-16 of
+Counterpart of kernels 1-10 and 12-16 of
 ``audio_to_midi_tpu/ops/pallas_attention.py``.  As there, one kernel body
 serves three sources of the attention-weight dropout mask: none,
 precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
@@ -26,6 +26,20 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
   CUDA source: ``csrc/local_attention_bwd.cu``.
 * :func:`philox_bits` -- ``dump_bits_nhd`` / ``dump_bits_two_phase``: the
   mask bytes the seeded kernels draw.  CUDA source: ``csrc/philox_dump.cu``.
+* :func:`local_two_phase_rw` -- ``fused_local_two_phase_rw``: the two-phase
+  local attention with per-window (16, 16) logit tiles, phase B as phase A
+  on rows rolled by the stride (``attention_impl="pallas_rw"``); its
+  backward is :func:`local_two_phase_grads`.
+  CUDA source: ``csrc/local_attention_rw.cu``.
+* :func:`head_major_attention` -- ``fused_attention``: attention over the
+  head-major (G, H, S, hd) layout; :func:`rope_attention` --
+  ``fused_rope_attention``: :func:`global_attention` with the halves-layout
+  RoPE of q and k inside.  The JAX package reaches both through these
+  functions only, and so does the port.  Their backward is autograd through
+  the JAX package's reference formulations (:func:`head_major_attention_reference`,
+  :func:`rope_attention_reference`), as its ``custom_vjp``s have it.
+  CUDA sources: ``csrc/head_major_attention.cu``, ``csrc/rope_attention.cu``
+  (the tile loop in ``csrc/attention_tile.cuh``).
 
 The mask: a weight is kept where its byte ``>= threshold`` and scaled by
 ``256 / (256 - threshold)``, with ``threshold = round(rate * 256)``, applied
@@ -52,16 +66,19 @@ The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
 ``custom_vjp``s do, and their backward goes through the ``*_grads``
 wrappers -- the plain backward on the CPU, the CUDA backward kernel on the
-card, never autograd through the plain forward.
+card, never autograd through the plain forward -- or, for kernels 3 and 10,
+through the reference formulations.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
 import torch
 
+from ..models.rope import rope_with
 from . import cuda_build
 
 MASK_FILL = -1e30           # the TPU kernels' masked-logit value
@@ -596,9 +613,13 @@ def _seed_planes(seed: torch.Tensor, batch: int, num_heads: int, p_len: int):
 def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
                    bits=None, seed=None, threshold: int = 0):
     """The two-phase forward with its mask source: none, ``bits`` = (bits_a,
-    bits_b) or ``seed``.  ``wrapper``: the public function this counts as."""
+    bits_b) or ``seed``.  ``wrapper``: the public function this counts as;
+    :func:`local_two_phase_rw` takes the reduced-width kernel's entry."""
     b, p_len, _ = qa.shape
+    reduced_width = wrapper is local_two_phase_rw
     if qa.device.type == "cpu":
+        if reduced_width:
+            return local_two_phase_rw_plain(qa, ka, qb, kb, v, num_heads, window)
         if seed is not None:
             bits = _seed_planes(seed, b, num_heads, p_len)
         return local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window,
@@ -612,13 +633,17 @@ def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
     out = torch.empty_like(qa)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
+    pointers = (qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr())
     with torch.cuda.device(qa.device):
-        code = lib.a2m_local_two_phase(
-            qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr(),
-            _pointer(bits_a), _pointer(bits_b), _pointer(seed), out.data_ptr(),
-            b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
-            _stream_handle(qa.device),
-        )
+        if reduced_width:
+            code = lib.a2m_local_two_phase_rw(
+                *pointers, out.data_ptr(), b, p_len, num_heads, hd, scale,
+                _DTYPE_CODES[dtype], _stream_handle(qa.device))
+        else:
+            code = lib.a2m_local_two_phase(
+                *pointers, _pointer(bits_a), _pointer(bits_b), _pointer(seed), out.data_ptr(),
+                b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
+                _stream_handle(qa.device))
     cuda_build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -759,16 +784,241 @@ def local_two_phase_dropout(
                                   num_heads, window, threshold)
 
 
+# ---------------------------------------------------------------------------
+# Kernel 6: the reduced-width two-phase local attention (backward: kernel 7)
+# ---------------------------------------------------------------------------
+
+
+def local_two_phase_rw_plain(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, num_heads: int, window: int,
+) -> torch.Tensor:
+    """Plain version of :func:`local_two_phase_rw`, step by step as the TPU
+    body (``_two_phase_kernel_rw`` with ``_blocked_local_core``): per head
+    and window a (window, window) logit tile of q scaled in its dtype, the
+    fp32 softmax cast to v's dtype, weights . v in fp32.  Phase B is phase A
+    on the rows rolled up by the stride; its output is rolled back and zeroed
+    outside [stride, P - stride), where the wrapped window lands, and the
+    result is (a + b) / 2 inside that range and a outside it."""
+    b, p_len, dm = qa.shape
+    hd = dm // num_heads
+    stride = window // 2
+    scale = _query_scale(hd, qa.dtype).to(qa.device)
+    tiles = lambda t: t.reshape(b, p_len // window, window, num_heads, hd).float()
+
+    def blocked(q, k, vv):
+        logits = torch.einsum("bwshd,bwShd->bwhsS", tiles(q * scale), tiles(k))
+        weights = torch.softmax(logits, dim=-1).to(vv.dtype)
+        return torch.einsum("bwhsS,bwShd->bwshd", weights.float(), tiles(vv)).reshape(b, p_len, dm)
+
+    up = lambda t: torch.roll(t, -stride, dims=1)
+    out_a = blocked(qa, ka, v)
+    out_b = torch.roll(blocked(up(qb), up(kb), up(v)), stride, dims=1)
+    rows = torch.arange(p_len, device=qa.device)
+    b_rows = ((rows >= stride) & (rows < p_len - stride))[:, None]
+    out_b = torch.where(b_rows, out_b, torch.zeros_like(out_b))
+    inv = torch.where(b_rows, 0.5, 1.0)
+    return ((out_a + out_b) * inv).to(qa.dtype)
+
+
+def local_two_phase_rw(
+    qa: torch.Tensor, ka: torch.Tensor, qb: torch.Tensor, kb: torch.Tensor,
+    v: torch.Tensor, num_heads: int, window: int,
+) -> torch.Tensor:
+    """:func:`local_two_phase` as the TPU's reduced-width kernel computes it:
+    per-window (16, 16) logit tiles instead of masked rows, phase B as phase
+    A on the rows rolled by the stride, and the softmax weights cast to v's
+    dtype before their product with v.  The same contract and the same
+    backward (:func:`local_two_phase_grads`, kernel 7), as the JAX package's
+    ``defvjp`` has it.  Differentiable in all five inputs."""
+    return _LocalTwoPhaseFn.apply(local_two_phase_rw, qa, ka, qb, kb, v, None, None, None,
+                                  num_heads, window, 0)
+
+
 for _fn in (local_two_phase, local_two_phase_dropout_bits, local_two_phase_dropout,
-            local_two_phase_grads, local_two_phase_grads_bits, local_two_phase_grads_prng):
+            local_two_phase_grads, local_two_phase_grads_bits, local_two_phase_grads_prng,
+            local_two_phase_rw):
     _fn.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Kernels 3 and 10: head-major attention and attention with RoPE inside;
+# their backward is autograd through the JAX package's references
+# ---------------------------------------------------------------------------
+
+
+class _ReferenceBackwardFn(torch.autograd.Function):
+    """``kernel(q, k, v, *tables)`` forward; the backward is autograd
+    through ``reference`` on the saved inputs, as the JAX ``custom_vjp``s of
+    kernels 3 and 10 differentiate their reference formulations.  The
+    tables (RoPE cos and sin) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, reference, q, k, v, *tables):
+        ctx.reference = reference
+        ctx.save_for_backward(q, k, v, *tables)
+        return kernel(q, k, v, *tables)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, *tables = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = ctx.reference(*leaves, *tables)
+        return (None, None, *torch.autograd.grad(out, leaves, g), *(None for _ in tables))
+
+
+def head_major_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               block: int = 0) -> torch.Tensor:
+    """Plain version of :func:`head_major_attention`: the kernel's arithmetic
+    (that of :func:`global_attention_plain`) on the head-major layout."""
+    g, h, s, hd = q.shape
+    qs = (q * _query_scale(hd, q.dtype).to(q.device)).float()
+    logits = qs @ k.float().transpose(-1, -2)
+    logits = torch.where(_global_mask(s, block, s, q.device), logits,
+                         torch.full_like(logits, MASK_FILL))
+    return (torch.softmax(logits, dim=-1) @ v.float()).to(q.dtype)
+
+
+def head_major_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   block: int = 0) -> torch.Tensor:
+    """The JAX package's ``_xla_reference``, which kernel 3's backward
+    differentiates: everything in fp32 (q / sqrt(hd) too), the output cast
+    to q's dtype."""
+    s, hd = q.shape[-2:]
+    logits = (q.float() / math.sqrt(hd)) @ k.float().transpose(-1, -2)
+    if block > 0:
+        logits = torch.where(_global_mask(s, block, s, q.device), logits,
+                             torch.full_like(logits, MASK_FILL))
+    return (torch.softmax(logits, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _head_major_forward(q, k, v, block: int):
+    g, h, s, hd = q.shape
+    if q.device.type == "cpu":
+        return head_major_attention_plain(q, k, v, block)
+    if q.device.type != "cuda":
+        raise ValueError(f"head_major_attention runs on CPU or CUDA, not {q.device}")
+    dtype, hd = _check_cuda((q, k, v), 1)
+    _check_global(s, block, None)
+    if h > 65535:
+        raise ValueError("at most 65535 heads per call")
+    out = torch.empty_like(q)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        code = lib.a2m_head_major_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g, h, s, hd, block,
+            float(_query_scale(hd, dtype)), _DTYPE_CODES[dtype], _stream_handle(q.device))
+    cuda_build.check(code, "head_major_attention")
+    head_major_attention.launches += 1
+    return out
+
+
+def head_major_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         block: int = 0) -> torch.Tensor:
+    """Multi-head attention over the head-major (G, H, S, hd) layout:
+    :func:`global_attention`'s arithmetic, every column < S, and with
+    ``block`` > 0 only the columns of the row's block of ``block`` rows.
+    Returns (G, H, S, hd) in q's dtype.  Differentiable in q, k and v: the
+    backward is autograd through :func:`head_major_attention_reference`."""
+    return _ReferenceBackwardFn.apply(
+        functools.partial(_head_major_forward, block=block),
+        functools.partial(head_major_attention_reference, block=block), q, k, v)
+
+
+def _check_tables(cos: torch.Tensor, sin: torch.Tensor, s: int, hd: int) -> None:
+    for t in (cos, sin):
+        if t.dim() != 2 or t.shape[0] < s or t.shape[1] != hd // 2:
+            raise ValueError(f"RoPE tables must be (>= {s}, {hd // 2}), got {tuple(t.shape)}")
+
+
+def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               num_heads: int) -> torch.Tensor:
+    """(G, S, H*hd) -> the halves-layout RoPE of each head in fp32, cast back,
+    as (G, S, H, hd)."""
+    g, s, dm = t.shape
+    return rope_with(t.reshape(g, s, num_heads, dm // num_heads), cos[:s].float(),
+                     sin[:s].float())
+
+
+def rope_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, num_heads: int, block: int = 0) -> torch.Tensor:
+    """Plain version of :func:`rope_attention`: q and k rotated in fp32 and
+    cast back to their dtype, then :func:`global_attention_plain`."""
+    _check_tables(cos, sin, q.shape[1], q.shape[2] // num_heads)
+    rot = lambda t: _rope_rows(t, cos, sin, num_heads).reshape(t.shape)
+    return global_attention_plain(rot(q), rot(k), v, num_heads, block)
+
+
+def rope_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
+                             block: int = 0) -> torch.Tensor:
+    """The JAX package's ``_rope_attention_reference``, which kernel 10's
+    backward differentiates: the rotation cast to the dtype, q / sqrt(hd) in
+    the dtype, the logits computed in the dtype and then widened, the fp32
+    softmax cast to v's dtype, weights . v in the dtype."""
+    g, s, dm = q.shape
+    hd = dm // num_heads
+    qh = _rope_rows(q, cos, sin, num_heads) / torch.tensor(math.sqrt(hd), dtype=q.dtype,
+                                                         device=q.device)
+    kh = _rope_rows(k, cos, sin, num_heads)
+    logits = torch.einsum("gshd,gShd->ghsS", qh, kh).float()
+    if block > 0:
+        logits = torch.where(_global_mask(s, block, s, q.device), logits,
+                             torch.full_like(logits, MASK_FILL))
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("ghsS,gShd->gshd", weights, v.reshape(g, s, num_heads, hd))
+    return out.reshape(g, s, dm)
+
+
+def _rope_forward(q, k, v, cos, sin, num_heads: int, block: int):
+    g, s, _ = q.shape
+    if q.device.type == "cpu":
+        return rope_attention_plain(q, k, v, cos, sin, num_heads, block)
+    if q.device.type != "cuda":
+        raise ValueError(f"rope_attention runs on CPU or CUDA, not {q.device}")
+    dtype, hd = _check_cuda((q, k, v), num_heads)
+    _check_global(s, block, None)
+    tables = [t[:s].to(device=q.device, dtype=torch.float32).contiguous() for t in (cos, sin)]
+    out = torch.empty_like(q)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        code = lib.a2m_rope_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+            out.data_ptr(), g, s, num_heads, hd, block, float(_query_scale(hd, dtype)),
+            _DTYPE_CODES[dtype], _stream_handle(q.device))
+    cuda_build.check(code, "rope_attention")
+    rope_attention.launches += 1
+    return out
+
+
+def rope_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, num_heads: int, block: int = 0) -> torch.Tensor:
+    """:func:`global_attention` on q and k that arrive unroped: each head's
+    halves-layout rotation by the rows of ``cos`` and ``sin`` ((>= S, hd/2),
+    taken in fp32) runs in fp32 and is cast back to the dtype, then q is
+    scaled by 1/sqrt(hd) in its dtype.  Columns >= S are masked, and with
+    ``block`` > 0 every column outside the row's block.  Returns (G, S,
+    H*hd) in q's dtype.  Differentiable in q, k and v: the backward is
+    autograd through :func:`rope_attention_reference`."""
+    _check_tables(cos, sin, q.shape[1], q.shape[2] // num_heads)
+    return _ReferenceBackwardFn.apply(
+        functools.partial(_rope_forward, num_heads=num_heads, block=block),
+        functools.partial(rope_attention_reference, num_heads=num_heads, block=block),
+        q, k, v, cos, sin)
+
+
+head_major_attention.launches = 0
+rope_attention.launches = 0
+
 # Every kernel wrapper, for resetting and reading the launch counts: the four
-# dropout-free ones first, then the seeded ones, the bits ones and the dump.
+# dropout-free ones first, then the seeded ones, the bits ones and the dump,
+# then kernels 6, 3 and 10.
 KERNELS = (
     global_attention, local_two_phase, global_attention_grads, local_two_phase_grads,
     global_attention_dropout, local_two_phase_dropout,
     global_attention_grads_prng, local_two_phase_grads_prng,
     global_attention_dropout_bits, local_two_phase_dropout_bits, local_two_phase_grads_bits,
-    philox_bits,
+    philox_bits, local_two_phase_rw, head_major_attention, rope_attention,
 )

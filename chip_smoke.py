@@ -65,10 +65,21 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      16 and 128 windows; the f32 gradients of a dropout-free minibatch of 4
      through each against "xla"; the CLI with a --config that asks for
      "pallas_pair" on phase 4's WAV and checkpoint, its MIDI events against
-     phase 4's.
+     phase 4's;
+ 10. attention_impl="pallas_rw" (kernel 6 on the local layers' dropout-free
+     two-phase route, kernel 1 elsewhere): the same 16 windows, bf16 and f32,
+     against the "xla" path with 8 launches of kernels 6 and 1 and none of
+     kernel 2, ms per forward beside "pallas" at 16 and 128 windows, the f32
+     gradients of a dropout-free minibatch of 4 against "xla", one
+     dropout-free step, the CLI with a "pallas_rw" --config against phase
+     4's MIDI; f16 serving with "pallas" (no kernel takes f16, as in the JAX
+     package: no launch, equal to f16 "xla"); kernels 3 and 10 through their
+     functions, forward and backward, against the JAX reference formulations.
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
-LayerNorm and products, kernels 1 and 2: many calls, not one).  Phase 6's
+LayerNorm and products, kernels 1 and 2: many calls, not one), and kernels
+6, 3 and 10 at the serving shapes beside kernel 2, F.scaled_dot_product_attention
+and rope + kernel 1, each with its gradient through autograd on the card.  Phase 6's
 plain comparator is "pallas" with the seeded dropout wrappers replaced, in
 this script only, by their plain versions on the plain Philox bytes of the
 same seed: "xla" drops at the exact rate, as the JAX einsum route does.
@@ -130,6 +141,12 @@ MODEL_GRAD_TOL = 1e-5
 # by an fp32 sum taken in another order moves an output by one ulp; a wrong
 # row, column or window moves it by a share of its largest.
 FUSED_TOL_BF16_ULPS = 2
+# f16 serving with "pallas" against f16 "xla": both take the einsum routes
+# (no kernel takes f16, as in the JAX package), the same operations on the
+# same tensors, so they agree exactly; the limit, two f16 ulps of a
+# probability near 1, only leaves room for a reduction taken in another
+# order.  A kernel route taken in f16 would have raised.
+F16_TOL = 1e-3
 # The bf16 loss of one training minibatch, kernel path vs plain path, as a
 # share of the loss: the per-output differences of FORWARD_TOL come with
 # either sign and average out over the 32 x 250 x 90 summed outputs, to
@@ -302,6 +319,114 @@ def run_case(results: dict, case, name, kernel, plain, tol, bound_, library=None
                                  "library_ms": library_ms, **bound_}
 
 
+def in_turns(fns: dict, iters: int = 50) -> dict[str, list[float]]:
+    """ms of each callable, timed in turns a, b, ..., b, a in one call."""
+    times = {}
+    for label in (*fns, *reversed(fns)):
+        times.setdefault(label, []).append(time_ms(fns[label], iters=iters))
+    return times
+
+
+def check_grads(case: str, grads, refs, tol) -> None:
+    """The input gradients of a kernel's autograd on the card against the
+    plain path's, each within ``tol(ref)``."""
+    errs = [(max_err(g, r), tol(r)) for g, r in zip(grads, refs)]
+    ok = all(bool(torch.isfinite(g.float()).all()) and e <= lim
+             for g, (e, lim) in zip(grads, errs))
+    worst = max(errs, key=lambda el: el[0] / el[1] if el[1] else el[0])
+    log(f"kernel {case} grads through autograd vs the plain path: max_abs_err {worst[0]:.3e} "
+        f"(tol {worst[1]:.1e}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel {case}: the gradient through autograd disagrees")
+
+
+def check_variant_kernels(ak, results: dict, name: str, dt, ts, qkv) -> None:
+    """Phase 2, kernels 6, 3 and 10 at the serving shapes (16 windows, P =
+    256 / S = 250, 4 heads x 64), each beside what it stands in for, in turns:
+    kernel 6 beside kernel 2 on the same tensors (the point of the TPU
+    variant; no one PyTorch call computes the two-phase average), kernel 3
+    beside F.scaled_dot_product_attention on the same (G, H, S, hd) tensors
+    (one call computes it: its library time), kernel 10 beside the "pallas"
+    global route -- rope on q and k, then kernel 1, many calls.  Bounds as
+    kernels 2 and 1, kernel 10 with its two fp32 tables.  Then each one's
+    input gradients through autograd on the card against the plain path's:
+    kernel 7's plain version for kernel 6, autograd through the JAX package's
+    reference formulations (their backward) for kernels 3 and 10."""
+    import torch.nn.functional as F
+
+    from audio_to_midi_tpu_torch.models.rope import precompute_frequencies, rope_with
+
+    run = functools.partial(run_case, results)
+    kernel_tol = lambda ref: KERNEL_TOL[name]
+    grads_tol = lambda ref: grad_tol(ref, name)
+    n, width = ts[0].shape[0], HEADS * HEAD_DIM
+    attn_flops = lambda s, cols: 4.0 * n * HEADS * s * cols * HEAD_DIM   # two products
+
+    def autograd_of(fn, inputs, cot):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    # Kernel 6.
+    run("local rw P=256", name, lambda: ak.local_two_phase_rw(*ts, HEADS, 16),
+        lambda: ak.local_two_phase_rw_plain(*ts, HEADS, 16), kernel_tol,
+        bound(6, ts[0].numel(), name, 2 * attn_flops(PADDED, 16)))
+    turns = in_turns({"kernel 6": lambda: ak.local_two_phase_rw(*ts, HEADS, 16),
+                      "kernel 2": lambda: ak.local_two_phase(*ts, HEADS, 16)})
+    apart = max_err(ak.local_two_phase_rw(*ts, HEADS, 16), ak.local_two_phase(*ts, HEADS, 16))
+    results[f"local rw P=256 {name}"]["beside"] = {
+        "what": "kernel 2 (local_two_phase) on the same tensors", "ms": turns["kernel 2"]}
+    log(f"kernel local rw P=256 {name} in turns with kernel 2 on the same tensors: "
+        + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in turns.items())
+        + f"; outputs apart by {apart:.3e} (tol {KERNEL_TOL[name]:.0e})")
+    if apart > KERNEL_TOL[name]:
+        raise AssertionError("kernel 6 and kernel 2 compute different functions")
+    g = randn(n, PADDED, width, seed=26, dtype=dt)
+    check_grads(f"local rw P=256 {name}",
+                autograd_of(lambda *t: ak.local_two_phase_rw(*t, HEADS, 16), ts, g),
+                ak.local_two_phase_grads_plain(*ts, g, HEADS, 16), grads_tol)
+
+    # Kernel 3 on the head-major copies of the global attention's tensors.
+    heads4 = lambda t: t.reshape(n, SEQ, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    q4, k4, v4 = (heads4(t) for t in qkv)
+    run("head major S=250", name, lambda: ak.head_major_attention(q4, k4, v4),
+        lambda: ak.head_major_attention_plain(q4, k4, v4), kernel_tol,
+        bound(4, q4.numel(), name, attn_flops(SEQ, SEQ)),
+        library=lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    cot = heads4(randn(n, SEQ, width, seed=27, dtype=dt))
+    check_grads(f"head major S=250 {name}",
+                autograd_of(ak.head_major_attention, (q4, k4, v4), cot),
+                autograd_of(ak.head_major_attention_reference, (q4, k4, v4), cot), grads_tol)
+
+    # Kernel 10 with the model's tables (positions 0..249 of hd 64).
+    freqs = precompute_frequencies(HEAD_DIM, SEQ, device="cuda")
+    cos, sin = freqs.cos, freqs.sin
+    q, k, v = qkv
+
+    def rope_then_kernel1():
+        rot = lambda t: rope_with(t.reshape(n, SEQ, HEADS, HEAD_DIM), cos, sin).reshape(t.shape)
+        return ak.global_attention(rot(q), rot(k), v, HEADS)
+
+    run("rope S=250", name, lambda: ak.rope_attention(q, k, v, cos, sin, HEADS),
+        lambda: ak.rope_attention_plain(q, k, v, cos, sin, HEADS), kernel_tol,
+        bound(4, q.numel(), name, attn_flops(SEQ, SEQ), extra_bytes=2 * cos.numel() * 4))
+    turns = in_turns({"kernel 10": lambda: ak.rope_attention(q, k, v, cos, sin, HEADS),
+                      "rope + kernel 1": rope_then_kernel1})
+    apart = max_err(ak.rope_attention(q, k, v, cos, sin, HEADS), rope_then_kernel1())
+    results[f"rope S=250 {name}"]["beside"] = {
+        "what": "the pallas global route: rope_with on q and k, then kernel 1",
+        "ms": turns["rope + kernel 1"]}
+    log(f"kernel rope S=250 {name} in turns with the pallas route (rope, then kernel 1): "
+        + ", ".join(f"{k_} {' / '.join(f'{t:.4f}' for t in v_)} ms" for k_, v_ in turns.items())
+        + f"; outputs apart by {apart:.3e} (tol {KERNEL_TOL[name]:.0e})")
+    if apart > KERNEL_TOL[name]:
+        raise AssertionError("kernel 10 and rope + kernel 1 compute different functions")
+    cot = randn(n, SEQ, width, seed=28, dtype=dt)
+    check_grads(f"rope S=250 {name}",
+                autograd_of(lambda *t: ak.rope_attention(*t, cos, sin, HEADS), qkv, cot),
+                autograd_of(lambda *t: ak.rope_attention_reference(*t, cos, sin, HEADS), qkv,
+                            cot), grads_tol)
+
+
 def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     """Phase 2: each kernel vs its plain version, with its bound and, where
     one PyTorch call computes the same function, that call's time."""
@@ -344,6 +469,7 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase(*ts, HEADS, 16),
             lambda: ak.local_two_phase_plain(*ts, HEADS, 16), kernel_tol,
             bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2)))
+        check_variant_kernels(ak, results, name, dt, ts, (q, k, v))
 
         # --- forward and backward kernels at the training shapes ---
         n = train_minibatch
@@ -1301,6 +1427,183 @@ def check_fused_serving(model_lib, cfg, model, card: str) -> dict[str, dict[str,
     return {f"{impl} serving": counts for impl, counts in totals.items()}
 
 
+def check_rw_and_f16(ak, model_lib, cfg, model, card: str) -> dict[str, dict[str, int]]:
+    """Phase 10: attention_impl="pallas_rw" (kernel 6 on the local layers'
+    dropout-free two-phase route, kernel 1 elsewhere) in serving and in the
+    dropout-free step; f16 serving, which takes no kernel (Fault 3); and the
+    functions of kernels 3 and 10, the only way to them.  Returns the
+    launches of each path."""
+    from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
+    from audio_to_midi_tpu_torch.config import config_to_json
+    from audio_to_midi_tpu_torch.infer import (
+        _parity_precision, load_params, predict_and_stitch, transcribe_file,
+    )
+    from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    def with_impl(impl, base=cfg):
+        return dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                                   attention_impl=impl))
+
+    layers = cfg.model.num_transformer_layers
+    per_forward = {"global_attention": layers, "local_two_phase_rw": layers}
+    totals = {}
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    windows = torch.randn(BATCH, 2, 80_000, generator=gen) * 0.5
+    models = {"bf16": model_lib.cast_params(copy.deepcopy(model), torch.bfloat16), "f32": model}
+    serving = dict.fromkeys(read_launches(), 0)
+    for name, m in models.items():
+        _, ref, _ = predict_and_stitch(m, with_impl("xla"), windows, 5.0, 0.5)
+        reset_launches()
+        probs, stitched, _ = predict_and_stitch(m, with_impl("pallas_rw"), windows, 5.0, 0.5)
+        launches = read_launches()
+        err = float(np.abs(stitched - ref).max())
+        ok = (probs.shape == (BATCH, SEQ, cfg.model.output_vocab) and stitched.shape[1] == 90
+              and np.isfinite(stitched).all() and err <= FORWARD_TOL[name])
+        log(f"pallas_rw serving {name}: {BATCH} windows -> stitched {stitched.shape}, vs the xla "
+            f"path max_abs_err {err:.3e} (tol {FORWARD_TOL[name]:.0e}), launches "
+            f"{ {n: c for n, c in launches.items() if c} } {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} pallas_rw serving disagrees with the plain path")
+        if launches != dict.fromkeys(launches, 0) | per_forward:
+            raise AssertionError(f"pallas_rw serving launched {launches}, expected {per_forward}")
+        for n, c in launches.items():
+            serving[n] += c
+
+    # ms per forward beside "pallas", in turns, at 16 and 128 windows.
+    rope = model_lib.make_rope(cfg.model, "cuda")
+    for name, m in models.items():
+        for batch in TIMED_BATCHES:
+            x = (torch.randn(batch, 2, 80_000, generator=gen) * 0.5).to(device="cuda",
+                                                                      dtype=DTYPES[name])
+            times = {}
+            with torch.inference_mode(), _parity_precision(DTYPES[name]):
+                for impl in ("pallas", "pallas_rw", "pallas_rw", "pallas"):
+                    model_cfg = with_impl(impl).model
+                    times.setdefault(impl, []).append(
+                        time_ms(lambda: model_lib.forward(m, model_cfg, x, rope), iters=5,
+                                warmup=2))
+            shown = ", ".join(f"{impl} {' / '.join(f'{t:.2f}' for t in ms)}"
+                              for impl, ms in times.items())
+            log(f"forward {name}, {batch} windows, ms per forward: {shown}, on {card}")
+            del x
+    del models["bf16"]
+    torch.cuda.empty_cache()
+
+    # f32 gradients of a dropout-free minibatch of 4, then one dropout-free
+    # step (2 minibatches of 32): kernel 6 forward, kernel 7 backward.
+    g4 = torch.Generator(device="cpu").manual_seed(3)
+    audio4 = (torch.randn(4, 2, 80_000, generator=g4) * 0.5).cuda()
+    labels4 = (torch.rand(4, SEQ, 90, generator=g4) < 0.03).float().cuda()
+    free = dataclasses.replace(cfg.model, transformer_dropout_rate=0.0)
+    train_model = copy.deepcopy(model).train()
+    with _parity_precision(torch.float32):
+        plain = model_grads(train_model, loss_lib, dataclasses.replace(free, attention_impl="xla"),
+                            audio4, labels4, rope)
+        reset_launches()
+        grads = model_grads(train_model, loss_lib,
+                            dataclasses.replace(free, attention_impl="pallas_rw"), audio4, labels4,
+                            rope)
+    launched = read_launches()
+    # The attention kernels only: the default config's stage backward runs too.
+    per_pass = per_forward | {"global_attention_grads": layers, "local_two_phase_grads": layers}
+    attention = {fn.__name__: launched[fn.__name__] for fn in ak.KERNELS}
+    if attention != dict.fromkeys(attention, 0) | per_pass:
+        raise AssertionError(f"the pallas_rw gradients launched {attention}, expected {per_pass}")
+    compare_model_grads({"pallas": grads, "xla": plain},
+                        " through attention_impl=pallas_rw (kernels 6, 7) vs xla")
+    del plain, grads
+    _, _, optimizer, step, audio, labels = training_setup(
+        model_lib, with_impl("pallas_rw"), train_model, dropout_rate=0.0, cnn_bwd_kernel=False)
+    per_step = {n: c * audio.shape[0] for n, c in per_pass.items()}
+    training, _, _, _ = run_steps("train step (pallas_rw, dropout-free)", step, train_model,
+                                  optimizer, audio, labels, 1,
+                                  dict.fromkeys(launched, 0) | per_step)
+    for n, c in launched.items():
+        training[n] += c
+    totals["pallas_rw training"] = training
+    del train_model, optimizer, step, audio, labels
+    torch.cuda.empty_cache()
+
+    # The CLI through its normal entry with a config that asks for pallas_rw.
+    wav, ckpt, cfg_file = WORK / "synth.wav", WORK / "params.npz", WORK / "pallas_rw.json"
+    mid = WORK / "out_pallas_rw.mid"
+    cfg_file.write_text(config_to_json(with_impl("pallas_rw")))
+    reset_launches()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = cli_main([str(wav), str(mid), "--checkpoint", str(ckpt), "--config", str(cfg_file)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log("cli (pallas_rw): " + " | ".join(captured.getvalue().strip().splitlines())
+        + f"; launches { {n: c for n, c in launches.items() if c} }")
+    if rc != 0 or launches["local_two_phase_rw"] == 0 or launches["local_two_phase"] != 0:
+        raise AssertionError(f"the pallas_rw CLI returned {rc} with launches {launches}")
+    events, ref_events = read_midi_file(mid), read_midi_file(WORK / "out.mid")
+    stitched, _, _ = transcribe_file(load_params(ckpt, cfg, "cuda", torch.float32),
+                                     with_impl("xla"), wav)
+    near = min(float(np.abs(stitched - t).min()) for t in EVENT_THRESHOLDS)
+    log(f"cli (pallas_rw): {len(events)} MIDI events, identical to phase 4's "
+        f"{events == ref_events} (closest prob to a threshold {near:.2e})")
+    if events != ref_events and near > 1e-4:
+        raise AssertionError("the pallas_rw CLI's MIDI differs from phase 4's")
+    for n, c in launches.items():
+        serving[n] += c
+    totals["pallas_rw serving"] = serving
+
+    # Fault 3 on the card: f16 serving with "pallas" takes the JAX package's
+    # einsum routes, as "xla" does, and launches no kernel at all.
+    m16 = model_lib.cast_params(copy.deepcopy(model), torch.float16)
+    _, ref16, _ = predict_and_stitch(m16, with_impl("xla"), windows, 5.0, 0.5)
+    reset_launches()
+    probs16, stitched16, _ = predict_and_stitch(m16, with_impl("pallas"), windows, 5.0, 0.5)
+    launches = read_launches()
+    _, ref32, _ = predict_and_stitch(model, with_impl("xla"), windows, 5.0, 0.5)
+    err, drift = float(np.abs(stitched16 - ref16).max()), float(np.abs(stitched16 - ref32).max())
+    ok = (probs16.shape == (BATCH, SEQ, cfg.model.output_vocab) and np.isfinite(stitched16).all()
+          and err <= F16_TOL and not any(launches.values()))
+    log(f"f16 serving (pallas): {BATCH} windows -> stitched {stitched16.shape}, vs the f16 xla "
+        f"path max_abs_err {err:.3e} (tol {F16_TOL:.0e}), vs the f32 path {drift:.3e}, launches "
+        f"{ {n: c for n, c in launches.items() if c} } {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("f16 serving took a kernel or disagrees with the f16 plain path")
+    del m16
+
+    # Kernels 3 and 10 through their functions, forward and backward, f32.
+    from audio_to_midi_tpu_torch.models.rope import precompute_frequencies
+
+    width = HEADS * HEAD_DIM
+    freqs = precompute_frequencies(HEAD_DIM, SEQ, device="cuda")
+    q, k, v, cot = (randn(BATCH, SEQ, width, seed=100 + i, dtype=torch.float32)
+                    for i in range(4))
+    heads4 = lambda t: t.reshape(BATCH, SEQ, HEADS, HEAD_DIM).transpose(1, 2).contiguous()
+    reset_launches()
+    with _parity_precision(torch.float32):
+        cases = {"head_major_attention": (ak.head_major_attention,
+                                          ak.head_major_attention_reference,
+                                          [heads4(t) for t in (q, k, v)], heads4(cot)),
+                 "rope_attention": (lambda *t: ak.rope_attention(*t, freqs.cos, freqs.sin, HEADS),
+                                    lambda *t: ak.rope_attention_reference(
+                                        *t, freqs.cos, freqs.sin, HEADS), [q, k, v], cot)}
+        for fname, (fn, reference, inputs, c) in cases.items():
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            out = fn(*leaves)
+            out.backward(c)
+            ref_leaves = [t.clone().requires_grad_() for t in inputs]
+            ref = reference(*ref_leaves)
+            ref.backward(c)
+            err = max(max_err(out, ref),
+                      *(max_err(a.grad, b.grad) / max(1.0, b.grad.abs().max().item())
+                        for a, b in zip(leaves, ref_leaves)))
+            log(f"{fname} (G={BATCH}, S={SEQ}, {HEADS} heads x {HEAD_DIM}, f32): output and input "
+                f"gradients vs the JAX reference formulation max err {err:.3e} "
+                f"(tol {GRAD_TOL_F32:.0e}) {'OK' if err <= GRAD_TOL_F32 else 'FAIL'}")
+            if err > GRAD_TOL_F32:
+                raise AssertionError(f"{fname} disagrees with its reference")
+    totals["attention functions"] = read_launches()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1349,9 +1652,13 @@ def main() -> int:
     fused_serving = check_fused_serving(model_lib, cfg, model, card)
     log(f"fused-layer serving main-path launches: {fused_serving}; phase 9 took "
         f"{time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    rw_paths = check_rw_and_f16(ak, model_lib, cfg, model, card)
+    log(f"pallas_rw and attention-function main-path launches: {rw_paths}; phase 10 took "
+        f"{time.perf_counter() - t10:.1f} s")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
-             **fused_serving}
+             **fused_serving, **rw_paths}
     on_path = {
         "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
@@ -1364,6 +1671,9 @@ def main() -> int:
         "fused_local_sublayer": ("pallas_fused serving",),
         "fused_global_sublayer": ("pallas_fused serving",),
         "transformer_pair": ("pallas_pair serving",),
+        "local_two_phase_rw": ("pallas_rw serving", "pallas_rw training"),
+        "head_major_attention": ("attention functions",),
+        "rope_attention": ("attention functions",),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")
@@ -1405,6 +1715,9 @@ def main() -> int:
         "local_two_phase_grads_bits": ("local_attention_bwd.cu", "1025",
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
+        "local_two_phase_rw": ("local_attention_rw.cu", "847", "local rw P=256 f32"),
+        "head_major_attention": ("head_major_attention.cu", "219", "head major S=250 f32"),
+        "rope_attention": ("rope_attention.cu", "1229", "rope S=250 f32"),
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)
                for name, (source, line, case) in attention.items()} | sources
@@ -1417,7 +1730,8 @@ def main() -> int:
                         "launches_by_path": by_path,
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "case": case})
+                        "library_ms": r["library_ms"], "case": case,
+                        **({"beside": r["beside"]} if "beside" in r else {})})
     log(f"smoke: {time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -117,10 +117,12 @@ def test_local_attention_rejects_too_short_sequences(seq_len):
 
 
 def test_unported_attention_impl_raises():
+    """Every value of the JAX package's ``attention_impl`` is ported; an
+    unknown one raises ``ValueError`` in both layers."""
     import dataclasses
 
     _, module = _attention_pair(3)
-    cfg = dataclasses.replace(SMALL_CFG.model, attention_impl="pallas_rw")
-    with pytest.raises(NotImplementedError):
-        pt_attention.self_attention(torch.zeros(1, 20, 32), module,
-                                    pt_model.make_rope(cfg), cfg)
+    cfg = dataclasses.replace(SMALL_CFG.model, attention_impl="pallas_bogus")
+    for layer in (pt_attention.self_attention, pt_attention.local_self_attention):
+        with pytest.raises(ValueError, match="unknown attention_impl"):
+            layer(torch.zeros(1, 20, 32), module, pt_model.make_rope(cfg), cfg)

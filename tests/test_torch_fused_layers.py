@@ -63,11 +63,13 @@ def params():
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Counts the calls of the fused wrappers and of the "pallas" cores."""
+    """Counts the calls of the fused wrappers and of the "pallas" and
+    "pallas_rw" cores."""
     calls = {}
     for module, name in ((flk, "attention_block"), (flk, "fused_local_sublayer"),
                          (flk, "fused_global_sublayer"), (flk, "transformer_pair"),
-                         (ak, "global_attention"), (ak, "local_two_phase")):
+                         (ak, "global_attention"), (ak, "local_two_phase"),
+                         (ak, "local_two_phase_rw")):
         real = getattr(module, name)
         calls[name] = 0
 
@@ -236,13 +238,20 @@ def test_the_gates_take_the_plain_formulation_in_both_packages(params, routes, i
     assert routes == dict.fromkeys(routes, 0)  # plain cores under dropout, for all three
 
 
-def test_pallas_rw_still_raises(params):
-    _, model = params
-    cfg = dataclasses.replace(CFG, attention_impl="pallas_rw")
-    with pytest.raises(NotImplementedError, match="pallas_rw"):
-        with torch.no_grad():
-            pt_transformer.transformer_stack(torch.zeros(1, SEQ, WIDTH), model.transformer,
-                                             pt_model.make_rope(cfg), cfg)
+def test_pallas_rw_still_raises(params, routes):
+    """The "pallas_rw" stack matches the JAX "pallas_rw" stack: kernel 6 in
+    the local layer (P = 64: the two-phase route), kernel 1 in the global
+    one, none of the fused kernels and not kernel 2."""
+    tree, model = params
+    jcfg, cfg = with_impl("pallas_rw")
+    x = rand(np.random.default_rng(11), 2, SEQ, WIDTH)
+    ref = jax_transformer.transformer_stack(jnp.asarray(x), tree["transformer"],
+                                            jax_model.make_rope(jcfg), jcfg)
+    with torch.no_grad():
+        out = pt_transformer.transformer_stack(torch.from_numpy(x), model.transformer,
+                                               pt_model.make_rope(cfg), cfg)
+    close(out, ref, **TOL)
+    assert routes == dict.fromkeys(routes, 0) | dict(global_attention=1, local_two_phase_rw=1)
 
 
 def test_the_wrappers_refuse_what_the_kernels_do_not_take():

@@ -11,6 +11,7 @@ is no CUDA device.  On a GPU machine:
 (``--noconftest``: the repository's conftest configures JAX.)
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -60,7 +61,7 @@ def test_grads_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
                         ak.local_two_phase_grads_plain(q, k, q, k, v, g, 2, 16)):
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert [fn.launches for fn in ak.KERNELS] == before
-    assert len(ak.KERNELS) == 12
+    assert len(ak.KERNELS) == 15
 
 
 def test_global_attention_grads_of_fully_masked_rows():
@@ -464,7 +465,7 @@ def test_dropout_wrappers_are_differentiable_through_the_kernels_on_card(cuda_de
     grads_l = torch.autograd.grad(out_l[:, :250].square().sum(), ts)
     torch.cuda.synchronize()
     launched = [fn.launches - n for fn, n in zip(ak.KERNELS, before)]
-    assert launched == [0, 0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 0]
+    assert launched == [0, 0, 0, 0, 1, 1, 1, 1] + [0] * (len(ak.KERNELS) - 8)
 
     refs = ak.global_attention_grads_plain(q.detach(), k.detach(), v.detach(), cot.contiguous(),
                                            4, 0, None, ak.philox_bits(seed, 4, 4, 250), THRESHOLD)
@@ -496,6 +497,161 @@ def test_dropout_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     h = f.half()
     with pytest.raises(NotImplementedError):
         ak.global_attention_dropout(h, h, h, seed, 4, threshold=THRESHOLD)
+
+
+# --- kernels 6, 3 and 10: the attention-core variants -------------------------
+#
+# Tolerances as CARD_CASES: the kernels and their plain versions take the
+# same fp32 sums in another order (kernel 6 casts its softmax weights to the
+# dtype before the product with v, and so does its plain version).
+
+
+def _rope_tables(rows: int, hd: int, device):
+    pos = torch.arange(rows, dtype=torch.float32)[:, None] * 0.1 * (
+        torch.arange(hd // 2, dtype=torch.float32)[None, :] + 1)
+    return torch.cos(pos).to(device), torch.sin(pos).to(device)
+
+
+def _variant_case(kernel: str, dtype, hd: int, heads: int, device, p_len=256, block=0, seed=0):
+    """(the wrapper's output, the plain version's) of one kernel on seeded
+    inputs at 16 windows."""
+    n = 16
+    if kernel == "rw":
+        ts = [_randn(n, p_len, heads * hd, seed=seed + i, device=device, dtype=dtype)
+              for i in range(5)]
+        return ak.local_two_phase_rw(*ts, heads, 16), ak.local_two_phase_rw_plain(*ts, heads, 16)
+    if kernel == "head major":
+        q, k, v = (_randn(n, heads, p_len, hd, seed=seed + i, device=device, dtype=dtype)
+                   for i in range(3))
+        return (ak.head_major_attention(q, k, v, block),
+                ak.head_major_attention_plain(q, k, v, block))
+    q, k, v = (_randn(n, p_len, heads * hd, seed=seed + i, device=device, dtype=dtype)
+               for i in range(3))
+    cos, sin = _rope_tables(p_len + 8, hd, device)
+    return (ak.rope_attention(q, k, v, cos, sin, heads, block),
+            ak.rope_attention_plain(q, k, v, cos, sin, heads, block))
+
+
+VARIANT_WRAPPERS = {"rw": ak.local_two_phase_rw, "head major": ak.head_major_attention,
+                    "rope": ak.rope_attention}
+
+
+def test_variant_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
+    before = [fn.launches for fn in ak.KERNELS]
+    for kernel in VARIANT_WRAPPERS:
+        out, ref = _variant_case(kernel, torch.float32, 8, 2, "cpu", p_len=48)
+        assert torch.equal(out, ref), kernel
+    assert [fn.launches for fn in ak.KERNELS] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (16, 2)])
+@pytest.mark.parametrize("kernel,p_len,block", [
+    ("rw", 256, 0), ("rw", 64, 0), ("rw", 48, 0), ("rw", 32, 0),
+    ("head major", 250, 0), ("head major", 37, 0), ("head major", 496, 16),
+    ("rope", 250, 0), ("rope", 96, 16),
+])
+def test_variant_kernels_match_plain_on_card(cuda_device, dtype, tol, hd, heads, kernel, p_len,
+                                             block):
+    wrapper = VARIANT_WRAPPERS[kernel]
+    before = wrapper.launches
+    out, ref = _variant_case(kernel, dtype, hd, heads, cuda_device, p_len, block, seed=p_len)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("p_len", [256, 64])
+def test_reduced_width_kernel_matches_the_two_phase_kernel_on_card(cuda_device, dtype, tol,
+                                                                   p_len):
+    """Kernel 6 computes kernel 2's function; in bf16 it rounds its softmax
+    weights to the dtype before the product with v, kernel 2 does not."""
+    ts = [_randn(16, p_len, 256, seed=70 + i, device=cuda_device, dtype=dtype) for i in range(5)]
+    out, ref = ak.local_two_phase_rw(*ts, 4, 16), ak.local_two_phase(*ts, 4, 16)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_variant_wrappers_are_differentiable_through_the_kernels_on_card(cuda_device):
+    """Fault 1's check: the outputs carry a grad_fn.  Kernel 6's backward is
+    kernel 7; kernels 3 and 10 differentiate their references."""
+    before = [fn.launches for fn in ak.KERNELS]
+    ts = [_randn(2, 64, 128, seed=80 + i, device=cuda_device).requires_grad_() for i in range(5)]
+    out = ak.local_two_phase_rw(*ts, 2, 16)
+    assert out.grad_fn is not None
+    cot = _randn(2, 64, 128, seed=86, device=cuda_device)
+    grads = torch.autograd.grad(out, ts, cot)
+    _assert_grads_close(grads, ak.local_two_phase_grads_plain(
+        *(t.detach() for t in ts), cot, 2, 16), 2e-5)
+
+    q, k, v = (_randn(2, 2, 40, 64, seed=90 + i, device=cuda_device).requires_grad_()
+               for i in range(3))
+    out = ak.head_major_attention(q, k, v, 16)
+    assert out.grad_fn is not None
+    cot = _randn(2, 2, 40, 64, seed=93, device=cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    refs = torch.autograd.grad(ak.head_major_attention_reference(*leaves, 16), leaves, cot)
+    _assert_grads_close(torch.autograd.grad(out, (q, k, v), cot), refs, 2e-5)
+
+    q, k, v = (_randn(2, 40, 128, seed=95 + i, device=cuda_device).requires_grad_()
+               for i in range(3))
+    cos, sin = _rope_tables(40, 64, cuda_device)
+    out = ak.rope_attention(q, k, v, cos, sin, 2)
+    assert out.grad_fn is not None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    refs = torch.autograd.grad(ak.rope_attention_reference(*leaves, cos, sin, 2), leaves,
+                               cot.transpose(1, 2).reshape(2, 40, 128))
+    _assert_grads_close(torch.autograd.grad(out, (q, k, v), cot.transpose(1, 2).reshape(
+        2, 40, 128)), refs, 2e-5)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip((fn.launches for fn in ak.KERNELS), before)]
+    names = [fn.__name__ for fn in ak.KERNELS]
+    assert dict(zip(names, launched)) == dict.fromkeys(names, 0) | dict(
+        local_two_phase_rw=1, local_two_phase_grads=1, head_major_attention=1, rope_attention=1)
+
+
+@pytest.mark.cuda
+def test_variant_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
+    before = [fn.launches for fn in ak.KERNELS]
+    for dtype, error in ((torch.float16, NotImplementedError), (torch.float32, ValueError)):
+        hd = 64 if dtype == torch.float16 else 8   # hd 8 is not instantiated
+        t = torch.zeros(1, 64, 2 * hd, device=cuda_device, dtype=dtype)
+        cos, sin = _rope_tables(64, hd, cuda_device)
+        with pytest.raises(error):
+            ak.local_two_phase_rw(t, t, t, t, t, 2, 16)
+        with pytest.raises(error):
+            ak.head_major_attention(*(t.reshape(1, 64, 2, hd).transpose(1, 2).contiguous(),) * 3)
+        with pytest.raises(error):
+            ak.rope_attention(t, t, t, cos, sin, 2)
+    f = torch.zeros(1, 56, 128, device=cuda_device)
+    with pytest.raises(ValueError):  # P must be a multiple of the window
+        ak.local_two_phase_rw(f, f, f, f, f, 2, 16)
+    with pytest.raises(ValueError):  # a table shorter than S
+        ak.rope_attention(f, f, f, *_rope_tables(55, 64, cuda_device), 2)
+    assert [fn.launches for fn in ak.KERNELS] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas", "pallas_rw"])
+def test_f16_layers_run_on_the_card_and_launch_nothing(cuda_device, impl):
+    """Fault 3: f16 takes the einsum routes, as in the JAX package."""
+    cfg = dataclasses.replace(ModelConfig(), attention_impl=impl)
+    att = pt_attention.SelfAttention(cfg, torch.Generator().manual_seed(0)).to(cuda_device)
+    rope = pt_model.make_rope(cfg, cuda_device)
+    x = _randn(2, 250, 256, seed=99, device=cuda_device, dtype=torch.float16)
+    before = [fn.launches for fn in ak.KERNELS + flk.KERNELS + ck.KERNELS]
+    with torch.no_grad():
+        for layer in (pt_attention.self_attention, pt_attention.local_self_attention):
+            out = layer(x, att, rope, cfg)
+            assert out.dtype == torch.float16 and torch.isfinite(out).all()
+            ref = layer(x.float(), att, rope, dataclasses.replace(cfg, attention_impl="xla"))
+            assert (out.float() - ref).abs().max().item() <= 2e-2
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ak.KERNELS + flk.KERNELS + ck.KERNELS] == before
 
 
 # --- the ConvNeXt stage kernels (kernels 20 and 19) ---------------------------
