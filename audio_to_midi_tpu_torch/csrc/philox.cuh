@@ -77,7 +77,7 @@ __device__ __forceinline__ MaskPlane make_mask_plane(const uint8_t* __restrict__
 
 // Fills a 64 x 64 tile of mask bytes in shared memory (row pitch kMaskPitch)
 // for rows row0.. and columns col0.. (col0 a multiple of 16) of a P x P
-// plane; called by all 256 threads of a block.  Entries outside the plane
+// plane; called by all threads of a block.  Entries outside the plane
 // are never applied to a weight that counts.
 constexpr int kMaskTile = 64;
 constexpr int kMaskPitch = kMaskTile + 4;  // words of a row start 17 banks apart
@@ -86,11 +86,21 @@ template <int MASK>
 __device__ __forceinline__ void fill_mask_tile(uint8_t* dst, const MaskPlane& plane, int row0,
                                                int col0, int P) {
   if (MASK == kMaskBits) {
-    for (int i = threadIdx.x; i < kMaskTile * kMaskTile; i += blockDim.x) {
-      const int r = i / kMaskTile, c = i % kMaskTile;
+    // 16 bytes of a row per step, loaded one by one (a row of the plane need
+    // not be aligned) but all in flight at once, then stored as four words.
+    for (int i = threadIdx.x; i < kMaskTile * (kMaskTile / 16); i += blockDim.x) {
+      const int r = i / (kMaskTile / 16), c = 16 * (i % (kMaskTile / 16));
       const int row = row0 + r, col = col0 + c;
-      dst[r * kMaskPitch + c] =
-          row < P && col < P ? plane.bits[static_cast<long long>(row) * P + col] : 0;
+      uint32_t words[4] = {0u, 0u, 0u, 0u};
+      if (row < P) {
+        const uint8_t* src = plane.bits + static_cast<long long>(row) * P + col;
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          if (col + b < P) words[b / 4] |= static_cast<uint32_t>(src[b]) << (8 * (b % 4));
+      }
+      uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * kMaskPitch + c);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) out[w] = words[w];
     }
   }
   if (MASK == kMaskPhilox) {

@@ -16,9 +16,11 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      random bytes) at the training shapes, f32 and bf16 -- with its time
      beside the plain version's, the
      least time the card could take (bytes over its memory rate or
-     operations over its peak rate, whichever is larger) and, for the global
-     attention, the time of F.scaled_dot_product_attention on the same
-     tensors (CUDA events); the ConvNeXt stage backward at the geometry of
+     operations over its peak rate, whichever is larger), the operations
+     over its time and, for the global attention, the time of
+     F.scaled_dot_product_attention on the same tensors (CUDA events); the
+     global backward also at a ragged S = 65 and, for each mask source,
+     twice on the same inputs, which must give the same bits; the ConvNeXt stage backward at the geometry of
      stages 5 and 6 at 32 windows and the stage forward at stages 4, 5, 6 at
      16 windows, each beside autograd through (or the forward of) the plain
      block loop, which is many calls and not one;
@@ -256,7 +258,7 @@ def bound(n_tensors: int, numel: int, dtype: str, flops: float, extra_bytes: int
     bytes_ms = (n_tensors * numel * itemsize + extra_bytes) / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "flops": flops}
 
 
 def sdpa_backend(q4, k4, v4) -> str:
@@ -310,9 +312,11 @@ def run_case(results: dict, case, name, kernel, plain, tol, bound_, library=None
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     library_ms = time_ms(library) if library is not None else None
     lib = f", library {library_ms:.4f} ms" if library is not None else ""
+    # The operations the function needs over the kernel's time.
+    rate = f", achieved {bound_['flops'] / ms / 1e9:.2f} TFLOP/s" if bound_.get("flops") else ""
     log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {allowed:.1e}) "
         f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-        f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}")
+        f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}{rate}")
     if not ok:
         raise AssertionError(f"kernel {case} {name} disagrees with its plain version")
     results[f"{case} {name}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
@@ -508,6 +512,12 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.global_attention_grads(fq, fk, fv, fg, HEADS, 16),
             lambda: ak.global_attention_grads_plain(fq, fk, fv, fg, HEADS, 16), grads_tol,
             bound(7, fq.numel(), name, attn_flops(BATCH, 496, 16, 5)))
+        # A ragged length: one full 64-row tile and one of a single row.
+        rq, rk, rv, rg = (randn(n, 65, width, seed=70 + i, dtype=dt) for i in range(4))
+        run("global grads S=65", name,
+            lambda: ak.global_attention_grads(rq, rk, rv, rg, HEADS),
+            lambda: ak.global_attention_grads_plain(rq, rk, rv, rg, HEADS), grads_tol,
+            bound(7, rq.numel(), name, attn_flops(n, 65, 65, 5)))
         run("local grads P=256", name,
             lambda: ak.local_two_phase_grads(*ts, HEADS, 16),
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16), grads_tol,
@@ -540,6 +550,22 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
                 library=(lambda: torch.autograd.grad(sdpa_drop_out, (q4, k4, v4), heads4(g),
                                                      retain_graph=True))
                 if case == "S=250" else None)
+        dumped = ak.philox_bits(seed, n, HEADS, 65)
+        run("global grads prng S=65", name,
+            lambda: ak.global_attention_grads_prng(rq, rk, rv, seed, rg, HEADS, **drop),
+            lambda: ak.global_attention_grads_plain(rq, rk, rv, rg, HEADS, 0, None, dumped, thr),
+            grads_tol, bound(7, rq.numel(), name, attn_flops(n, 65, 65, 5)))
+        # Kernels 9 and 16 repeat bit for bit: no atomics, sums in a fixed order.
+        for what, call in (
+                ("", lambda: ak.global_attention_grads(q, k, v, g, HEADS)),
+                (" bits", lambda: ak.global_attention_grads(q, k, v, g, HEADS, 0, None, bits, thr)),
+                (" prng", lambda: ak.global_attention_grads_prng(q, k, v, seed, g, HEADS, **drop))):
+            first, again = call(), call()
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            log(f"global grads{what} S=250 {name}: the same inputs twice, identical bits {same}")
+            if not same:
+                raise AssertionError(f"global grads{what} does not repeat bit for bit")
+            del first, again
         run("global dropout bits S=250", name,
             lambda: ak.global_attention_dropout_bits(q, k, v, bits, HEADS, **drop),
             lambda: ak.global_attention_plain(q, k, v, HEADS, 0, None, bits, thr), kernel_tol,
@@ -1700,11 +1726,11 @@ def main() -> int:
     attention = {
         "global_attention": ("global_attention.cu", "140", "global S=250 f32"),
         "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
-        "global_attention_grads": ("global_attention_bwd.cu", "1104", "global grads S=250 bf16"),
+        "global_attention_grads": ("global_attention_bwd.cuh", "1104", "global grads S=250 bf16"),
         "local_two_phase_grads": ("local_attention_bwd.cu", "992", "local grads P=256 bf16"),
         "global_attention_dropout": ("global_attention.cu", "1783", "global dropout S=250 bf16"),
         "local_two_phase_dropout": ("local_attention.cu", "1622", "local dropout P=256 bf16"),
-        "global_attention_grads_prng": ("global_attention_bwd.cu", "1833",
+        "global_attention_grads_prng": ("global_attention_bwd.cuh", "1833",
                                         "global grads prng S=250 bf16"),
         "local_two_phase_grads_prng": ("local_attention_bwd.cu", "1682",
                                        "local grads prng P=256 bf16"),

@@ -177,6 +177,9 @@ def _assert_grads_close(outs, refs, tol):
     (250, 0, 250, False), (250, 0, 200, False), (496, 16, 496, False), (37, 0, 37, False),
     (80, 16, 40, False),  # rows whose whole block lies past valid_len
     (250, 0, 250, True), (96, 16, 96, True),
+    # the 64-row tile's edges: one row, one short of a tile, one and two past
+    (1, 0, 1, False), (63, 0, 63, False), (65, 0, 65, False), (129, 0, 129, False),
+    (65, 0, 65, True),
 ])
 def test_global_attention_grads_kernel_matches_plain_on_card(cuda_device, dtype, tol, s, block,
                                                              valid, with_bits):
@@ -267,6 +270,14 @@ def test_grads_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
         ak.global_attention_grads(f, f, f, f, 4, bits=bits, threshold=0)
     with pytest.raises(ValueError):  # bits of another shape
         ak.global_attention_grads(f, f, f, f, 4, bits=bits[:, :, :128], threshold=26)
+    # A contiguous view that starts one element into its storage: the tiles
+    # are copied 16 bytes at a time, so the C entry refuses it and launches
+    # nothing.
+    before = ak.global_attention_grads.launches
+    shifted = torch.zeros(250 * 256 + 1, device=cuda_device)[1:].view(1, 250, 256)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ak.global_attention_grads(shifted, f, f, f, 4)
+    assert ak.global_attention_grads.launches == before
 
 
 # --- the dropout kernels on the card ---------------------------------------
@@ -333,7 +344,8 @@ def test_global_attention_dropout_kernels_match_plain_on_card(cuda_device, dtype
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", GRAD_CASES)
 @pytest.mark.parametrize("s,block,valid", [(250, 0, 250), (250, 0, 200), (496, 16, 496),
-                                           (37, 0, 37), (80, 16, 40)])
+                                           (37, 0, 37), (80, 16, 40),
+                                           (1, 0, 1), (63, 0, 63), (65, 0, 65), (129, 0, 129)])
 def test_global_attention_grads_prng_kernel_matches_plain_on_card(cuda_device, dtype, tol, s,
                                                                   block, valid):
     """Kernel 16 against the plain backward on the bytes kernel 14 dumps."""
@@ -348,6 +360,27 @@ def test_global_attention_grads_prng_kernel_matches_plain_on_card(cuda_device, d
     torch.cuda.synchronize()
     assert ak.global_attention_grads_prng.launches == before + 1
     _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["none", "bits", "philox"])
+def test_global_attention_grads_kernels_repeat_bit_for_bit_on_card(cuda_device, dtype, source):
+    """Kernels 9 (no mask, bits) and 16 give the same output bits for the
+    same inputs: no atomics, every sum in a fixed order."""
+    q, k, v, g = (_randn(32, 250, 256, seed=90 + i, device=cuda_device, dtype=dtype)
+                  for i in range(4))
+    if source == "philox":
+        seed = _seed(90, 91, cuda_device)
+        call = lambda: ak.global_attention_grads_prng(q, k, v, seed, g, 4, threshold=THRESHOLD)
+    else:
+        bits = _random_bits((32, 4, 250, 250), 92, cuda_device) if source == "bits" else None
+        call = lambda: ak.global_attention_grads(q, k, v, g, 4, 0, None, bits,
+                                                 THRESHOLD if source == "bits" else 0)
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
