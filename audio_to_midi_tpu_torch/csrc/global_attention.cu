@@ -1,53 +1,47 @@
-// Global attention (optionally block-diagonal) over the natural
-// (G, S, H*hd) layout, with an online softmax over key tiles.
+// The C entry of the global attention forward over the natural (G, S, H*hd)
+// layout, TPU kernels 1, 4 and 15 of audio_to_midi_tpu/ops/pallas_attention.py,
+// and the scalar body that kernels 4 and 15 still run on.
 //
-// Replaces audio_to_midi_tpu/ops/pallas_attention.py fused_attention_nhd
-// (:140, kernel _attention_kernel_nhd -> _nhd_core, :74-137).  Per head:
-// logits = (q * 1/sqrt(hd), scaled in q's dtype) . k^T in fp32; columns at
-// or past valid_len, and outside the row's block when block > 0, are filled
-// with -1e30; fp32 softmax; weights . v accumulated in fp32.
+// Without a mask source (fused_attention_nhd, :140 -> :154: kernel 1) the
+// entry launches the tensor-core forward of global_attention_fwd.cu, which
+// also serves kernel 3; its header says what bounds it and what its design
+// does.  With a dropout mask source it launches the scalar body below:
+// precomputed uint8 bits (G, H, S, S) (fused_attention_nhd_dropout, :381:
+// kernel 4) or Philox bytes drawn in the kernel from a seed in device memory
+// (_nhd_drop_prng_impl, :1783: kernel 15; stream = (sample, head)), the
+// `get_bits` of the TPU's _nhd_core (:74-137).  Per head: logits =
+// (q * 1/sqrt(hd), scaled in q's dtype) . k^T in fp32; columns at or past
+// valid_len, and outside the row's block when block > 0, are filled with
+// -1e30; fp32 softmax; the mask on the weights; weights . v in fp32.
 //
-// What bounds it on the card: at the serving shapes (G=B windows, S=250,
-// 4 heads x 64) one head of one sample is 250 x 250 logits, ~16 MFLOP for
-// both products, and its q, k, v, out are 4 x 64 KB (f32).  The whole call
-// moves ~4 x B x 256 KB and does ~B x 64 MFLOP, far below both roofs: it is
-// bound by latency, by the shared-memory reads of its scalar FMA loops, and
-// by how many blocks keep the SMs busy.  Design:
-//   * one block per (64-query tile, head, sample): 4 x 4 x B blocks at the
-//     serving shapes, so B = 16 already gives 256 blocks for 132 SMs;
-//   * q, k and v are read straight from the (G, S, H*hd) strides -- no
-//     transposes and no padding of S in the wrapper; the ragged key edge
-//     (columns >= S) is excluded inside the kernel;
-//   * key tiles of 64 stream through shared memory with an online softmax,
-//     so nothing of size S x S is ever stored;
-//   * 4 threads own one query row: the row max and sum reduce with two
-//     shuffles, and each thread keeps hd/4 output accumulators in registers.
+// The scalar body and what bounds it: one block of 256 threads per
+// (64-query tile, head, sample), 4 threads per query row (the row max and sum
+// reduce with two shuffles, hd/4 output accumulators each in registers); K
+// and V tiles of 64 keys converted to fp32 in shared memory, element by
+// element, and an online softmax over them.  Both products are fp32 FMA
+// loops that read their operands from shared memory (the weights through a
+// 64 x 65 tile), with no tensor core, so bf16 runs at f32's speed: bound by
+// those shared-memory reads and by latency, far below both roofs.  Kernels 4
+// and 15 move onto the tensor-core body as its bits and Philox mask sources
+// next, and this body goes then.
+//
 // Masking keeps the TPU kernel's semantics exactly: a masked logit is the
 // finite -1e30 (not -inf), so a row whose every column is masked softmaxes
 // uniformly over all S columns, while columns past S never count.  With
 // the running max starting at -inf, an all-masked tile yields max -1e30 and
 // weight 1 per masked column; the first unmasked tile then rescales them by
-// exp(-1e30 - m) = 0.
-//
-// Scalar fp32 FMAs, no tensor cores: a later PR can move the two products
-// to wgmma once the path is measured.
-//
-// Dropout on the attention weights is a template parameter of the one body,
-// as `get_bits` is of the TPU's _nhd_core: none (fused_attention_nhd),
-// precomputed uint8 bits (G, H, S, S) (fused_attention_nhd_dropout, :381)
-// or Philox bytes drawn in the kernel from a seed in device memory
-// (_nhd_drop_prng_impl, :1783; stream = (sample, head)).  The mask bytes of
-// a 64 x 64 tile go to shared memory beside its K and V rows -- read from
-// the bits (8 MB per call at 32 x 4 x 250 x 250, more than q, k, v and out
-// together in bf16) or drawn, one Philox call per 16 columns of a row.
-// With the online softmax the row sum runs over the undropped exponentials;
-// the mask and its 256 / (256 - threshold) go on the term that multiplies
-// v.  A fully masked row keeps its uniform weights and is dropped like any
-// other.
+// exp(-1e30 - m) = 0.  The mask bytes of a 64 x 64 tile go to shared memory
+// beside its K and V rows -- read from the bits (8 MB per call at 32 x 4 x
+// 250 x 250, more than q, k, v and out together in bf16) or drawn, one
+// Philox call per 16 columns of a row.  With the online softmax the row sum
+// runs over the undropped exponentials; the mask and its 256 / (256 -
+// threshold) go on the term that multiplies v.  A fully masked row keeps its
+// uniform weights and is dropped like any other.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "global_attention_fwd.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -200,8 +194,7 @@ cudaError_t launch(const Args& a) {
 template <typename T, int HD>
 cudaError_t dispatch_mask(const Args& a) {
   if (a.bits != nullptr) return launch<T, HD, a2m::kMaskBits>(a);
-  if (a.seed != nullptr) return launch<T, HD, a2m::kMaskPhilox>(a);
-  return launch<T, HD, a2m::kMaskNone>(a);
+  return launch<T, HD, a2m::kMaskPhilox>(a);
 }
 
 template <typename T>
@@ -219,7 +212,9 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
 // q, k, v, out: contiguous (G, S, H*hd) device buffers of one dtype.  At
 // most one of bits (contiguous (G, H, S, S) uint8) and seed ((2,) int32 in
 // device memory) is given, with threshold in (0, 256); both null: no
-// dropout.  Returns the cudaError_t of the launch (0 on success).
+// dropout, the tensor-core forward (global_attention_fwd.cu), which takes
+// 16-byte aligned buffers only (else cudaErrorMisalignedAddress).  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int a2m_global_attention(const void* q, const void* k, const void* v,
                                     const void* bits, const void* seed, void* out, int G, int S,
                                     int H, int hd, int valid_len, int block, int threshold,
@@ -228,6 +223,11 @@ extern "C" int a2m_global_attention(const void* q, const void* k, const void* v,
   if ((bits != nullptr && seed != nullptr) ||
       (dropout && (threshold <= 0 || threshold >= 256)))
     return cudaErrorInvalidValue;
+  if (!dropout) {
+    const a2m::GlobalForwardArgs f = {q, k, v, nullptr, nullptr, out, G, S, H, valid_len,
+                                      block, 0, scale, static_cast<cudaStream_t>(stream)};
+    return a2m::global_attention_forward(f, hd, dtype);
+  }
   const Args a = {q, k, v, bits, seed, out, G, S, H, valid_len, block, threshold, scale,
                   static_cast<cudaStream_t>(stream)};
   switch (dtype) {

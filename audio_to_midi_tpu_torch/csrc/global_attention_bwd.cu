@@ -11,12 +11,6 @@
 
 #include "global_attention_bwd.cuh"
 
-namespace {
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-}  // namespace
-
 // q, k, v, g, dq, dk, dv: contiguous (G, S, H*hd) device buffers of one
 // dtype, each 16-byte aligned (the tiles are copied 16 bytes at a time;
 // misaligned: cudaErrorMisalignedAddress, nothing launched).  At most one of
@@ -36,7 +30,7 @@ extern "C" int a2m_global_attention_grads(const void* q, const void* k, const vo
     return cudaErrorInvalidValue;
   for (const void* p : {q, k, v, g, static_cast<const void*>(dq), static_cast<const void*>(dk),
                         static_cast<const void*>(dv)})
-    if (!aligned16(p)) return cudaErrorMisalignedAddress;
+    if (!a2m::aligned16(p)) return cudaErrorMisalignedAddress;
   const a2m::GlobalGradsArgs a = {q, k, v, g, bits, seed, dq, dk, dv, stats, G, S, H,
                                   valid_len, block, threshold, scale,
                                   static_cast<cudaStream_t>(stream)};

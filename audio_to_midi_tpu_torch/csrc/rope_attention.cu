@@ -8,20 +8,22 @@
 // ((S, hd/2) fp32) and rounded to the dtype, q is then scaled by 1/sqrt(hd)
 // in its dtype; logits in fp32, columns at or past S never count, with
 // block > 0 a column outside the row's block is -1e30; fp32 softmax;
-// weights . v in fp32.  It is kernel 1 with a prologue: the rotation happens
-// as each q and k tile enters shared memory (attention_tile.cuh), so the
-// roped q and k never go to device memory.  The JAX package reaches this
-// kernel through fused_rope_attention only (its models rope q and k apart
-// and call kernel 1), and so does the port.  Like kernel 1, the weights stay
-// in fp32 before the product with v, where the TPU kernel casts them to v's
-// dtype.
+// weights . v in fp32.  It runs the scalar online-softmax tile loop of
+// attention_tile.cuh with a prologue: the rotation happens as each q and k
+// tile enters shared memory, so the roped q and k never go to device memory.
+// The JAX package reaches this kernel through fused_rope_attention only (its
+// models rope q and k apart and call kernel 1), and so does the port.  The
+// weights stay in fp32 before the product with v, where the TPU kernel casts
+// them to v's dtype (and kernel 1's tensor-core body rounds them to it).
 //
-// What bounds it on the card: as kernel 1 -- latency and the shared-memory
-// reads of the scalar FMA loops, far below both roofs at the serving shapes.
-// The rotation adds two reads of q or k and one of each table per element
-// entering a tile: the k tile of a row block is rotated once per query tile
-// (4 times at S = 250), against the separate rope passes and their round
-// trips through device memory that it replaces.
+// What bounds it on the card: latency and the shared-memory reads of the
+// scalar FMA loops, far below both roofs at the serving shapes; no product
+// reaches a tensor core.  The rotation adds two reads of q or k and one of
+// each table per element entering a tile: the k tile of a row block is
+// rotated once per query tile (4 times at S = 250), against the separate
+// rope passes and their round trips through device memory that it replaces.
+// It moves onto kernel 1's tensor-core body (global_attention_fwd.cu) after
+// kernels 4 and 15, and attention_tile.cuh goes then.
 
 #include "attention_tile.cuh"
 

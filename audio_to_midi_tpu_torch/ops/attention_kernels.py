@@ -10,7 +10,9 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
   the block-diagonal flattened-window fallback of the local layers);
   :func:`global_attention_dropout_bits` -- ``fused_attention_nhd_dropout``;
   :func:`global_attention_dropout` -- ``fused_attention_nhd_dropout_prng``.
-  CUDA source: ``csrc/global_attention.cu``.
+  CUDA sources: ``csrc/global_attention.cu`` (the entry, and the scalar
+  body of the two dropout forms), ``csrc/global_attention_fwd.cu`` (the
+  tensor-core body of the dropout-free form).
 * :func:`local_two_phase`, :func:`local_two_phase_dropout_bits`,
   :func:`local_two_phase_dropout` -- ``fused_local_two_phase`` and its
   ``_dropout`` and ``_dropout_prng`` forms (local layers).
@@ -32,14 +34,16 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
   backward is :func:`local_two_phase_grads`.
   CUDA source: ``csrc/local_attention_rw.cu``.
 * :func:`head_major_attention` -- ``fused_attention``: attention over the
-  head-major (G, H, S, hd) layout; :func:`rope_attention` --
+  head-major (G, H, S, hd) layout, which is :func:`global_attention` on the
+  (G*H, S, hd) view with one head; :func:`rope_attention` --
   ``fused_rope_attention``: :func:`global_attention` with the halves-layout
   RoPE of q and k inside.  The JAX package reaches both through these
   functions only, and so does the port.  Their backward is autograd through
   the JAX package's reference formulations (:func:`head_major_attention_reference`,
   :func:`rope_attention_reference`), as its ``custom_vjp``s have it.
-  CUDA sources: ``csrc/head_major_attention.cu``, ``csrc/rope_attention.cu``
-  (the tile loop in ``csrc/attention_tile.cuh``).
+  CUDA sources: ``csrc/head_major_attention.cu`` (an entry into kernel 1's
+  body), ``csrc/rope_attention.cu`` (the scalar tile loop of
+  ``csrc/attention_tile.cuh``).
 
 The mask: a weight is kept where its byte ``>= threshold`` and scaled by
 ``256 / (256 - threshold)``, with ``threshold = round(rate * 256)``, applied
@@ -60,7 +64,23 @@ the CPU.  On a CUDA tensor it launches the kernel or raises: f16 raises
 training loss-scaling policy), and a geometry the kernel does not take
 raises ``ValueError``.  Each wrapper counts its launches in ``.launches``.
 The source notes in ``csrc/`` say what bounds each kernel on the card and
-how its design deals with that.
+how its design deals with that.  For the global attention, in short: at the
+model's shapes (S = 250, 4 heads x 64) one call moves a few tens of MB and
+does a few GFLOP, far below both roofs, so what paces a kernel is how its
+products are executed.  Kernels 1 and 3 (dropout-free forward) and 9 and 16
+(backward) run their products on the tensor cores with ``mma.sync`` -- bf16
+m16n8k16, f32 as 3xTF32 -- over K / V (or Q / G) tiles copied by
+``cp.async`` into two stages, a row's softmax statistics in one quad of
+lanes, the weights passed from accumulator registers into the next product
+(``csrc/mma_tile.cuh``).  In bf16 the forward rounds each tile's
+unnormalised weights ``exp(s - m)`` to bf16 before their product with v, as
+the TPU kernels round their weights (``weights.astype(v.dtype)``); the plain
+versions keep them in fp32, a difference of bf16 rounding.  Kernels 4 and
+15 (dropout forward) and 10 (RoPE inside) still run scalar fp32 FMA loops
+over shared memory (``csrc/global_attention.cu``, ``csrc/attention_tile.cuh``),
+paced by those shared-memory reads, bf16 at f32's speed; they move onto the
+tensor-core body next, 4 and 15 as its bits and Philox mask sources, then
+10, and the scalar loops go with them.
 
 The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
@@ -486,6 +506,8 @@ def global_attention(
     softmax and accumulation.  Columns >= ``valid_len`` (default S) are
     masked, and with ``block`` > 0 so is every column outside the row's
     block of ``block`` rows.  Masked logits are -1e30, as in the TPU kernel.
+    On the card the weights enter their product with v rounded to v's dtype
+    (in bf16 the TPU kernel's rounding; the plain version keeps fp32).
     Returns (G, S, H*hd) in q's dtype.  Differentiable in q, k and v.
     """
     return _GlobalAttentionFn.apply(global_attention, q, k, v, None, None, num_heads, block,
@@ -871,8 +893,9 @@ class _ReferenceBackwardFn(torch.autograd.Function):
 
 def head_major_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                block: int = 0) -> torch.Tensor:
-    """Plain version of :func:`head_major_attention`: the kernel's arithmetic
-    (that of :func:`global_attention_plain`) on the head-major layout."""
+    """Plain version of :func:`head_major_attention`: the arithmetic of
+    :func:`global_attention_plain` on the head-major layout, equal to it bit
+    for bit on the (G*H, S, hd) view with one head."""
     g, h, s, hd = q.shape
     qs = (q * _query_scale(hd, q.dtype).to(q.device)).float()
     logits = qs @ k.float().transpose(-1, -2)
@@ -902,8 +925,8 @@ def _head_major_forward(q, k, v, block: int):
         raise ValueError(f"head_major_attention runs on CPU or CUDA, not {q.device}")
     dtype, hd = _check_cuda((q, k, v), 1)
     _check_global(s, block, None)
-    if h > 65535:
-        raise ValueError("at most 65535 heads per call")
+    if g * h > 65535:  # kernel 1's body on G*H samples of one head: the grid's z
+        raise ValueError(f"at most 65535 (sample, head) pairs per call, got {g} x {h}")
     out = torch.empty_like(q)
     lib = cuda_build.library()
     with torch.cuda.device(q.device):

@@ -10,7 +10,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. kernels: build from csrc/, then each kernel against its plain version
      -- the forward kernels at the serving shapes (16 windows, S=250 /
-     P=256, 4 heads x 64) and at the training shapes (32 windows), the
+     P=256, 4 heads x 64) and at the training shapes (32 windows), kernel 1
+     also at the serving batch of 128 windows and, with kernel 3, twice on
+     the same inputs, which must give the same bits; the
      backward kernels and every dropout kernel (seeded: against the plain
      version on the bytes the dump kernel gives for the seed; bits: on
      random bytes) at the training shapes, f32 and bf16 -- with its time
@@ -164,7 +166,8 @@ STAGE_TOL_BF16_ULPS = {3: GRAD_TOL_BF16_ULPS, 21: 8}
 # (depth, L, C, H) of the stages the kernels take in the default model.
 STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
 TRAIN_STEPS = 4
-TIMED_BATCHES = (BATCH, 128)  # windows per forward in the serving timings
+SERVING_BATCH = 128  # windows per forward in batch transcription
+TIMED_BATCHES = (BATCH, SERVING_BATCH)  # windows per forward in the serving timings
 DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
 # rate, and the operation rate of the input type -- bf16 on the tensor
@@ -466,6 +469,14 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.global_attention(fq, fk, fv, HEADS, 16),
             lambda: ak.global_attention_plain(fq, fk, fv, HEADS, 16), kernel_tol,
             bound(4, fq.numel(), name, attn_flops(n, 496, 16, 2)))
+        # Kernel 1 at the serving batch of 128 windows.
+        bq, bk, bv = (randn(SERVING_BATCH, SEQ, width, seed=80 + i, dtype=dt) for i in range(3))
+        run(f"global S=250 B={SERVING_BATCH}", name,
+            lambda: ak.global_attention(bq, bk, bv, HEADS),
+            lambda: ak.global_attention_plain(bq, bk, bv, HEADS), kernel_tol,
+            bound(4, bq.numel(), name, attn_flops(SERVING_BATCH, SEQ, SEQ, 2)),
+            library=lambda: F.scaled_dot_product_attention(heads4(bq), heads4(bk), heads4(bv)))
+        del bq, bk, bv
         ts = [randn(n, PADDED, width, seed=20 + i, dtype=dt) for i in range(5)]
         # Per row and phase 16 keys, two products: no single PyTorch call
         # computes the two-phase average, so there is no library time.
@@ -483,6 +494,15 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.global_attention_plain(q, k, v, HEADS), kernel_tol,
             bound(4, q.numel(), name, attn_flops(n, SEQ, SEQ, 2)),
             library=lambda: F.scaled_dot_product_attention(heads4(q), heads4(k), heads4(v)))
+        # Kernels 1 and 3 share one tensor-core body with no atomics: the same
+        # inputs give the same bits.
+        for what, call in (("global", lambda: ak.global_attention(q, k, v, HEADS, 0, 200)),
+                           ("head major", lambda: ak.head_major_attention(
+                               *(heads4(t).contiguous() for t in (q, k, v))))):
+            same = torch.equal(call(), call())
+            log(f"{what} S=250 B={n} {name}: the same inputs twice, identical bits {same}")
+            if not same:
+                raise AssertionError(f"the {what} forward does not repeat bit for bit")
         ts = [randn(n, PADDED, width, seed=50 + i, dtype=dt) for i in range(6)]
         run(f"local P=256 B={n}", name,
             lambda: ak.local_two_phase(*ts[:5], HEADS, 16),
@@ -1724,7 +1744,7 @@ def main() -> int:
                              "transformer pair P=256 bf16"),
     }
     attention = {
-        "global_attention": ("global_attention.cu", "140", "global S=250 f32"),
+        "global_attention": ("global_attention_fwd.cu", "140", "global S=250 f32"),
         "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
         "global_attention_grads": ("global_attention_bwd.cuh", "1104", "global grads S=250 bf16"),
         "local_two_phase_grads": ("local_attention_bwd.cu", "992", "local grads P=256 bf16"),
@@ -1742,7 +1762,7 @@ def main() -> int:
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
         "local_two_phase_rw": ("local_attention_rw.cu", "847", "local rw P=256 f32"),
-        "head_major_attention": ("head_major_attention.cu", "219", "head major S=250 f32"),
+        "head_major_attention": ("global_attention_fwd.cu", "219", "head major S=250 f32"),
         "rope_attention": ("rope_attention.cu", "1229", "rope S=250 f32"),
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)

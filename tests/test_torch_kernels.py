@@ -94,10 +94,14 @@ def cuda_device():
 
 
 # (dtype, max abs error vs the plain version on O(1) inputs): f32 differs
-# only in summation order (fp32 accumulation on both sides); bf16 outputs
-# round to 8 mantissa bits, one ulp near 1 is 2**-7 = 7.8e-3, and the
-# kernel keeps the softmax weights in fp32 where the plain version does too
-# but sums in another order.
+# only in summation order (fp32 accumulation on both sides; the tensor-core
+# kernels' 3xTF32 products keep ~1e-6 relative); bf16 outputs round to 8
+# mantissa bits, one ulp near 1 is 2**-7 = 7.8e-3.  In bf16 the tensor-core
+# forward of kernels 1 and 3 rounds each tile's unnormalised softmax weights
+# to bf16 before their product with v, as the TPU kernels round theirs,
+# where the plain version keeps them in fp32: a relative 2**-9 per weight,
+# well inside one output ulp (tests/test_torch_attention_fwd.py emulates it
+# on the CPU); the scalar kernels keep fp32 weights and sum in another order.
 CARD_CASES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
 
@@ -144,6 +148,118 @@ def test_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     with pytest.raises(ValueError):  # head dim 128 is not instantiated
         ak.global_attention(f, f, f, 2)
 
+
+
+# The tensor-core forward of kernels 1 and 3 (csrc/global_attention_fwd.cu)
+# at the geometries it must take: head dims 16, 32, 64; S from one row to
+# 496, ragged against the 64-row tile; valid_len; block 16 (whose key tiles
+# outside a query tile's blocks are skipped).
+FWD_GEOMETRIES = [(1, 0, 1), (37, 0, 37), (64, 0, 64), (65, 0, 65), (250, 0, 250),
+                  (250, 0, 200), (496, 16, 496)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (16, 2)])
+@pytest.mark.parametrize("s,block,valid", FWD_GEOMETRIES)
+def test_global_attention_forward_geometries_on_card(cuda_device, dtype, tol, hd, heads, s,
+                                                     block, valid):
+    q, k, v = (_randn(8, s, heads * hd, seed=s + valid + hd + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    before = ak.global_attention.launches
+    out = ak.global_attention(q, k, v, heads, block, valid)
+    ref = ak.global_attention_plain(q, k, v, heads, block, valid)
+    torch.cuda.synchronize()
+    assert ak.global_attention.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (16, 2)])
+@pytest.mark.parametrize("s,block", [(s, block) for s, block, valid in FWD_GEOMETRIES
+                                     if valid == s])
+def test_head_major_attention_geometries_on_card(cuda_device, dtype, tol, hd, heads, s, block):
+    q, k, v = (_randn(8, heads, s, hd, seed=s + hd + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    before = ak.head_major_attention.launches
+    out = ak.head_major_attention(q, k, v, block)
+    ref = ak.head_major_attention_plain(q, k, v, block)
+    torch.cuda.synchronize()
+    assert ak.head_major_attention.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+def test_global_attention_forward_at_the_serving_batch_on_card(cuda_device, dtype, tol):
+    """128 windows of S = 250, 4 heads x 64: the serving batch; kernel 3 on
+    the head-major copies of the same tensors."""
+    q, k, v = (_randn(128, 250, 256, seed=128 + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    out = ak.global_attention(q, k, v, 4)
+    ref = ak.global_attention_plain(q, k, v, 4)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    heads = lambda t: t.reshape(128, 250, 4, 64).transpose(1, 2).contiguous()
+    out3 = ak.head_major_attention(heads(q), heads(k), heads(v))
+    assert torch.equal(out3, heads(out))  # the same body on the same rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+def test_global_attention_forward_fully_masked_rows_on_card(cuda_device, dtype, tol):
+    """S = 80, block 16, valid_len 40: the rows of the blocks at 48 and 64
+    see no column and average all S columns, as on the TPU."""
+    q, k, v = (_randn(4, 80, 256, seed=80 + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    out = ak.global_attention(q, k, v, 4, 16, 40)
+    ref = ak.global_attention_plain(q, k, v, 4, 16, 40)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    rows = out[:, 48:].float()
+    mean = v.float().mean(1, keepdim=True).expand_as(rows)
+    assert (rows - mean).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["global", "head major"])
+def test_global_attention_forward_repeats_bit_for_bit_on_card(cuda_device, dtype, kernel):
+    if kernel == "global":
+        q, k, v = (_randn(32, 250, 256, seed=3 + i, device=cuda_device, dtype=dtype)
+                   for i in range(3))
+        call = lambda: ak.global_attention(q, k, v, 4, 0, 200)
+    else:
+        q, k, v = (_randn(16, 4, 496, 64, seed=3 + i, device=cuda_device, dtype=dtype)
+                   for i in range(3))
+        call = lambda: ak.head_major_attention(q, k, v, 16)
+    assert torch.equal(call(), call())
+
+
+@pytest.mark.cuda
+def test_head_major_attention_refuses_past_the_grid_on_card(cuda_device):
+    """G*H samples lie on the grid's z dimension: at most 65,535."""
+    t = torch.zeros(16383, 4, 1, 16, device=cuda_device)
+    assert ak.head_major_attention(t, t, t).shape == t.shape   # 65,532 samples
+    over = torch.zeros(16384, 4, 1, 16, device=cuda_device)    # 65,536
+    before = ak.head_major_attention.launches
+    with pytest.raises(ValueError):
+        ak.head_major_attention(over, over, over)
+    assert ak.head_major_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_global_attention_forward_refuses_misaligned_buffers_on_card(cuda_device):
+    """The tiles are copied 16 bytes at a time: a buffer that does not start
+    on 16 bytes is refused, nothing launched."""
+    buf = torch.zeros(1 + 64 * 64, device=cuda_device)
+    q = buf[1:].view(1, 64, 64)
+    assert q.is_contiguous()
+    before = ak.global_attention.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ak.global_attention(q, q, q, 1)
+    assert ak.global_attention.launches == before
 
 # The backward kernels.  f32: the kernel and the plain version compute the
 # same fp32 sums in another order (and the kernel's softmax is online), so

@@ -1,46 +1,77 @@
 #!/usr/bin/env python3
-"""Times the global attention backward (TPU kernels 9 and 16) of this
-checkout beside another checkout's, in turns on one card.
+"""Times the global attention kernels of this checkout beside another
+checkout's, in turns on one card: the forward (TPU kernels 1 and 3, and 4,
+15 and 10 beside them), the backward (TPU kernels 9 and 16) and the serving
+forward of the model.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
 
 DIR is a checkout of another commit (for example ``git archive`` of the
 parent unpacked into a directory that ``.gitignore`` lists).  Both trees
 build their kernels from their own sources, in parallel; then one process
-per turn (other, this, this, other) times, on the same seeded inputs, the
-kernels at the shapes of ``chip_smoke.py`` phase 2: 32 windows, S = 250,
-4 heads x 64 (no mask, precomputed bits, valid_len 200, the seeded mask)
-and 16 windows, S = 496, block 16, f32 and bf16, by CUDA events over 50
-back-to-back launches, beside F.scaled_dot_product_attention's backward
-on the same tensors, and the dq and dk/dv kernels apart (device time per
-launch by torch.profiler, no mask and the seeded mask).  Also counts, in
-this tree's SASS, each backward kernel's HMMA, LDGSTS, LDSM and atomic
-instructions.  Prints one line per case and writes
-``attention_bwd_turns.json`` to --out.  Needs one CUDA device; imports no
-JAX.
+per turn (other, this, this, other) runs, on the same seeded inputs:
+  * the forward kernels at S = 250, 4 heads x 64, f32 and bf16: kernel 1
+    (``global_attention``) and kernel 3 (``head_major_attention``, on the
+    head-major copies) at 16, 32 and 128 windows, beside
+    F.scaled_dot_product_attention on the same tensors; kernel 1 at 16
+    windows of S = 496 with block 16 and without a block; kernels 15 and 4
+    (the seeded and the precomputed-bits dropout forms) at 32 windows, and
+    kernel 10 (``rope_attention``) at 16;
+  * the backward kernels at the shapes of ``chip_smoke.py`` phase 2: 32
+    windows, S = 250 (no mask, precomputed bits, valid_len 200, the seeded
+    mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
+    backward; the dq and dk/dv kernels apart (device time per launch by
+    torch.profiler, no mask and the seeded mask);
+  * the serving forward of the default model (seeded weights,
+    attention_impl "pallas") at 128 windows, bf16 and f32: the median and
+    quartiles of 20 forwards, each timed by CUDA events, then 3 forwards
+    under torch.profiler: device busy time, the idle share against the
+    median, the global attention's share of device time, the largest
+    kernels.
+Kernels by CUDA events over 50 back-to-back launches.  Each turn also hashes
+(SHA-256) the bytes of every kernel output; the tool compares the trees'
+hashes and exits 1 where two builds of the same device code (kernels 4, 15,
+10, 9 and 16) give different bits.  From this tree's build it also reports,
+per global-attention kernel instantiation, the SASS counts of HMMA (tensor
+core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
+registers and spill bytes ``-Xptxas -v`` wrote to the build log.  Prints one
+line per case and writes ``attention_turns.json`` to --out.  Needs one CUDA
+device; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
+# The cases whose device code is the same in both trees when only kernels 1
+# and 3 changed: their outputs must agree bit for bit.
+SAME_CODE = ("grads", "dropout", "rope")
 
 
 def worker(root: Path) -> None:
     """Times the cases with the package of ``root`` and prints one JSON line."""
     sys.path.insert(0, str(root))
+    import copy
+
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.models.rope import precompute_frequencies
     from audio_to_midi_tpu_torch.ops import attention_kernels as ak
 
     def randn(*shape, seed, dtype):
@@ -60,40 +91,76 @@ def worker(root: Path) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    times, profiled = {}, []
+    def digest(out) -> str:
+        sha = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            sha.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return sha.hexdigest()
+
+    times, digests, profiled = {}, {}, []
     seed = torch.tensor([20260, -7], dtype=torch.int32, device="cuda")
+    heads4 = lambda t: t.reshape(t.shape[0], t.shape[1], 4, 64).transpose(1, 2)
+    freqs = precompute_frequencies(64, 250, device="cuda")
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases = {}
+        # --- the forward kernels ---
+        for n in (16, 32, 128):
+            fq_, fk_, fv_ = (randn(n, 250, 256, seed=n + i, dtype=dt) for i in range(3))
+            hq, hk, hv = (heads4(t).contiguous() for t in (fq_, fk_, fv_))
+            cases |= {
+                f"forward S=250 B={n}": functools.partial(ak.global_attention, fq_, fk_, fv_, 4),
+                f"head major S=250 B={n}": functools.partial(ak.head_major_attention, hq, hk, hv),
+                f"SDPA forward S=250 B={n}": functools.partial(
+                    F.scaled_dot_product_attention, hq, hk, hv),
+            }
+        bq, bk, bv = (randn(16, 496, 256, seed=60 + i, dtype=dt) for i in range(3))
+        cases |= {
+            "forward S=496 block=16 B=16": functools.partial(ak.global_attention, bq, bk, bv, 4,
+                                                             16),
+            "forward S=496 B=16": functools.partial(ak.global_attention, bq, bk, bv, 4),
+        }
         q, k, v, g = (randn(32, 250, 256, seed=30 + i, dtype=dt) for i in range(4))
         fq, fk, fv, fg = (randn(16, 496, 256, seed=10 + i, dtype=dt) for i in range(4))
+        rq, rk, rv, rg = (randn(32, 65, 256, seed=70 + i, dtype=dt) for i in range(4))
         gen = torch.Generator(device="cpu").manual_seed(40)
         bits = torch.randint(0, 256, (32, 4, 250, 250), generator=gen, dtype=torch.uint8).cuda()
-        heads4 = lambda t: t.reshape(t.shape[0], t.shape[1], 4, 64).transpose(1, 2)
+        sq, sk, sv = (randn(16, 250, 256, seed=90 + i, dtype=dt) for i in range(3))
+        cases |= {
+            "dropout prng S=250 B=32": functools.partial(
+                ak.global_attention_dropout, q, k, v, seed, 4, threshold=THRESHOLD),
+            "dropout bits S=250 B=32": functools.partial(
+                ak.global_attention_dropout_bits, q, k, v, bits, 4, threshold=THRESHOLD),
+            "rope S=250 B=16": functools.partial(ak.rope_attention, sq, sk, sv, freqs.cos,
+                                                 freqs.sin, 4),
+        }
+        # --- the backward kernels ---
         q4, k4, v4 = (heads4(t).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(q4, k4, v4)
         out_drop = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=THRESHOLD / 256)
-        cases = {
-            "grads S=250": lambda: ak.global_attention_grads(q, k, v, g, 4),
-            "grads S=250 bits": lambda: ak.global_attention_grads(q, k, v, g, 4, 0, None, bits,
-                                                                  THRESHOLD),
-            "grads S=250 valid_len=200": lambda: ak.global_attention_grads(q, k, v, g, 4, 0, 200),
-            "grads S=496 block=16": lambda: ak.global_attention_grads(fq, fk, fv, fg, 4, 16),
-            "grads prng S=250": lambda: ak.global_attention_grads_prng(
-                q, k, v, seed, g, 4, threshold=THRESHOLD),
-            "grads prng S=250 valid_len=200": lambda: ak.global_attention_grads_prng(
-                q, k, v, seed, g, 4, 0, 200, threshold=THRESHOLD),
-            "grads prng S=496 block=16": lambda: ak.global_attention_grads_prng(
-                fq, fk, fv, seed, fg, 4, 16, threshold=THRESHOLD),
-            "SDPA backward S=250": lambda: torch.autograd.grad(out, (q4, k4, v4), heads4(g),
-                                                               retain_graph=True),
-            "SDPA backward S=250 dropout": lambda: torch.autograd.grad(
-                out_drop, (q4, k4, v4), heads4(g), retain_graph=True),
+        grads = ak.global_attention_grads
+        prng = functools.partial(ak.global_attention_grads_prng, threshold=THRESHOLD)
+        cases |= {
+            "grads S=250": functools.partial(grads, q, k, v, g, 4),
+            "grads S=250 bits": functools.partial(grads, q, k, v, g, 4, 0, None, bits, THRESHOLD),
+            "grads S=250 valid_len=200": functools.partial(grads, q, k, v, g, 4, 0, 200),
+            "grads S=496 block=16": functools.partial(grads, fq, fk, fv, fg, 4, 16),
+            "grads S=65": functools.partial(grads, rq, rk, rv, rg, 4),
+            "grads prng S=250": functools.partial(prng, q, k, v, seed, g, 4),
+            "grads prng S=250 valid_len=200": functools.partial(prng, q, k, v, seed, g, 4, 0, 200),
+            "grads prng S=496 block=16": functools.partial(prng, fq, fk, fv, seed, fg, 4, 16),
+            "grads prng S=65": functools.partial(prng, rq, rk, rv, seed, rg, 4),
+            "SDPA backward S=250": lambda out=out, q4=q4, k4=k4, v4=v4, g=g: torch.autograd.grad(
+                out, (q4, k4, v4), heads4(g), retain_graph=True),
+            "SDPA backward S=250 dropout": lambda out=out_drop, q4=q4, k4=k4, v4=v4, g=g:
+                torch.autograd.grad(out, (q4, k4, v4), heads4(g), retain_graph=True),
         }
         for case, fn in cases.items():
+            if not case.startswith("SDPA"):
+                digests[f"{case} {name}"] = digest(fn())
             times[f"{case} {name}"] = time_ms(fn)
-        # Arguments bound now: the lambdas above read this iteration's tensors late.
-        profiled += [functools.partial(ak.global_attention_grads, q, k, v, g, 4),
-                     functools.partial(ak.global_attention_grads_prng, q, k, v, seed, g, 4,
-                                       threshold=THRESHOLD)]
+        profiled += [cases["grads S=250"], cases["grads prng S=250"]]
+        del cases
+        torch.cuda.empty_cache()
     # The dq and dk/dv kernels apart: device time per launch, by torch.profiler
     # in one session, told apart by their template arguments (dtype, hd 64,
     # mask source 0: none, 2: seeded).
@@ -109,28 +176,114 @@ def worker(root: Path) -> None:
                     if f"global_attention_{kernel}_kernel<{dtype}, 64, {mask}>" in ev.key:
                         us = getattr(ev, "device_time_total", None) or ev.cuda_time_total
                         times[f"{case} {name}, its {kernel} kernel"] = us / ev.count / 1e3
-    print(json.dumps(times))
+    # The serving forward: "pallas", 128 windows, the median and quartiles of
+    # 20 forwards timed one by one.
+    cfg = DEFAULT_CONFIG.model
+    model = model_lib.Model(cfg, torch.Generator().manual_seed(0)).cuda().eval()
+    rope = model_lib.make_rope(cfg, "cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    windows = torch.randn(128, 2, 80_000, generator=gen) * 0.5
+    serving = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
+        x = windows.to(device="cuda", dtype=dt)
+        per = []
+        with torch.inference_mode(), _parity_precision(dt):
+            for i in range(23):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                model_lib.forward(m, cfg, x, rope)
+                end.record()
+                torch.cuda.synchronize()
+                if i >= 3:  # warm-up
+                    per.append(start.elapsed_time(end))
+        q1, median, q3 = statistics.quantiles(per, n=4)
+        # Where the device time of a forward goes: kernel time by name over 3
+        # profiled forwards; the idle share against the unprofiled median.
+        with torch.inference_mode(), _parity_precision(dt), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model_lib.forward(m, cfg, x, rope)
+            torch.cuda.synchronize()
+        kernels = {ev.key: ev.self_device_time_total / 3e3 for ev in prof.key_averages()
+                   if ev.self_device_time_total > 0}
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        attention = sum(ms for key, ms in kernels.items()
+                        if "global_attention_fwd_kernel<" in key
+                        or "global_attention_kernel<" in key)
+        serving[f"serving forward 128 windows {name}"] = {
+            "median": median, "q1": q1, "q3": q3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / median, "global_attention_ms": attention,
+            "global_attention_share": attention / busy,
+            "top_kernels": [(key[:120], ms / busy) for key, ms in top]}
+        del m, x
+        torch.cuda.empty_cache()
+    print(json.dumps({"times": times, "digests": digests, "serving": serving}))
+
+
+def demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
+def short(name: str) -> str:
+    """``void (anonymous namespace)::global_attention_fwd_kernel<float, 64,
+    0>(...)`` -> ``global_attention_fwd_kernel<float, 64, 0>``."""
+    hit = re.search(r"[A-Za-z_]\w*<[^()]*>", name)
+    return hit.group(0) if hit else name
+
+
+KERNELS_OF_INTEREST = ("global_attention", "rope_attention")
 
 
 def sass_counts(library: Path) -> dict[str, dict[str, int]]:
-    """Per kernel of the global backward in ``library``: its tensor-core
-    products (HMMA), asynchronous copies (LDGSTS), ldmatrix loads (LDSM)
-    and atomics (ATOM / RED), counted in the SASS that cuobjdump prints."""
+    """Per global-attention kernel in ``library``: its tensor-core products
+    (HMMA), asynchronous copies (LDGSTS), ldmatrix loads (LDSM), fp32 FMAs
+    (FFMA) and atomics (ATOM / RED), counted in the SASS that cuobjdump
+    prints."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
+    ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            name = name if "global_attention_d" in name else None
+            name = name if any(k in name for k in KERNELS_OF_INTEREST) else None
             if name:
-                counts[name] = {op: 0 for op in ("HMMA", "LDGSTS", "LDSM", "ATOM/RED")}
+                counts[name] = {op: 0 for op in (*ops, "ATOM/RED")}
         elif name:
-            for op in ("HMMA", "LDGSTS", "LDSM"):
+            for op in ops:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
             counts[name]["ATOM/RED"] += any(f" {op}" in line for op in ("ATOM", "RED."))
-    return counts
+    return dict(zip(map(short, demangle(list(counts))), counts.values()))
+
+
+def ptxas_usage(log: Path) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel of interest, from the build
+    log's ``-Xptxas -v`` lines."""
+    usage, name = {}, None
+    for line in log.read_text().splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1) if any(k in hit.group(1) for k in KERNELS_OF_INTEREST) else None
+            if name:
+                usage[name] = {}
+        elif name:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                usage[name] |= {"spill_stores": int(spill[1]), "spill_loads": int(spill[2])}
+            if regs:
+                usage[name]["registers"] = int(regs[1])
+    return dict(zip(map(short, demangle(list(usage))), usage.values()))
 
 
 def build(root: Path) -> subprocess.Popen:
@@ -161,13 +314,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from audio_to_midi_tpu_torch.ops import cuda_build
 
+    library = cuda_build.library_path()
     try:
-        sass = sass_counts(cuda_build.library_path())
+        sass = sass_counts(library)
     except (OSError, subprocess.CalledProcessError) as err:
         print(f"sass not counted: {err}")
         sass = {}
-    for kernel, ops in sass.items():
-        print(f"sass {kernel}: {ops}")
+    usage = ptxas_usage(library.with_suffix(".log"))
+    for kernel in sorted(set(sass) | set(usage)):
+        print(f"{kernel}: sass {sass.get(kernel)}; ptxas {usage.get(kernel)}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
@@ -179,17 +334,48 @@ def main() -> int:
             print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
             return 1
         turns[label].append(json.loads(run.stdout.strip().splitlines()[-1]))
-    for case in sorted({c for t in turns["this"] + turns["other"] for c in t}, key=str):
-        other = [t.get(case) for t in turns["other"]]
-        this = [t.get(case) for t in turns["this"]]
+    for case in sorted({c for t in turns["this"] + turns["other"] for c in t["times"]}, key=str):
+        other = [t["times"].get(case) for t in turns["other"]]
+        this = [t["times"].get(case) for t in turns["this"]]
         if None in other + this:  # the profiler recorded no such kernel in a turn
             print(f"{case}: other {other} ms; this {this} ms; not recorded in every turn")
             continue
         print(f"{case}: other {other[0]:.4f}, {other[1]:.4f} ms; this {this[0]:.4f}, "
               f"{this[1]:.4f} ms; other / this {sum(other) / sum(this):.2f}")
+    for case in turns["this"][0]["serving"]:
+        shown = {label: ", ".join(f"{t['serving'][case]['median']:.2f} "
+                                  f"({t['serving'][case]['q1']:.2f}-{t['serving'][case]['q3']:.2f})"
+                                  for t in turns[label]) for label in turns}
+        print(f"{case}, ms per forward, median (quartiles) of 20: other {shown['other']}; "
+              f"this {shown['this']}")
+        for label in turns:
+            for t in turns[label]:
+                r = t["serving"][case]
+                print(f"  {label}: device busy {r['device_busy_ms']:.2f} ms per forward, idle "
+                      f"share {r['idle_share']:.3f}, global attention {r['global_attention_ms']:.2f}"
+                      f" ms ({r['global_attention_share']:.1%} of device time); largest "
+                      + ", ".join(f"{k[:60]} {v:.1%}" for k, v in r["top_kernels"]))
+    # The bits: each tree's two turns agree with themselves, and the trees
+    # agree where their device code is the same.
+    bits, failed = {}, []
+    for case in sorted(turns["this"][0]["digests"]):
+        hashes = {label: {t["digests"].get(case) for t in turns[label]} for label in turns}
+        repeat = all(len(h) == 1 for h in hashes.values())
+        same = repeat and hashes["this"] == hashes["other"]
+        bits[case] = {"repeats": repeat, "same_as_other": same}
+        must = case.split()[0] in SAME_CODE
+        print(f"bits {case}: each tree repeats {repeat}; identical to the other tree {same}"
+              + (" (same device code: must be)" if must else ""))
+        if not repeat or (must and not same):
+            failed.append(case)
     args.out.mkdir(parents=True, exist_ok=True)
-    (args.out / "attention_bwd_turns.json").write_text(json.dumps(
-        {"card": card, "other": str(args.other), "turns": turns, "sass": sass}, indent=1))
+    (args.out / "attention_turns.json").write_text(json.dumps(
+        {"card": card, "other": str(args.other), "turns": turns, "bits": bits, "sass": sass,
+         "ptxas": usage}, indent=1))
+    if failed:
+        print(f"different bits where the device code is the same, or a tree that does not "
+              f"repeat itself: {failed}", file=sys.stderr)
+        return 1
     return 0
 
 
