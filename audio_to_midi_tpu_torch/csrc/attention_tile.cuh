@@ -1,8 +1,7 @@
-// The scalar online-softmax tile loop of global_attention.cu (the body that
-// kernels 4 and 15 still run), without a dropout mask.  It serves only
+// A scalar online-softmax tile loop, without a dropout mask.  It serves only
 // kernel 10 (rope_attention.cu), whose rows enter through a RoPE prologue,
-// until that kernel moves onto the tensor-core body (global_attention_fwd.cu)
-// as kernels 1 and 3 have.
+// until that kernel moves onto the tensor-core body (global_attention_fwd.cuh)
+// as kernels 1, 3, 4 and 15 have.
 //
 // A block of 256 threads takes a 64-row query tile of one (sample, head)
 // and streams 64-column key tiles through shared memory; 4 threads own one

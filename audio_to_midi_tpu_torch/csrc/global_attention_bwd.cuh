@@ -6,7 +6,7 @@
 // pallas_call sites: _nhd_bwd_kernel and, with bits, _nhd_bwd_kernel_drop)
 // and nhd_grads_prng (:1833, _nhd_bwd_kernel_drop_prng), all of them
 // _nhd_bwd_core -> _core_grads, :880-920.  The mask source is a template
-// parameter of the one body, as in global_attention.cu: none, precomputed
+// parameter of the one body, as in global_attention_fwd.cuh: none, precomputed
 // uint8 bits, or Philox bytes drawn from the forward's seed -- the same byte
 // at the same (row, column), though the dq kernel tiles by query rows and
 // the dkv kernel by key rows (philox.cuh).  Per head, with every product

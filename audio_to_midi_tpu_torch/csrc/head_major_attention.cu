@@ -9,7 +9,7 @@
 //
 // A contiguous (G, H, S, hd) tensor is the natural layout (G*H, S, 1*hd) of
 // TPU kernel 1, so this entry launches kernel 1's tensor-core forward
-// (global_attention_fwd.cu) on G*H samples of one head with valid_len = S;
+// (global_attention_fwd.cuh) on G*H samples of one head with valid_len = S;
 // that file says what bounds it on this card and what its design does.  The
 // TPU kernel pads S to 128 and packs several heads into one cell, kept apart
 // by a block-diagonal mask: its VMEM layout, not its function.  The samples

@@ -1,6 +1,6 @@
 // The tile primitives of the attention kernels that run on the tensor
-// cores: the forward of the global attention (global_attention_fwd.cu,
-// TPU kernels 1 and 3) and its backward (global_attention_bwd.cuh, TPU
+// cores: the forward of the global attention (global_attention_fwd.cuh,
+// TPU kernels 1, 3, 4 and 15) and its backward (global_attention_bwd.cuh, TPU
 // kernels 9 and 16).  One copy, in namespace a2m; nothing here launches.
 //
 // What bounds those kernels on this card, and what these pieces do about it.

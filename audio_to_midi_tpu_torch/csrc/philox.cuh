@@ -104,7 +104,8 @@ __device__ __forceinline__ void fill_mask_tile(uint8_t* dst, const MaskPlane& pl
     }
   }
   if (MASK == kMaskPhilox) {
-    // One call per (row, group of 16 columns): 64 x 4 calls for 256 threads.
+    // One call per (row, group of 16 columns): 64 x 4 calls, two per thread
+    // of the attention kernels' 128.
     for (int i = threadIdx.x; i < kMaskTile * (kMaskTile / kPhiloxGroup); i += blockDim.x) {
       const int r = i / (kMaskTile / kPhiloxGroup), g = i % (kMaskTile / kPhiloxGroup);
       const uint4 bytes = philox_row_group(plane.seed, plane.sample, plane.core, row0 + r,

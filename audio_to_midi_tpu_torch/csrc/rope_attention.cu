@@ -22,8 +22,8 @@
 // each table per element entering a tile: the k tile of a row block is
 // rotated once per query tile (4 times at S = 250), against the separate
 // rope passes and their round trips through device memory that it replaces.
-// It moves onto kernel 1's tensor-core body (global_attention_fwd.cu) after
-// kernels 4 and 15, and attention_tile.cuh goes then.
+// It moves onto kernel 1's tensor-core body (global_attention_fwd.cuh), as
+// kernels 3, 4 and 15 have, and attention_tile.cuh goes then.
 
 #include "attention_tile.cuh"
 

@@ -10,9 +10,9 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
   the block-diagonal flattened-window fallback of the local layers);
   :func:`global_attention_dropout_bits` -- ``fused_attention_nhd_dropout``;
   :func:`global_attention_dropout` -- ``fused_attention_nhd_dropout_prng``.
-  CUDA sources: ``csrc/global_attention.cu`` (the entry, and the scalar
-  body of the two dropout forms), ``csrc/global_attention_fwd.cu`` (the
-  tensor-core body of the dropout-free form).
+  CUDA sources: ``csrc/global_attention.cu`` (the entry),
+  ``csrc/global_attention_fwd.cuh`` (the tensor-core body of all three,
+  the mask source a template parameter).
 * :func:`local_two_phase`, :func:`local_two_phase_dropout_bits`,
   :func:`local_two_phase_dropout` -- ``fused_local_two_phase`` and its
   ``_dropout`` and ``_dropout_prng`` forms (local layers).
@@ -67,20 +67,21 @@ The source notes in ``csrc/`` say what bounds each kernel on the card and
 how its design deals with that.  For the global attention, in short: at the
 model's shapes (S = 250, 4 heads x 64) one call moves a few tens of MB and
 does a few GFLOP, far below both roofs, so what paces a kernel is how its
-products are executed.  Kernels 1 and 3 (dropout-free forward) and 9 and 16
-(backward) run their products on the tensor cores with ``mma.sync`` -- bf16
-m16n8k16, f32 as 3xTF32 -- over K / V (or Q / G) tiles copied by
-``cp.async`` into two stages, a row's softmax statistics in one quad of
+products are executed.  Kernels 1, 3, 4 and 15 (the forward without and
+with dropout) and 9 and 16 (backward) run their products on the tensor
+cores with ``mma.sync`` -- bf16 m16n8k16, f32 as 3xTF32 -- over K / V (or
+Q / G) tiles copied by ``cp.async`` into two stages (kernel 4's bits
+beside them), a row's softmax statistics in one quad of
 lanes, the weights passed from accumulator registers into the next product
 (``csrc/mma_tile.cuh``).  In bf16 the forward rounds each tile's
 unnormalised weights ``exp(s - m)`` to bf16 before their product with v, as
 the TPU kernels round their weights (``weights.astype(v.dtype)``); the plain
-versions keep them in fp32, a difference of bf16 rounding.  Kernels 4 and
-15 (dropout forward) and 10 (RoPE inside) still run scalar fp32 FMA loops
-over shared memory (``csrc/global_attention.cu``, ``csrc/attention_tile.cuh``),
-paced by those shared-memory reads, bf16 at f32's speed; they move onto the
-tensor-core body next, 4 and 15 as its bits and Philox mask sources, then
-10, and the scalar loops go with them.
+versions keep them in fp32, a difference of bf16 rounding.  With dropout
+the mask and its scale go on those weights before that rounding.  Kernel 10
+(RoPE inside) still runs scalar fp32 FMA loops over shared memory
+(``csrc/attention_tile.cuh``), paced by those shared-memory reads, bf16 at
+f32's speed; it moves onto the tensor-core body next, and the scalar loop
+goes with it.
 
 The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
@@ -521,7 +522,11 @@ def global_attention_dropout_bits(
     """:func:`global_attention` with attention-weight dropout from
     precomputed ``bits`` (G, H, S, S) uint8: the normalized fp32 weight at
     (row, column) is kept where its byte ``>= threshold`` and scaled by
-    256 / (256 - threshold).  Differentiable in q, k and v."""
+    256 / (256 - threshold).  On the card the kept weights enter their
+    product with v rounded to v's dtype, as in :func:`global_attention`
+    (the scaled unnormalised weight; in bf16 the TPU kernel's
+    ``weights.astype(v.dtype)`` after the mask; the plain version keeps
+    fp32).  Differentiable in q, k and v."""
     _check_threshold(threshold)
     return _GlobalAttentionFn.apply(global_attention_dropout_bits, q, k, v, bits, None,
                                     num_heads, block, valid_len, threshold)
@@ -534,7 +539,10 @@ def global_attention_dropout(
     """:func:`global_attention_dropout_bits` with the bytes drawn inside the
     kernel from ``seed`` ((2,) int32 on q's device), stream (sample, head):
     the bytes :func:`philox_bits` gives for (seed, G, H, S).  Nothing of size
-    S x S is stored; the backward draws the mask again."""
+    S x S is stored; the backward draws the mask again.  On the card it is
+    the kernel of :func:`global_attention_dropout_bits` with another mask
+    source: on those bytes the two give the same bits, the kept weights
+    rounded to v's dtype before their product with v."""
     _check_threshold(threshold)
     return _GlobalAttentionFn.apply(global_attention_dropout, q, k, v, None, seed, num_heads,
                                     block, valid_len, threshold)

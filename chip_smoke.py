@@ -22,7 +22,10 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      over its time and, for the global attention, the time of
      F.scaled_dot_product_attention on the same tensors (CUDA events); the
      global backward also at a ragged S = 65 and, for each mask source,
-     twice on the same inputs, which must give the same bits; the ConvNeXt stage backward at the geometry of
+     twice on the same inputs, which must give the same bits; the global
+     dropout forward (kernels 15 and 4) at S = 250, valid_len 200 and S =
+     496 with block 16, where the seeded kernel must equal the bits kernel
+     on the dumped bytes and each must repeat bit for bit; the ConvNeXt stage backward at the geometry of
      stages 5 and 6 at 32 windows and the stage forward at stages 4, 5, 6 at
      16 windows, each beside autograd through (or the forward of) the plain
      block loop, which is many calls and not one;
@@ -174,6 +177,9 @@ DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # cores, f32 outside them (TF32 would change the f32 kernels' numerics).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# The TF32 tensor-core rate: the f32 attention kernels run each product as
+# three TF32 products (3xTF32), so their f32 work also has this bound.
+PEAK_TF32_FLOPS = 495e12
 
 
 def log(msg: str) -> None:
@@ -260,7 +266,8 @@ def bound(n_tensors: int, numel: int, dtype: str, flops: float, extra_bytes: int
     itemsize = 4 if dtype == "f32" else 2
     bytes_ms = (n_tensors * numel * itemsize + extra_bytes) / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
+    tf32x3_ms = max(bytes_ms, 3 * flops / PEAK_TF32_FLOPS * 1e3) if dtype == "f32" else None
+    return {"bound_ms": max(bytes_ms, ops_ms), "tf32x3_ms": tf32x3_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "flops": flops}
 
 
@@ -317,6 +324,8 @@ def run_case(results: dict, case, name, kernel, plain, tol, bound_, library=None
     lib = f", library {library_ms:.4f} ms" if library is not None else ""
     # The operations the function needs over the kernel's time.
     rate = f", achieved {bound_['flops'] / ms / 1e9:.2f} TFLOP/s" if bound_.get("flops") else ""
+    if bound_.get("tf32x3_ms") is not None:
+        rate += f", 3xTF32 bound {bound_['tf32x3_ms']:.4f} ms"
     log(f"kernel {case} {name}: max_abs_err {err:.3e} (tol {allowed:.1e}) "
         f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
         f"bound {bound_['bound_ms']:.4f} ms by {bound_['bound_by']}{rate}")
@@ -562,6 +571,21 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
                 lambda: ak.global_attention_plain(*qkvg[:3], HEADS, block, valid, dumped, thr),
                 kernel_tol, bound(4, qkvg[0].numel(), name, attn_flops(groups, s_len, cols, 2)),
                 library=sdpa_drop if case == "S=250" else None)
+            # Kernels 15 and 4 are one body with two mask sources: on the
+            # dumped bytes they give the same bits, and each repeats itself.
+            seeded, again = (ak.global_attention_dropout(*qkvg[:3], seed, HEADS, block, valid,
+                                                         **drop) for _ in range(2))
+            from_bits, bits_again = (ak.global_attention_dropout_bits(
+                *qkvg[:3], dumped, HEADS, block, valid, **drop) for _ in range(2))
+            same = (torch.equal(seeded, from_bits), torch.equal(seeded, again),
+                    torch.equal(from_bits, bits_again))
+            log(f"global dropout {case} {name}: seeded kernel = bits kernel on the dumped bytes "
+                f"{same[0]}; the same inputs twice, identical bits {same[1]} (seeded), "
+                f"{same[2]} (bits)")
+            if not all(same):
+                raise AssertionError(f"global dropout {case}: kernels 15 and 4 differ or do not "
+                                     f"repeat bit for bit")
+            del seeded, again, from_bits, bits_again
             run(f"global grads prng {case}", name,
                 lambda: ak.global_attention_grads_prng(*qkvg[:3], seed, qkvg[3], HEADS, block,
                                                        valid, **drop),
@@ -591,6 +615,22 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.global_attention_plain(q, k, v, HEADS, 0, None, bits, thr), kernel_tol,
             bound(4, q.numel(), name, attn_flops(n, SEQ, SEQ, 2), extra_bytes=bits.numel()),
             library=sdpa_drop)
+        # Only the bytes of columns below valid_len, or inside a row's block,
+        # must move.
+        run("global dropout bits S=250 valid_len=200", name,
+            lambda: ak.global_attention_dropout_bits(q, k, v, bits, HEADS, 0, 200, **drop),
+            lambda: ak.global_attention_plain(q, k, v, HEADS, 0, 200, bits, thr), kernel_tol,
+            bound(4, q.numel(), name, attn_flops(n, SEQ, 200, 2),
+                  extra_bytes=n * HEADS * SEQ * 200))
+        gen = torch.Generator(device="cpu").manual_seed(42)
+        fbits = torch.randint(0, 256, (BATCH, HEADS, 496, 496), generator=gen,
+                              dtype=torch.uint8).cuda()
+        run("global dropout bits S=496 block=16", name,
+            lambda: ak.global_attention_dropout_bits(fq, fk, fv, fbits, HEADS, 16, **drop),
+            lambda: ak.global_attention_plain(fq, fk, fv, HEADS, 16, None, fbits, thr),
+            kernel_tol, bound(4, fq.numel(), name, attn_flops(BATCH, 496, 16, 2),
+                              extra_bytes=BATCH * HEADS * 496 * 16))
+        del fbits
         dumped_a, dumped_b = ak.two_phase_planes(ak.philox_bits(seed, n, 2 * HEADS, PADDED), HEADS)
         run("local dropout P=256", name,
             lambda: ak.local_two_phase_dropout(*ts[:5], seed, HEADS, 16, **drop),
@@ -1744,17 +1784,18 @@ def main() -> int:
                              "transformer pair P=256 bf16"),
     }
     attention = {
-        "global_attention": ("global_attention_fwd.cu", "140", "global S=250 f32"),
+        "global_attention": ("global_attention_fwd.cuh", "140", "global S=250 f32"),
         "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
         "global_attention_grads": ("global_attention_bwd.cuh", "1104", "global grads S=250 bf16"),
         "local_two_phase_grads": ("local_attention_bwd.cu", "992", "local grads P=256 bf16"),
-        "global_attention_dropout": ("global_attention.cu", "1783", "global dropout S=250 bf16"),
+        "global_attention_dropout": ("global_attention_fwd.cuh", "1783",
+                                     "global dropout S=250 bf16"),
         "local_two_phase_dropout": ("local_attention.cu", "1622", "local dropout P=256 bf16"),
         "global_attention_grads_prng": ("global_attention_bwd.cuh", "1833",
                                         "global grads prng S=250 bf16"),
         "local_two_phase_grads_prng": ("local_attention_bwd.cu", "1682",
                                        "local grads prng P=256 bf16"),
-        "global_attention_dropout_bits": ("global_attention.cu", "381",
+        "global_attention_dropout_bits": ("global_attention_fwd.cuh", "381",
                                           "global dropout bits S=250 bf16"),
         "local_two_phase_dropout_bits": ("local_attention.cu", "697",
                                          "local dropout bits P=256 bf16"),
@@ -1762,7 +1803,7 @@ def main() -> int:
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
         "local_two_phase_rw": ("local_attention_rw.cu", "847", "local rw P=256 f32"),
-        "head_major_attention": ("global_attention_fwd.cu", "219", "head major S=250 f32"),
+        "head_major_attention": ("global_attention_fwd.cuh", "219", "head major S=250 f32"),
         "rope_attention": ("rope_attention.cu", "1229", "rope S=250 f32"),
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)

@@ -97,11 +97,12 @@ def cuda_device():
 # only in summation order (fp32 accumulation on both sides; the tensor-core
 # kernels' 3xTF32 products keep ~1e-6 relative); bf16 outputs round to 8
 # mantissa bits, one ulp near 1 is 2**-7 = 7.8e-3.  In bf16 the tensor-core
-# forward of kernels 1 and 3 rounds each tile's unnormalised softmax weights
-# to bf16 before their product with v, as the TPU kernels round theirs,
-# where the plain version keeps them in fp32: a relative 2**-9 per weight,
-# well inside one output ulp (tests/test_torch_attention_fwd.py emulates it
-# on the CPU); the scalar kernels keep fp32 weights and sum in another order.
+# forward of kernels 1, 3, 4 and 15 rounds each tile's unnormalised softmax
+# weights (with dropout: kept and scaled, or 0) to bf16 before their product
+# with v, as the TPU kernels round theirs, where the plain version keeps
+# them in fp32: a relative 2**-9 per weight, well inside one output ulp
+# (tests/test_torch_attention_fwd.py emulates it on the CPU); kernel 10's
+# scalar loop keeps fp32 weights and sums in another order.
 CARD_CASES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
 
@@ -455,6 +456,67 @@ def test_global_attention_dropout_kernels_match_plain_on_card(cuda_device, dtype
     assert (out.float() - ref.float()).abs().max().item() <= tol
     plain_free = ak.global_attention_plain(q, k, v, 4, block, valid)
     assert (out.float() - plain_free.float()).abs().max().item() > 10 * tol  # it did drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,block,valid", [(250, 0, 250), (250, 0, 200), (496, 16, 496),
+                                           (37, 0, 37), (80, 16, 40)])
+def test_global_attention_dropout_seeded_equals_bits_kernel_on_dumped_bytes_on_card(
+        cuda_device, dtype, s, block, valid):
+    """Kernels 15 and 4 are one body with two mask sources: on the bytes
+    kernel 14 dumps for the seed, the bits kernel gives the seeded kernel's
+    output bit for bit."""
+    n = 32 if s == 250 else 8
+    q, k, v = (_randn(n, s, 256, seed=3 * s + valid + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    seed = _seed(valid, -s, cuda_device)
+    seeded = ak.global_attention_dropout(q, k, v, seed, 4, block, valid, threshold=THRESHOLD)
+    bits = ak.global_attention_dropout_bits(q, k, v, ak.philox_bits(seed, n, 4, s), 4, block,
+                                            valid, threshold=THRESHOLD)
+    torch.cuda.synchronize()
+    assert torch.equal(seeded, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [250, 37])
+def test_global_attention_dropout_bits_kernel_takes_bits_at_any_alignment_on_card(
+        cuda_device, dtype, s):
+    """Kernel 4 copies its bits by the aligned word, at each row's skew:
+    the same bytes starting 1, 2 or 3 bytes past a word give the same
+    output bits as an aligned copy."""
+    q, k, v = (_randn(8, s, 256, seed=s + 7 + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    bits = _random_bits((8, 4, s, s), s, cuda_device)
+    aligned = ak.global_attention_dropout_bits(q, k, v, bits, 4, threshold=THRESHOLD)
+    for offset in (1, 2, 3):
+        storage = torch.zeros(bits.numel() + offset, dtype=torch.uint8, device=cuda_device)
+        shifted = storage[offset:].view(bits.shape)
+        shifted.copy_(bits)
+        out = ak.global_attention_dropout_bits(q, k, v, shifted, 4, threshold=THRESHOLD)
+        torch.cuda.synchronize()
+        assert torch.equal(out, aligned), offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["bits", "philox"])
+def test_global_attention_dropout_kernels_repeat_bit_for_bit_on_card(cuda_device, dtype,
+                                                                      source):
+    """Kernels 4 and 15 give the same output bits for the same inputs: no
+    atomics, every sum in a fixed order."""
+    q, k, v = (_randn(32, 250, 256, seed=95 + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    if source == "philox":
+        seed = _seed(95, 96, cuda_device)
+        call = lambda: ak.global_attention_dropout(q, k, v, seed, 4, threshold=THRESHOLD)
+    else:
+        bits = _random_bits((32, 4, 250, 250), 97, cuda_device)
+        call = lambda: ak.global_attention_dropout_bits(q, k, v, bits, 4, threshold=THRESHOLD)
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the global attention kernels of this checkout beside another
-checkout's, in turns on one card: the forward (TPU kernels 1 and 3, and 4,
-15 and 10 beside them), the backward (TPU kernels 9 and 16) and the serving
+checkout's, in turns on one card: the forward (TPU kernels 1, 3, 4 and 15,
+and 10 beside them), the backward (TPU kernels 9 and 16) and the serving
 forward of the model.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
@@ -15,8 +15,10 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     head-major copies) at 16, 32 and 128 windows, beside
     F.scaled_dot_product_attention on the same tensors; kernel 1 at 16
     windows of S = 496 with block 16 and without a block; kernels 15 and 4
-    (the seeded and the precomputed-bits dropout forms) at 32 windows, and
-    kernel 10 (``rope_attention``) at 16;
+    (the seeded and the precomputed-bits dropout forms) at 32 windows, S =
+    250 with and without valid_len 200, and at 16 windows of S = 496 with
+    block 16, beside SDPA with dropout_p = 26/256; kernel 10
+    (``rope_attention``) at 16;
   * the backward kernels at the shapes of ``chip_smoke.py`` phase 2: 32
     windows, S = 250 (no mask, precomputed bits, valid_len 200, the seeded
     mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
@@ -30,13 +32,14 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     kernels.
 Kernels by CUDA events over 50 back-to-back launches.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
-hashes and exits 1 where two builds of the same device code (kernels 4, 15,
-10, 9 and 16) give different bits.  From this tree's build it also reports,
-per global-attention kernel instantiation, the SASS counts of HMMA (tensor
-core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
-registers and spill bytes ``-Xptxas -v`` wrote to the build log.  Prints one
-line per case and writes ``attention_turns.json`` to --out.  Needs one CUDA
-device; imports no JAX.
+hashes and exits 1 where two builds of the same device code give different
+bits: against the tree before kernels 4 and 15 moved onto the tensor-core
+forward, kernels 1, 3, 10, 9 and 16 (SAME_CODE).  From this tree's build it
+also reports, per global-attention kernel instantiation, the SASS counts of
+HMMA (tensor core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and
+FFMA, and the registers and spill bytes ``-Xptxas -v`` wrote to the build
+log.  Prints one line per case and writes ``attention_turns.json`` to
+--out.  Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -54,9 +57,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
-# The cases whose device code is the same in both trees when only kernels 1
-# and 3 changed: their outputs must agree bit for bit.
-SAME_CODE = ("grads", "dropout", "rope")
+# The cases (by their first word) whose device code is the same in both
+# trees when kernels 4 and 15 moved onto the tensor-core forward: kernels 1
+# ("forward"), 3 ("head major"), 10, 9 and 16.  Their outputs must agree bit
+# for bit.
+SAME_CODE = ("forward", "head", "grads", "rope")
 
 
 def worker(root: Path) -> None:
@@ -124,12 +129,26 @@ def worker(root: Path) -> None:
         rq, rk, rv, rg = (randn(32, 65, 256, seed=70 + i, dtype=dt) for i in range(4))
         gen = torch.Generator(device="cpu").manual_seed(40)
         bits = torch.randint(0, 256, (32, 4, 250, 250), generator=gen, dtype=torch.uint8).cuda()
+        bits496 = torch.randint(0, 256, (16, 4, 496, 496), generator=gen,
+                                dtype=torch.uint8).cuda()
         sq, sk, sv = (randn(16, 250, 256, seed=90 + i, dtype=dt) for i in range(3))
+        drop, drop_bits = ak.global_attention_dropout, ak.global_attention_dropout_bits
         cases |= {
-            "dropout prng S=250 B=32": functools.partial(
-                ak.global_attention_dropout, q, k, v, seed, 4, threshold=THRESHOLD),
-            "dropout bits S=250 B=32": functools.partial(
-                ak.global_attention_dropout_bits, q, k, v, bits, 4, threshold=THRESHOLD),
+            "dropout prng S=250 B=32": functools.partial(drop, q, k, v, seed, 4,
+                                                         threshold=THRESHOLD),
+            "dropout bits S=250 B=32": functools.partial(drop_bits, q, k, v, bits, 4,
+                                                         threshold=THRESHOLD),
+            "dropout prng S=250 valid_len=200 B=32": functools.partial(
+                drop, q, k, v, seed, 4, 0, 200, threshold=THRESHOLD),
+            "dropout bits S=250 valid_len=200 B=32": functools.partial(
+                drop_bits, q, k, v, bits, 4, 0, 200, threshold=THRESHOLD),
+            "dropout prng S=496 block=16 B=16": functools.partial(
+                drop, fq, fk, fv, seed, 4, 16, threshold=THRESHOLD),
+            "dropout bits S=496 block=16 B=16": functools.partial(
+                drop_bits, fq, fk, fv, bits496, 4, 16, threshold=THRESHOLD),
+            "SDPA forward dropout S=250 B=32": functools.partial(
+                F.scaled_dot_product_attention, *(heads4(t) for t in (q, k, v)),
+                dropout_p=THRESHOLD / 256),
             "rope S=250 B=16": functools.partial(ak.rope_attention, sq, sk, sv, freqs.cos,
                                                  freqs.sin, 4),
         }
@@ -211,8 +230,7 @@ def worker(root: Path) -> None:
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
         attention = sum(ms for key, ms in kernels.items()
-                        if "global_attention_fwd_kernel<" in key
-                        or "global_attention_kernel<" in key)
+                        if "global_attention_fwd_kernel<" in key)
         serving[f"serving forward 128 windows {name}"] = {
             "median": median, "q1": q1, "q3": q3, "device_busy_ms": busy,
             "idle_share": 1 - busy / median, "global_attention_ms": attention,
