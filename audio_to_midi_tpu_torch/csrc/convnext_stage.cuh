@@ -1,7 +1,8 @@
 // Device code shared by the two ConvNeXt stage kernels
 // (convnext_stage_fwd.cu, convnext_stage_bwd.cu): the depthwise convolution
-// with LayerNorm of one row, GELU(tanh) and its derivative, and a tiled
-// matrix product on the CUDA cores with a functor for its epilogue.
+// with LayerNorm of one row, GELU(tanh) and its derivative, and the tiled
+// matrix product on the CUDA cores of the stage forward, with a functor for
+// its epilogue.
 //
 // A stage is a chain of blocks over rows (B * L, C): depthwise conv k=7 SAME
 // -> LayerNorm (fp32, eps 1e-5) -> 1x1 to H -> GELU(tanh) -> 1x1 back ->
@@ -13,11 +14,14 @@
 // grid-wide barrier between blocks.  What passes from launch to launch is
 // a scratch of one block's rows, reused for every block.
 //
-// The products run as 64 x 64 x 16 tiles in shared memory, 256 threads with
-// 4 x 4 accumulators each, fp32 FMAs on operands widened from the storage
-// type: both storage types (f32, bf16) take the same code and the same
-// summation order, which is fixed, so a call repeats bit for bit.  No
-// tensor cores yet: that is the first thing to change for speed.
+// gemm_kernel, the product on the CUDA cores, serves only the stage forward
+// (kernel 19) now; the backward's products run on the tensor cores
+// (convnext_gemm.cuh).  It runs 64 x 64 x 16 tiles in shared memory, 256
+// threads with 4 x 4 accumulators each, fp32 FMAs on operands widened from
+// the storage type: both storage types (f32, bf16) take the same code and
+// the same summation order, which is fixed, so a call repeats bit for bit.
+// Moving kernel 19 onto the tensor-core product is the next change for
+// speed.
 #pragma once
 
 #include <math.h>

@@ -11,10 +11,13 @@
 //
 // What bounds it on the card: six products of 2 R C H operations per block
 // (R = B L rows; stage 5 at 32 windows: 16,000 rows, 128 x 256, 21 blocks,
-// 132 GFLOP) over carries of depth R C elements read once: operations, on
-// the fp32 cores far more so.  The TPU kernel holds a sample and all of the
-// stage's gradient accumulators in fast memory and sums weight gradients
-// across a sequential grid.  Neither exists here; the design instead:
+// 132 GFLOP) over carries of depth R C elements read once.  On the tensor
+// cores (989 TFLOP/s bf16) the products take ~0.13 ms and what is left is
+// traffic: in bf16 each block's ten launches move ~190 MB of rows and
+// partial sums through device memory (~57 us at 3.35 TB/s, 1.2 ms for
+// stage 5).  The TPU kernel holds a sample and all of the stage's gradient
+// accumulators in fast memory and sums weight gradients across a
+// sequential grid.  Neither exists here; the design instead:
 //   * ten launches per block inside one entry, the kernel boundary being
 //     the barrier that the convolution's backward needs (du of the
 //     neighbouring rows) --
@@ -27,6 +30,10 @@
 //       8. z^T . ds and 9. t^T . da, the rows split into chunks, each
 //          chunk's partial product to the workspace;
 //      10. the partials summed in chunk / tile order into the outputs;
+//   * the six products (2-5, 8, 9) on the tensor cores, convnext_gemm.cuh:
+//     mma.sync on bf16 operands as stored, f32 as 3xTF32, tiles copied by
+//     cp.async three stages deep; the epilogues round the fp32 sum to the
+//     storage type where the TPU kernel does, before any bias;
 //   * the rows of ONE block (t, a/da, z, s, ds, dt, du) live in a workspace
 //     that every block reuses: the 2x-expanded rows are never kept for the
 //     stage;
@@ -35,25 +42,32 @@
 // The LayerNorm row statistics are recomputed in step 6 by the code of step
 // 1 instead of being stored.
 
-#include "convnext_stage.cuh"
+#include "convnext_gemm.cuh"
 
 namespace a2m {
 namespace cnx_bwd {
 
 using namespace a2m::cnx;
 
-// ---- epilogues of the four row products --------------------------------
+// ---- epilogues of the six products ---------------------------------------
+// Fed by column pairs (see mma_gemm_kernel): load(m, n) reads what the
+// pair (m, n), (m, n + 1) needs, store(...) writes it from the two fp32
+// sums.  The rounding is the TPU kernel's, value by value.
 
 template <typename T>
 struct UpEpilogue {  // a = round(acc) + b, z = round(gelu(a))
   const T* bias;
   T *a, *z;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+  using In = float2;
+  __device__ __forceinline__ In load(int, int n) const { return load_pair(bias + n); }
+  __device__ __forceinline__ void store(int m, int n, In b, float acc0, float acc1, int) const {
     const size_t at = static_cast<size_t>(m) * ld + n;
-    const float af = round_to<T>(round_to<T>(acc) + to_float(bias[n]));
-    a[at] = from_float<T>(af);
-    z[at] = from_float<T>(gelu_from_tanh(af, gelu_tanh_term(af)));
+    const float a0 = round_to<T>(round_to<T>(acc0) + b.x);
+    const float a1 = round_to<T>(round_to<T>(acc1) + b.y);
+    store_pair<T>(a + at, a0, a1);
+    store_pair<T>(z + at, gelu_from_tanh(a0, gelu_tanh_term(a0)),
+                  gelu_from_tanh(a1, gelu_tanh_term(a1)));
   }
 };
 
@@ -62,10 +76,18 @@ struct DownEpilogue {  // s = round(acc) + b; ds = do * gamma
   const T *bias, *gamma, *dout;
   T *s, *ds;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+  struct In {
+    float2 bias, gamma, dout;
+  };
+  __device__ __forceinline__ In load(int m, int n) const {
+    return {load_pair(bias + n), load_pair(gamma + n),
+            load_pair(dout + static_cast<size_t>(m) * ld + n)};
+  }
+  __device__ __forceinline__ void store(int m, int n, const In& in, float acc0, float acc1,
+                                        int) const {
     const size_t at = static_cast<size_t>(m) * ld + n;
-    s[at] = from_float<T>(round_to<T>(acc) + to_float(bias[n]));
-    ds[at] = from_float<T>(to_float(dout[at]) * to_float(gamma[n]));
+    store_pair<T>(s + at, round_to<T>(acc0) + in.bias.x, round_to<T>(acc1) + in.bias.y);
+    store_pair<T>(ds + at, in.dout.x * in.gamma.x, in.dout.y * in.gamma.y);
   }
 };
 
@@ -73,10 +95,14 @@ template <typename T>
 struct GeluGradEpilogue {  // da = round(round(acc) * gelu'(a)), written over a
   T* a;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
-    const size_t at = static_cast<size_t>(m) * ld + n;
-    const float af = to_float(a[at]);
-    a[at] = from_float<T>(round_to<T>(acc) * gelu_grad_from_tanh(af, gelu_tanh_term(af)));
+  using In = float2;
+  __device__ __forceinline__ In load(int m, int n) const {
+    return load_pair(a + static_cast<size_t>(m) * ld + n);
+  }
+  __device__ __forceinline__ void store(int m, int n, In af, float acc0, float acc1, int) const {
+    store_pair<T>(a + static_cast<size_t>(m) * ld + n,
+                  round_to<T>(acc0) * gelu_grad_from_tanh(af.x, gelu_tanh_term(af.x)),
+                  round_to<T>(acc1) * gelu_grad_from_tanh(af.y, gelu_tanh_term(af.y)));
   }
 };
 
@@ -84,8 +110,10 @@ struct StoreEpilogue {  // out[z][m][n] = acc (fp32)
   float* out;
   int ld;
   size_t plane;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int z) const {
-    out[z * plane + static_cast<size_t>(m) * ld + n] = acc;
+  struct In {};
+  __device__ __forceinline__ In load(int, int) const { return {}; }
+  __device__ __forceinline__ void store(int m, int n, In, float acc0, float acc1, int z) const {
+    store_pair<float>(out + z * plane + static_cast<size_t>(m) * ld + n, acc0, acc1);
   }
 };
 
@@ -239,19 +267,26 @@ static int ln_bwd_tile_rows(int C) {
 }
 
 // Row chunks of steps 8 and 9: enough blocks for two waves of the 132 SMs,
-// each chunk a multiple of the product's depth tile.
+// each chunk a multiple of the product's depth tile and at least four of
+// them.  Stage 5 (16,000 rows, 128 x 256): 63 chunks of 256 rows; stage 6
+// (8,000 rows, 256 x 512): 17 of 480.
+template <typename T>
 static void split_rows(int R, int C, int H, int* chunk, int* splits) {
-  const int tiles = ((C + kBM - 1) / kBM) * ((H + kBN - 1) / kBN);
+  constexpr int kK = MmaTile<T>::kK;
+  const int tiles = ((C + kMmaM - 1) / kMmaM) * ((H + kMmaN - 1) / kMmaN);
   int want = (264 + tiles - 1) / tiles;
-  const int most = (R + 4 * kBK - 1) / (4 * kBK);
+  const int most = (R + 4 * kK - 1) / (4 * kK);
   if (want > most) want = most;
   if (want < 1) want = 1;
-  *chunk = ((R + want - 1) / want + kBK - 1) / kBK * kBK;
+  *chunk = ((R + want - 1) / want + kK - 1) / kK * kK;
   *splits = (R + *chunk - 1) / *chunk;
 }
 
+// The products copy 16 bytes at a time: rows of C and H values must be
+// whole 16-byte pieces in either dtype.
 static bool valid(const Args& a) {
   if (a.depth < 1 || a.B < 1 || a.L < 1 || a.C < 1 || a.H < 1) return false;
+  if (a.C % 8 != 0 || a.H % 8 != 0) return false;
   if (static_cast<long long>(a.B) * a.L > 0x7fffffffLL / (a.C > a.H ? a.C : a.H)) return false;
   const size_t rows_smem = 2u * ln_bwd_tile_rows(a.C) * a.C * sizeof(float);
   return rows_smem <= kMaxSharedBytes;
@@ -266,7 +301,7 @@ cudaError_t run(const Args& a, size_t* need) {
   const int tiles = (R + tile_rows - 1) / tile_rows;
   const int n_small = small_count(C, H);
   int chunk, splits;
-  split_rows(R, C, H, &chunk, &splits);
+  split_rows<T>(R, C, H, &chunk, &splits);
 
   Carver ws(need != nullptr ? nullptr : a.workspace);
   T* t = ws.take<T>(rc);
@@ -316,20 +351,20 @@ cudaError_t run(const Args& a, size_t* need) {
     // down its columns.
     err = launch_conv_ln<T, true>(x, dw, dwb, ln, t, R, L, C, a.stream);
     if (err != cudaSuccess) return err;
-    err = launch_gemm<T, true, false>(t, pw1, R, H, C, C, H, C, 1,
-                                      UpEpilogue<T>{pw1b, act, z, H}, a.stream);
+    err = launch_mma_gemm<T, true, false>(t, pw1, R, H, C, C, H, C, 1,
+                                          UpEpilogue<T>{pw1b, act, z, H}, a.stream);
     if (err != cudaSuccess) return err;
     // 3: z (R, H) . pw2 (H, C).
-    err = launch_gemm<T, true, false>(z, pw2, R, C, H, H, C, H, 1,
-                                      DownEpilogue<T>{pw2b, gamma, dout, s, ds, C}, a.stream);
+    err = launch_mma_gemm<T, true, false>(z, pw2, R, C, H, H, C, H, 1,
+                                          DownEpilogue<T>{pw2b, gamma, dout, s, ds, C}, a.stream);
     if (err != cudaSuccess) return err;
     // 4: ds (R, C) . pw2^T: both operands along their rows.
-    err = launch_gemm<T, true, true>(ds, pw2, R, H, C, C, C, C, 1,
-                                     GeluGradEpilogue<T>{act, H}, a.stream);
+    err = launch_mma_gemm<T, true, true>(ds, pw2, R, H, C, C, C, C, 1,
+                                         GeluGradEpilogue<T>{act, H}, a.stream);
     if (err != cudaSuccess) return err;
     // 5: da (R, H) . pw1^T.
-    err = launch_gemm<T, true, true>(act, pw1, R, C, H, H, H, H, 1,
-                                     StoreEpilogue{dt, C, 0}, a.stream);
+    err = launch_mma_gemm<T, true, true>(act, pw1, R, C, H, H, H, H, 1,
+                                         StoreEpilogue{dt, C, 0}, a.stream);
     if (err != cudaSuccess) return err;
     // 6.
     ln_bwd_kernel<T><<<tiles, kRowThreads, rows_smem, a.stream>>>(
@@ -342,13 +377,13 @@ cudaError_t run(const Args& a, size_t* need) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // 8: dpw2 (H, C) = z^T . ds and 9: dpw1 (C, H) = t^T . da, rows as depth:
     // both operands down their columns.
-    err = launch_gemm<T, false, false>(z, ds, H, C, R, H, C, chunk, splits,
-                                       StoreEpilogue{part2, C, static_cast<size_t>(C) * H},
-                                       a.stream);
+    err = launch_mma_gemm<T, false, false>(z, ds, H, C, R, H, C, chunk, splits,
+                                           StoreEpilogue{part2, C, static_cast<size_t>(C) * H},
+                                           a.stream);
     if (err != cudaSuccess) return err;
-    err = launch_gemm<T, false, false>(t, act, C, H, R, C, H, chunk, splits,
-                                       StoreEpilogue{part1, H, static_cast<size_t>(C) * H},
-                                       a.stream);
+    err = launch_mma_gemm<T, false, false>(t, act, C, H, R, C, H, chunk, splits,
+                                           StoreEpilogue{part1, H, static_cast<size_t>(C) * H},
+                                           a.stream);
     if (err != cudaSuccess) return err;
     // 10.
     const int outputs = n_small + 2 * C * H;
@@ -402,6 +437,9 @@ extern "C" int a2m_convnext_stage_bwd(
                   dx, ddw, ddwb, dln, dpw1, dpw1b, dpw2, dpw2b, dgamma, workspace,
                   depth, B, L, C, H, static_cast<cudaStream_t>(stream)};
   if (K != a2m::cnx::kTaps || workspace == nullptr || dx == dy || !valid(a))
+    return cudaErrorInvalidValue;
+  // The products' operands are copied 16 bytes at a time.
+  if (!a2m::aligned16(pw1) || !a2m::aligned16(pw2) || !a2m::aligned16(workspace))
     return cudaErrorInvalidValue;
   return dispatch(dtype, a, nullptr);
 }

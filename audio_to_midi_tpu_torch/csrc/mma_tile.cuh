@@ -2,6 +2,9 @@
 // cores: the forward of the global attention (global_attention_fwd.cuh,
 // TPU kernels 1, 3, 4 and 15) and its backward (global_attention_bwd.cuh, TPU
 // kernels 9 and 16).  One copy, in namespace a2m; nothing here launches.
+// The ConvNeXt stage backward's product (convnext_gemm.cuh, TPU kernel 20)
+// takes its copies, ldmatrix loads and mma from here too, but not the
+// 64-row tile: its tiles are its own.
 //
 // What bounds those kernels on this card, and what these pieces do about it.
 // At the model's shapes (S = 250, 4 heads x 64) an attention core is a few
@@ -200,6 +203,27 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// x as a tf32 high part and the tf32 rounding of what it leaves.
+__device__ __forceinline__ void split_tf32(uint32_t& hi, uint32_t& lo, float x) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// 3xTF32 on fragments split once (split_tf32) for several products, as the
+// ConvNeXt product does: lo.hi + hi.lo + hi.hi, the small terms first, into
+// a fresh accumulator that is then added to d rounding to nearest -- the
+// arithmetic of Mma<float>::mma.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
 // f32: the m16n8k8 tf32 fragments hold fp32 values and are split at the
 // product.  A: a0 (grp, quad), a1 (grp + 8, quad), a2 (grp, quad + 4),
 // a3 (grp + 8, quad + 4); B: b0 (depth quad, column grp), b1 (quad + 4, grp).
@@ -241,7 +265,9 @@ struct Mma<float> {
   // 3xTF32: lo.hi + hi.lo + hi.hi, the small terms first, into a fresh
   // accumulator that is then added to d rounding to nearest: the tensor
   // core truncates its fp32 sum, and over the ~100 mma that accumulate one
-  // dq output that bias would grow with their count.
+  // dq output that bias would grow with their count.  The arithmetic of
+  // split_tf32 and mma_3xtf32, written out here: expressed through them,
+  // one instantiation of the attention forward compiled to other SASS.
   static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
     uint32_t ah[4], al[4], bh[2], bl[2];
 #pragma unroll

@@ -25,10 +25,14 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      twice on the same inputs, which must give the same bits; the global
      dropout forward (kernels 15 and 4) at S = 250, valid_len 200 and S =
      496 with block 16, where the seeded kernel must equal the bits kernel
-     on the dumped bytes and each must repeat bit for bit; the ConvNeXt stage backward at the geometry of
-     stages 5 and 6 at 32 windows and the stage forward at stages 4, 5, 6 at
-     16 windows, each beside autograd through (or the forward of) the plain
-     block loop, which is many calls and not one;
+     on the dumped bytes and each must repeat bit for bit; the ConvNeXt
+     stage backward at the geometry of stages 5 and 6 at 32 windows and at
+     519 rows (not a multiple of its product tiles), each twice on the same
+     inputs, which must give the same bits, and the stage forward at stages
+     4, 5, 6 at 16 windows, each beside autograd through (or the forward of)
+     the plain block loop, which is many calls and not one; the Philox dump
+     at the bits route's two geometries and at P = 37 and 496, equal to the
+     plain Philox's bytes, beside torch.randint;
   3. forward: the default model (~11.6 M params) from seeded weights on 16
      seeded windows (16, 2, 80000), kernel path vs plain path, bf16 and f32,
      and 8 launches of each forward kernel per forward;
@@ -167,7 +171,10 @@ LOSS_TOL_BF16 = 1e-4
 # column moves an output by a share of its largest, hundreds of ulps.
 STAGE_TOL_BF16_ULPS = {3: GRAD_TOL_BF16_ULPS, 21: 8}
 # (depth, L, C, H) of the stages the kernels take in the default model.
-STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
+STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512),
+          # kernel 20 where the rows (3 x 173 = 519) are not a multiple of its
+          # product's 128-row tile, nor of its depth tile
+          "tail": (3, 173, 128, 384)}
 TRAIN_STEPS = 4
 SERVING_BATCH = 128  # windows per forward in batch transcription
 TIMED_BATCHES = (BATCH, SERVING_BATCH)  # windows per forward in the serving timings
@@ -682,9 +689,11 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     for name, dt in DTYPES.items():
         itemsize = 4 if name == "f32" else 2
         for stage, batch, backward in ((5, train_minibatch, True), (6, train_minibatch, True),
+                                       ("tail", 3, True),
                                        (4, BATCH, False), (5, BATCH, False), (6, BATCH, False)):
             depth, l, c, hidden = STAGES[stage]
-            carries, weights, dy = stage_operands(depth, batch, l, c, hidden, dt, seed=60 + stage)
+            stage_seed = 60 + stage if isinstance(stage, int) else 69
+            carries, weights, dy = stage_operands(depth, batch, l, c, hidden, dt, seed=stage_seed)
             rows_flops = 2.0 * batch * l * c * hidden * depth
             weight_elems = sum(w.numel() for w in weights)
             stage_tol = lambda ref: grad_tol(ref, name, STAGE_TOL_BF16_ULPS[depth])
@@ -721,17 +730,19 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
     # keep rate of its bytes.  Its work is integer arithmetic, for which the
     # data sheet gives no rate: the bound is its output's bytes.  Library:
     # torch.randint of the same shape (another stream; timed only).
-    n = train_minibatch
     seed = torch.tensor([123456789, -42], dtype=torch.int32, device="cuda")
-    for case, cores, p_len in (("global S=250", HEADS, SEQ), ("local P=256", 2 * HEADS, PADDED)):
-        shape = (n, cores, p_len, p_len)
+    n = train_minibatch
+    for case, samples, cores, p_len in (
+            ("global S=250", n, HEADS, SEQ), ("local P=256", n, 2 * HEADS, PADDED),
+            ("P=37", n, HEADS, 37), ("P=496", BATCH, HEADS, 496)):
+        shape = (samples, cores, p_len, p_len)
         run(f"philox bits {case}", "uint8",
-            lambda: ak.philox_bits(seed, n, cores, p_len),
-            lambda: ak.philox_bits_plain(seed, n, cores, p_len), lambda ref: 0.0,
+            lambda: ak.philox_bits(seed, samples, cores, p_len),
+            lambda: ak.philox_bits_plain(seed, samples, cores, p_len), lambda ref: 0.0,
             {"bound_ms": math.prod(shape) / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"},
             library=lambda: torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda"))
-        dumped = ak.philox_bits(seed, n, cores, p_len)
-        if not torch.equal(dumped.cpu(), ak.philox_bits_plain(seed.cpu(), n, cores, p_len)):
+        dumped = ak.philox_bits(seed, samples, cores, p_len)
+        if not torch.equal(dumped.cpu(), ak.philox_bits_plain(seed.cpu(), samples, cores, p_len)):
             raise AssertionError("the card's mask bytes differ from the CPU's for one seed")
         keep, p_keep = (dumped >= DROPOUT_THRESHOLD).float().mean().item(), 1 - DROPOUT_THRESHOLD / 256
         sigma = math.sqrt(p_keep * (1 - p_keep) / dumped.numel())
@@ -1808,6 +1819,8 @@ def main() -> int:
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)
                for name, (source, line, case) in attention.items()} | sources
+    # Where a kernel's products live apart from its entry.
+    products = {"stage_bwd": "convnext_gemm.cuh"}
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]
@@ -1818,7 +1831,8 @@ def main() -> int:
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "case": case,
-                        **({"beside": r["beside"]} if "beside" in r else {})})
+                        **({"beside": r["beside"]} if "beside" in r else {}),
+                        **({"products": src + products[name]} if name in products else {})})
     log(f"smoke: {time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

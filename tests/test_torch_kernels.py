@@ -413,10 +413,16 @@ def _random_bits(shape, seed: int, device) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("samples,cores,p_len", [(32, 4, 250), (32, 8, 256), (3, 2, 37),
-                                                 (2, 8, 16), (1, 1, 496)])
+                                                 (2, 8, 16), (1, 1, 496),
+                                                 (1, 1, 1), (2, 3, 1), (3, 1, 15), (2, 2, 15),
+                                                 (1, 3, 17), (4, 2, 17), (5, 3, 37),
+                                                 (3, 7, 250), (33, 1, 255)])
 def test_philox_dump_kernel_equals_plain_philox_on_card(cuda_device, samples, cores, p_len):
     """Kernel 14: the bytes of the kernel are those of the plain Philox, on
-    the card and on the CPU."""
+    the card and on the CPU.  P of 1, 15 and 17 (a line shorter than a
+    Philox group, or one byte past it) and outputs whose size is not a
+    multiple of 16 bytes (samples x cores x P^2 odd) end inside a 16-byte
+    store of the kernel."""
     seed = _seed(1234567, -89, cuda_device)
     before = ak.philox_bits.launches
     out = ak.philox_bits(seed, samples, cores, p_len)
@@ -930,8 +936,10 @@ def _stage_limit(ref: torch.Tensor, dtype, depth: int) -> float:
     return (3 if depth <= 3 else 8) * 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)
 
 
+# The last three: rows (111, 519, 305) that are not a multiple of the
+# backward's 128-row product tile nor of its depth tile, H = 384.
 STAGE_GEOMETRIES = [(21, 2, 500, 128, 256), (3, 2, 250, 256, 512), (3, 2, 40, 128, 256),
-                    (2, 3, 37, 128, 384)]
+                    (2, 3, 37, 128, 384), (3, 3, 173, 128, 384), (2, 5, 61, 256, 384)]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Times the global attention kernels of this checkout beside another
-checkout's, in turns on one card: the forward (TPU kernels 1, 3, 4 and 15,
-and 10 beside them), the backward (TPU kernels 9 and 16) and the serving
-forward of the model.
+"""Times the kernels of this checkout beside another checkout's, in turns
+on one card: the global attention forward (TPU kernels 1, 3, 4 and 15, and
+10 beside them) and backward (9 and 16), the ConvNeXt stage kernels (20 and
+19), the Philox bits dump (14), and the serving forward of the model.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
 
@@ -24,6 +24,13 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
     backward; the dq and dk/dv kernels apart (device time per launch by
     torch.profiler, no mask and the seeded mask);
+  * kernel 20 (``stage_bwd``) at stages 5 and 6 of the default model, 32
+    windows, f32 and bf16, beside autograd through the plain block loop;
+    the device time of each of the ten launches of one stage-5 block (the
+    products against the row kernels, torch.profiler over 10 calls); kernel
+    19 (``stage_fwd``) at stage 5, 16 windows, beside the loop's forward;
+  * kernel 14 (``philox_bits``) at (32, 4, 250, 250) and (32, 8, 256, 256),
+    beside torch.randint of the same shape;
   * the serving forward of the default model (seeded weights,
     attention_impl "pallas") at 128 windows, bf16 and f32: the median and
     quartiles of 20 forwards, each timed by CUDA events, then 3 forwards
@@ -32,14 +39,17 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     kernels.
 Kernels by CUDA events over 50 back-to-back launches.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
-hashes and exits 1 where two builds of the same device code give different
-bits: against the tree before kernels 4 and 15 moved onto the tensor-core
-forward, kernels 1, 3, 10, 9 and 16 (SAME_CODE).  From this tree's build it
-also reports, per global-attention kernel instantiation, the SASS counts of
-HMMA (tensor core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and
-FFMA, and the registers and spill bytes ``-Xptxas -v`` wrote to the build
-log.  Prints one line per case and writes ``attention_turns.json`` to
---out.  Needs one CUDA device; imports no JAX.
+hashes and exits 1 where a tree does not repeat its own bits, or where two
+builds of kernels whose outputs must not change give different bits:
+against the tree before kernels 20 and 14 were redesigned, kernels 1, 3, 4,
+15, 10, 9, 16, 14 and 19 (SAME_CODE).  From the two builds it reports, per
+instantiation of the global attention kernels and of kernel 20's product
+(``mma_gemm_kernel``), the SASS counts of HMMA (tensor core products),
+LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the registers and
+spill bytes ``-Xptxas -v`` wrote to the build log; and it exits 1 where the
+SASS of a global attention or RoPE kernel differs from the other tree's
+(SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
+to --out.  Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import importlib.util
 import json
 import re
 import shutil
@@ -57,11 +68,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
-# The cases (by their first word) whose device code is the same in both
-# trees when kernels 4 and 15 moved onto the tensor-core forward: kernels 1
-# ("forward"), 3 ("head major"), 10, 9 and 16.  Their outputs must agree bit
-# for bit.
-SAME_CODE = ("forward", "head", "grads", "rope")
+# The cases (by their first words) whose outputs must agree bit for bit with
+# the other tree's, against the tree before kernels 20 and 14 were
+# redesigned: kernels 1 ("forward"), 3 ("head major"), 4 and 15
+# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 14 ("philox bits": new
+# code, the same bytes by definition) and 19 ("stage fwd").  Kernel 20
+# ("stage bwd") may differ from the other tree; it must repeat itself.
+SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "philox bits", "stage fwd")
+# Cases timed beside a kernel and never hashed: library calls and the paths
+# the kernels replace.
+NOT_HASHED = ("SDPA", "library")
+# (depth, L, C, H) of the ConvNeXt stages kernel 20 takes in the default
+# model; kernel 19 is timed at stage 5.
+STAGES = {5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
 
 
 def worker(root: Path) -> None:
@@ -174,12 +193,23 @@ def worker(root: Path) -> None:
                 torch.autograd.grad(out, (q4, k4, v4), heads4(g), retain_graph=True),
         }
         for case, fn in cases.items():
-            if not case.startswith("SDPA"):
+            if not case.startswith(NOT_HASHED):
                 digests[f"{case} {name}"] = digest(fn())
             times[f"{case} {name}"] = time_ms(fn)
         profiled += [cases["grads S=250"], cases["grads prng S=250"]]
         del cases
         torch.cuda.empty_cache()
+        convnext_cases(name, dt, times, digests, time_ms, digest)
+    # Kernel 14 at the bits route's two geometries (the global attention's
+    # 4 heads at S = 250, the two-phase local attention's 2 x 4 at P = 256),
+    # beside torch.randint of the same shape.
+    for samples, cores, p_len in ((32, 4, 250), (32, 8, 256)):
+        shape = (samples, cores, p_len, p_len)
+        bits_case = functools.partial(ak.philox_bits, seed, samples, cores, p_len)
+        digests[f"philox bits {shape}"] = digest(bits_case())
+        times[f"philox bits {shape}"] = time_ms(bits_case)
+        times[f"library randint {shape}"] = time_ms(functools.partial(
+            torch.randint, 0, 256, shape, dtype=torch.uint8, device="cuda"))
     # The dq and dk/dv kernels apart: device time per launch, by torch.profiler
     # in one session, told apart by their template arguments (dtype, hd 64,
     # mask source 0: none, 2: seeded).
@@ -193,7 +223,7 @@ def worker(root: Path) -> None:
             for name, dtype in (("f32", "float"), ("bf16", "__nv_bfloat16")):
                 for case, mask in (("grads S=250", 0), ("grads prng S=250", 2)):
                     if f"global_attention_{kernel}_kernel<{dtype}, 64, {mask}>" in ev.key:
-                        us = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+                        us = ev.device_time_total
                         times[f"{case} {name}, its {kernel} kernel"] = us / ev.count / 1e3
     # The serving forward: "pallas", 128 windows, the median and quartiles of
     # 20 forwards timed one by one.
@@ -241,6 +271,72 @@ def worker(root: Path) -> None:
     print(json.dumps({"times": times, "digests": digests, "serving": serving}))
 
 
+def stage_operands(depth, b, l, c, hidden, dtype, seed):
+    """Seeded (carries, weights, dy) of a ConvNeXt stage on the card, as
+    ``chip_smoke.py`` makes them: weights at the init's scales, gamma in
+    (0.5, 1.5), a LayerNorm off the identity."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    uni = lambda scale, *shape: (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+    normal = lambda *shape: torch.randn(*shape, generator=gen)
+    weights = (uni(7 ** -0.5, depth, 7, c), uni(7 ** -0.5, depth, 1, c),
+               torch.stack([1 + 0.1 * normal(depth, c), 0.1 * normal(depth, c)], 1),
+               uni(c ** -0.5, depth, c, hidden), uni(c ** -0.5, depth, 1, hidden),
+               uni(hidden ** -0.5, depth, hidden, c), uni(hidden ** -0.5, depth, 1, c),
+               0.5 + torch.rand(depth, 1, c, generator=gen))
+    weights = tuple((w.to(dtype).float() if i == 2 else w.to(dtype)).cuda().contiguous()
+                    for i, w in enumerate(weights))   # 2: ln stays fp32
+    return (normal(depth, b, l, c).to(device="cuda", dtype=dtype), weights,
+            normal(b, l, c).to(device="cuda", dtype=dtype))
+
+
+def convnext_cases(name, dt, times, digests, time_ms, digest) -> None:
+    """Kernel 20 at stages 5 and 6, 32 windows, beside autograd through the
+    plain block loop; kernel 19 at stage 5, 16 windows, beside the loop's
+    forward; and the device time of each of the ten launches of one stage-5
+    block of kernel 20 (torch.profiler, 10 calls), as ``<kernel> ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
+
+    flat = lambda out: (out[0], *out[1])   # (dx, grads) -> the nine outputs
+    for stage, (depth, l, c, hidden) in STAGES.items():
+        carries, weights, dy = stage_operands(depth, 32, l, c, hidden, dt, seed=60 + stage)
+        kernel = functools.partial(lambda *a: flat(ck.stage_bwd(*a)), carries, weights, dy)
+        digests[f"stage bwd stage {stage} B=32 {name}"] = digest(kernel())
+        times[f"stage bwd stage {stage} B=32 {name}"] = time_ms(kernel)
+        leaves = [t.clone().requires_grad_() for t in (carries[0].contiguous(), *weights)]
+        looped = ck.plain_stage(leaves[0], leaves[1:])
+        times[f"library autograd stage {stage} B=32 {name}"] = time_ms(
+            lambda: torch.autograd.grad(looped, leaves, dy, retain_graph=True))
+        del carries, weights, dy, leaves, looped
+        torch.cuda.empty_cache()
+    depth, l, c, hidden = STAGES[5]
+    carries, weights, _ = stage_operands(depth, 16, l, c, hidden, dt, seed=65)
+    x = carries[0].contiguous()
+    digests[f"stage fwd stage 5 B=16 {name}"] = digest(ck.stage_fwd(x, weights))
+    times[f"stage fwd stage 5 B=16 {name}"] = time_ms(functools.partial(ck.stage_fwd, x, weights))
+
+    def loop_forward():
+        with torch.no_grad():
+            return ck.plain_stage(x, weights)
+    times[f"library block loop stage 5 B=16 {name}"] = time_ms(loop_forward)
+    del carries, weights, x
+    carries, weights, dy = stage_operands(1, 32, l, c, hidden, dt, seed=7)
+    ck.stage_bwd(carries, weights, dy)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ck.stage_bwd(carries, weights, dy)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "a2m::cnx" in ev.key:   # the ten launches, and nothing of PyTorch's
+            us = ev.device_time_total
+            times[f"stage bwd one stage-5 block {name}, {short(ev.key)}"] = us / 10 / 1e3
+    torch.cuda.empty_cache()
+
+
 def demangle(names: list[str]) -> list[str]:
     tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     try:
@@ -252,36 +348,56 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def short(name: str) -> str:
-    """``void (anonymous namespace)::global_attention_fwd_kernel<float, 64,
-    0>(...)`` -> ``global_attention_fwd_kernel<float, 64, 0>``."""
+    """``void (anonymous namespace)::global_attention_fwd_kernel<float, (int)64,
+    (int)0>(...)`` -> ``global_attention_fwd_kernel<float, 64, 0>``; the
+    casts cu++filt writes into template arguments go first."""
+    for cast, plain in (("(bool)0", "false"), ("(bool)1", "true"), ("(int)", "")):
+        name = name.replace(cast, plain)
     hit = re.search(r"[A-Za-z_]\w*<[^()]*>", name)
     return hit.group(0) if hit else name
 
 
-KERNELS_OF_INTEREST = ("global_attention", "rope_attention")
+KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "mma_gemm_kernel")
+# The kernels whose SASS must be the other tree's: those of kernels 1, 3, 4,
+# 15, 9, 16 and 10, which share the tile primitives the kernel-20 product
+# reuses.
+SAME_SASS = ("global_attention", "rope_attention")
 
 
-def sass_counts(library: Path) -> dict[str, dict[str, int]]:
-    """Per global-attention kernel in ``library``: its tensor-core products
+def sass_counts(library: Path) -> dict[str, dict]:
+    """Per kernel of interest in ``library``: its tensor-core products
     (HMMA), asynchronous copies (LDGSTS), ldmatrix loads (LDSM), fp32 FMAs
     (FFMA) and atomics (ATOM / RED), counted in the SASS that cuobjdump
-    prints."""
+    prints, and the SHA-256 of that SASS (``sha256``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
-    counts, name = {}, None
+    counts, texts, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if any(k in name for k in KERNELS_OF_INTEREST) else None
             if name:
                 counts[name] = {op: 0 for op in (*ops, "ATOM/RED")}
+                texts[name] = hashlib.sha256()
         elif name:
+            texts[name].update(line.encode())
             for op in ops:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
             counts[name]["ATOM/RED"] += any(f" {op}" in line for op in ("ATOM", "RED."))
+    for key in counts:
+        counts[key]["sha256"] = texts[key].hexdigest()
     return dict(zip(map(short, demangle(list(counts))), counts.values()))
+
+
+def library_of(root: Path) -> Path:
+    """The kernel library that ``root``'s own build step writes."""
+    spec = importlib.util.spec_from_file_location(
+        f"cuda_build_{abs(hash(root))}", root / "audio_to_midi_tpu_torch" / "ops" / "cuda_build.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.library_path()
 
 
 def ptxas_usage(log: Path) -> dict[str, dict[str, int]]:
@@ -329,18 +445,23 @@ def main() -> int:
     if any(proc.wait() != 0 for proc in builds):
         print("a build failed", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    from audio_to_midi_tpu_torch.ops import cuda_build
-
-    library = cuda_build.library_path()
+    library = library_of(ROOT)
     try:
-        sass = sass_counts(library)
+        sass, other_sass = sass_counts(library), sass_counts(library_of(trees["other"]))
     except (OSError, subprocess.CalledProcessError) as err:
         print(f"sass not counted: {err}")
-        sass = {}
+        sass, other_sass = {}, {}
     usage = ptxas_usage(library.with_suffix(".log"))
     for kernel in sorted(set(sass) | set(usage)):
         print(f"{kernel}: sass {sass.get(kernel)}; ptxas {usage.get(kernel)}")
+    # The SASS of the kernels that share the product's primitives, tree by tree.
+    failed = []
+    for kernel in sorted(k for k in set(sass) & set(other_sass)
+                         if any(s in k for s in SAME_SASS)):
+        same = sass[kernel]["sha256"] == other_sass[kernel]["sha256"]
+        print(f"sass {kernel}: identical to the other tree {same} (must be)")
+        if not same:
+            failed.append(f"sass {kernel}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
@@ -375,13 +496,13 @@ def main() -> int:
                       + ", ".join(f"{k[:60]} {v:.1%}" for k, v in r["top_kernels"]))
     # The bits: each tree's two turns agree with themselves, and the trees
     # agree where their device code is the same.
-    bits, failed = {}, []
+    bits = {}
     for case in sorted(turns["this"][0]["digests"]):
         hashes = {label: {t["digests"].get(case) for t in turns[label]} for label in turns}
         repeat = all(len(h) == 1 for h in hashes.values())
         same = repeat and hashes["this"] == hashes["other"]
         bits[case] = {"repeats": repeat, "same_as_other": same}
-        must = case.split()[0] in SAME_CODE
+        must = case.startswith(SAME_CODE)
         print(f"bits {case}: each tree repeats {repeat}; identical to the other tree {same}"
               + (" (same device code: must be)" if must else ""))
         if not repeat or (must and not same):
@@ -389,10 +510,10 @@ def main() -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "attention_turns.json").write_text(json.dumps(
         {"card": card, "other": str(args.other), "turns": turns, "bits": bits, "sass": sass,
-         "ptxas": usage}, indent=1))
+         "other_sass": other_sass, "ptxas": usage}, indent=1))
     if failed:
-        print(f"different bits where the device code is the same, or a tree that does not "
-              f"repeat itself: {failed}", file=sys.stderr)
+        print(f"different bits or SASS where the device code must be the same, or a tree "
+              f"that does not repeat itself: {failed}", file=sys.stderr)
         return 1
     return 0
 
