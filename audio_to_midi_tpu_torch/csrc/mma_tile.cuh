@@ -1,7 +1,10 @@
 // The tile primitives of the attention kernels that run on the tensor
 // cores: the forward of the global attention (global_attention_fwd.cuh,
-// TPU kernels 1, 3, 4 and 15) and its backward (global_attention_bwd.cuh, TPU
-// kernels 9 and 16).  One copy, in namespace a2m; nothing here launches.
+// TPU kernels 1, 3, 4 and 15), its backward (global_attention_bwd.cuh, TPU
+// kernels 9 and 16) and the backward of the two-phase local attention
+// (local_attention_bwd.cuh, TPU kernels 7, 8 and 13, which take the
+// products and copies but not the 64-row tile).  One copy, in namespace
+// a2m; nothing here launches.
 // The ConvNeXt stage backward's product (convnext_gemm.cuh, TPU kernel 20)
 // takes its copies, ldmatrix loads and mma from here too, but not the
 // 64-row tile: its tiles are its own.

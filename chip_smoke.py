@@ -22,7 +22,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      over its time and, for the global attention, the time of
      F.scaled_dot_product_attention on the same tensors (CUDA events); the
      global backward also at a ragged S = 65 and, for each mask source,
-     twice on the same inputs, which must give the same bits; the global
+     twice on the same inputs, which must give the same bits; the local
+     backward (kernels 7, 13, 8) likewise at P = 80, a 64-row block cut
+     short, and twice on the same inputs for each mask source; the global
      dropout forward (kernels 15 and 4) at S = 250, valid_len 200 and S =
      496 with block 16, where the seeded kernel must equal the bits kernel
      on the dumped bytes and each must repeat bit for bit; the ConvNeXt
@@ -558,6 +560,12 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads(*ts, HEADS, 16),
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16), grads_tol,
             bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
+        # A length that cuts the local backward's 64-row blocks short: 80 = 64 + 16.
+        ts80 = [randn(n, 80, width, seed=90 + i, dtype=dt) for i in range(6)]
+        run("local grads P=80", name,
+            lambda: ak.local_two_phase_grads(*ts80, HEADS, 16),
+            lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16), grads_tol,
+            bound(11, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 5)))
 
         # --- the dropout kernels at the training shapes ---
         thr = DROPOUT_THRESHOLD
@@ -647,6 +655,11 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], HEADS, 16, **drop),
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16, dumped_a, dumped_b, thr),
             grads_tol, bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
+        dumped80 = ak.two_phase_planes(ak.philox_bits(seed, n, 2 * HEADS, 80), HEADS)
+        run("local grads prng P=80", name,
+            lambda: ak.local_two_phase_grads_prng(*ts80[:5], seed, ts80[5], HEADS, 16, **drop),
+            lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16, *dumped80, thr),
+            grads_tol, bound(11, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 5)))
         gen = torch.Generator(device="cpu").manual_seed(41)
         bits_a, bits_b = (torch.randint(0, 256, (n, HEADS, PADDED, PADDED), generator=gen,
                                         dtype=torch.uint8).cuda() for _ in range(2))
@@ -664,6 +677,27 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16, bits_a, bits_b, thr),
             grads_tol, bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5),
                              extra_bytes=window_bytes))
+        bits80 = [torch.randint(0, 256, (n, HEADS, 80, 80), generator=gen,
+                                dtype=torch.uint8).cuda() for _ in range(2)]
+        run("local grads bits P=80", name,
+            lambda: ak.local_two_phase_grads_bits(*ts80[:5], *bits80, ts80[5], HEADS, 16, **drop),
+            lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16, *bits80, thr),
+            grads_tol, bound(11, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 5),
+                             extra_bytes=2 * n * HEADS * 80 * 16))
+        # Kernels 7, 13 and 8 repeat bit for bit: no atomics, sums in a fixed order.
+        for what, call in (
+                ("", lambda: ak.local_two_phase_grads(*ts, HEADS, 16)),
+                (" prng", lambda: ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], HEADS, 16,
+                                                                **drop)),
+                (" bits", lambda: ak.local_two_phase_grads_bits(*ts[:5], bits_a, bits_b, ts[5],
+                                                                HEADS, 16, **drop))):
+            first, again = call(), call()
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            log(f"local grads{what} P=256 {name}: the same inputs twice, identical bits {same}")
+            if not same:
+                raise AssertionError(f"local grads{what} does not repeat bit for bit")
+            del first, again
+        del ts80, bits80, dumped80
 
         # The same seed twice gives the same bits of output; another seed does not.
         other = seed + 1
@@ -1798,19 +1832,19 @@ def main() -> int:
         "global_attention": ("global_attention_fwd.cuh", "140", "global S=250 f32"),
         "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
         "global_attention_grads": ("global_attention_bwd.cuh", "1104", "global grads S=250 bf16"),
-        "local_two_phase_grads": ("local_attention_bwd.cu", "992", "local grads P=256 bf16"),
+        "local_two_phase_grads": ("local_attention_bwd.cuh", "992", "local grads P=256 bf16"),
         "global_attention_dropout": ("global_attention_fwd.cuh", "1783",
                                      "global dropout S=250 bf16"),
         "local_two_phase_dropout": ("local_attention.cu", "1622", "local dropout P=256 bf16"),
         "global_attention_grads_prng": ("global_attention_bwd.cuh", "1833",
                                         "global grads prng S=250 bf16"),
-        "local_two_phase_grads_prng": ("local_attention_bwd.cu", "1682",
+        "local_two_phase_grads_prng": ("local_attention_bwd.cuh", "1682",
                                        "local grads prng P=256 bf16"),
         "global_attention_dropout_bits": ("global_attention_fwd.cuh", "381",
                                           "global dropout bits S=250 bf16"),
         "local_two_phase_dropout_bits": ("local_attention.cu", "697",
                                          "local dropout bits P=256 bf16"),
-        "local_two_phase_grads_bits": ("local_attention_bwd.cu", "1025",
+        "local_two_phase_grads_bits": ("local_attention_bwd.cuh", "1025",
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
         "local_two_phase_rw": ("local_attention_rw.cu", "847", "local rw P=256 f32"),

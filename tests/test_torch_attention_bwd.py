@@ -77,7 +77,8 @@ def test_apply_bits_rejects_thresholds_that_keep_all_or_nothing():
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("p_len", [64, 32])
+# 48 and 80: the lengths that cut the card kernel's 64-row blocks short
+@pytest.mark.parametrize("p_len", [64, 32, 48, 80])
 def test_local_two_phase_grads_plain_matches_pallas(p_len, dtype):
     jx, tx = both(inputs(p_len, 6, 2, p_len, HEADS * HD), dtype)
     ref = pa.two_phase_grads(*jx, HEADS, 16)

@@ -149,7 +149,7 @@ def test_local_two_phase_bits_plain_matches_pallas(p_len, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("p_len", [64, 32])
+@pytest.mark.parametrize("p_len", [64, 32, 48, 80])
 def test_local_two_phase_grads_bits_plain_matches_pallas(p_len, dtype):
     jx, tx = both(inputs(p_len + 1, 6, 2, p_len, HEADS * HD), dtype)
     bits = random_bits(p_len + 1, 2, 2, HEADS, p_len, p_len)

@@ -319,7 +319,8 @@ def test_global_attention_grads_kernel_matches_plain_on_card(cuda_device, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", GRAD_CASES)
-@pytest.mark.parametrize("p_len", [256, 32, 16])
+# 48, 80 and 272: a block's 64 rows cut short by P
+@pytest.mark.parametrize("p_len", [256, 32, 16, 48, 80, 272])
 def test_local_two_phase_grads_kernel_matches_plain_on_card(cuda_device, dtype, tol, p_len):
     ts = [_randn(32, p_len, 256, seed=15 + i, device=cuda_device, dtype=dtype)
           for i in range(6)]
@@ -595,7 +596,7 @@ def test_local_two_phase_dropout_kernels_match_plain_on_card(cuda_device, dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", GRAD_CASES)
 @pytest.mark.parametrize("source", ["philox", "bits"])
-@pytest.mark.parametrize("p_len", [256, 32, 16])
+@pytest.mark.parametrize("p_len", [256, 32, 16, 48, 80, 272])
 def test_local_two_phase_dropout_grads_kernels_match_plain_on_card(cuda_device, dtype, tol,
                                                                    source, p_len):
     """Kernels 13 and 8 against the plain backward."""
@@ -617,6 +618,52 @@ def test_local_two_phase_dropout_grads_kernels_match_plain_on_card(cuda_device, 
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     _assert_grads_close(outs, refs, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["none", "philox", "bits"])
+def test_local_two_phase_grads_kernels_repeat_bit_for_bit_on_card(cuda_device, dtype, source):
+    """Kernels 7, 13 and 8: no atomics and sums in a fixed order, so the same
+    inputs give the same bits."""
+    ts = [_randn(32, 256, 256, seed=35 + i, device=cuda_device, dtype=dtype) for i in range(6)]
+    if source == "philox":
+        seed = _seed(11, 12, cuda_device)
+        call = lambda: ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], 4, 16,
+                                                    threshold=THRESHOLD)
+    elif source == "bits":
+        bits_a, bits_b = (_random_bits((32, 4, 256, 256), 60 + i, cuda_device) for i in range(2))
+        call = lambda: ak.local_two_phase_grads_bits(*ts[:5], bits_a, bits_b, ts[5], 4, 16,
+                                                    threshold=THRESHOLD)
+    else:
+        call = lambda: ak.local_two_phase_grads(*ts, 4, 16)
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 5, "bits"])
+def test_local_two_phase_grads_refuses_misaligned_buffers_on_card(cuda_device, which):
+    """The rows are copied 16 bytes at a time (and the bits 8): an input that
+    does not start on 16 bytes is refused by the C entry, nothing launched."""
+    ts = [torch.zeros(2, 64, 64, device=cuda_device) for _ in range(6)]
+    bits = [torch.zeros(2, 4, 64, 64, dtype=torch.uint8, device=cuda_device) for _ in range(2)]
+    if which == "bits":
+        bits[1] = torch.zeros(1 + bits[1].numel(), dtype=torch.uint8,
+                              device=cuda_device)[1:].view(2, 4, 64, 64)
+        wrapper = ak.local_two_phase_grads_bits
+        call = lambda: wrapper(*ts[:5], *bits, ts[5], 4, 16, threshold=THRESHOLD)
+    else:
+        ts[which] = torch.zeros(1 + ts[which].numel(), device=cuda_device)[1:].view(2, 64, 64)
+        wrapper = ak.local_two_phase_grads
+        call = lambda: wrapper(*ts, 4, 16)
+    assert all(t.is_contiguous() for t in ts + bits)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        call()
+    assert wrapper.launches == before
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Times the kernels of this checkout beside another checkout's, in turns
 on one card: the global attention forward (TPU kernels 1, 3, 4 and 15, and
-10 beside them) and backward (9 and 16), the ConvNeXt stage kernels (20 and
-19), the Philox bits dump (14), and the serving forward of the model.
+10 beside them) and backward (9 and 16), the local two-phase backward (7, 13
+and 8), the ConvNeXt stage kernels (20 and 19), the Philox bits dump (14),
+and the serving forward of the model.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
+        [--cases PREFIX ...]
 
 DIR is a checkout of another commit (for example ``git archive`` of the
 parent unpacked into a directory that ``.gitignore`` lists).  Both trees
@@ -24,6 +26,9 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
     backward; the dq and dk/dv kernels apart (device time per launch by
     torch.profiler, no mask and the seeded mask);
+  * the local two-phase backward at the training shapes, 32 windows, P =
+    256: kernel 7 (no mask), 13 (the seeded mask) and 8 (random bits), and
+    each one's device time per launch by torch.profiler;
   * kernel 20 (``stage_bwd``) at stages 5 and 6 of the default model, 32
     windows, f32 and bf16, beside autograd through the plain block loop;
     the device time of each of the ten launches of one stage-5 block (the
@@ -37,18 +42,20 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     under torch.profiler: device busy time, the idle share against the
     median, the global attention's share of device time, the largest
     kernels.
-Kernels by CUDA events over 50 back-to-back launches.  Each turn also hashes
+Kernels by CUDA events over 50 back-to-back launches.  ``--cases`` keeps
+only the kernel cases whose names start with one of the prefixes (for
+example ``"local grads"``), and then skips the serving forward.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
 hashes and exits 1 where a tree does not repeat its own bits, or where two
 builds of kernels whose outputs must not change give different bits:
-against the tree before kernels 20 and 14 were redesigned, kernels 1, 3, 4,
-15, 10, 9, 16, 14 and 19 (SAME_CODE).  From the two builds it reports, per
-instantiation of the global attention kernels and of kernel 20's product
-(``mma_gemm_kernel``), the SASS counts of HMMA (tensor core products),
-LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the registers and
-spill bytes ``-Xptxas -v`` wrote to the build log; and it exits 1 where the
-SASS of a global attention or RoPE kernel differs from the other tree's
-(SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
+against the tree before the local backward was redesigned, every kernel
+but 7, 13 and 8 (SAME_CODE).  From the two builds it reports, per
+instantiation of the global attention kernels, the local backward and
+kernel 20's product (``mma_gemm_kernel``), the SASS counts of HMMA (tensor
+core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
+registers and spill bytes ``-Xptxas -v`` wrote to the build log; and it
+exits 1 where the SASS of a global attention, RoPE or kernel-20 product
+kernel differs from the other tree's (SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
 to --out.  Needs one CUDA device; imports no JAX.
 """
 
@@ -69,12 +76,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
 # The cases (by their first words) whose outputs must agree bit for bit with
-# the other tree's, against the tree before kernels 20 and 14 were
+# the other tree's, against the tree before the local backward was
 # redesigned: kernels 1 ("forward"), 3 ("head major"), 4 and 15
-# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 14 ("philox bits": new
-# code, the same bytes by definition) and 19 ("stage fwd").  Kernel 20
-# ("stage bwd") may differ from the other tree; it must repeat itself.
-SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "philox bits", "stage fwd")
+# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 14 ("philox bits"), 19
+# ("stage fwd") and 20 ("stage bwd").  Kernels 7, 13 and 8 ("local grads")
+# may differ from the other tree; they must repeat themselves.
+SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "philox bits", "stage fwd",
+             "stage bwd")
 # Cases timed beside a kernel and never hashed: library calls and the paths
 # the kernels replace.
 NOT_HASHED = ("SDPA", "library")
@@ -83,8 +91,9 @@ NOT_HASHED = ("SDPA", "library")
 STAGES = {5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
 
 
-def worker(root: Path) -> None:
-    """Times the cases with the package of ``root`` and prints one JSON line."""
+def worker(root: Path, only: list[str] | None) -> None:
+    """Times the cases with the package of ``root`` (those whose names start
+    with a prefix in ``only``, if given) and prints one JSON line."""
     sys.path.insert(0, str(root))
     import copy
 
@@ -120,6 +129,9 @@ def worker(root: Path) -> None:
         for t in out if isinstance(out, tuple) else (out,):
             sha.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
         return sha.hexdigest()
+
+    def selected(case: str) -> bool:
+        return not only or case.startswith(tuple(only))
 
     times, digests, profiled = {}, {}, []
     seed = torch.tensor([20260, -7], dtype=torch.int32, device="cuda")
@@ -192,39 +204,64 @@ def worker(root: Path) -> None:
             "SDPA backward S=250 dropout": lambda out=out_drop, q4=q4, k4=k4, v4=v4, g=g:
                 torch.autograd.grad(out, (q4, k4, v4), heads4(g), retain_graph=True),
         }
+        # Kernels 7, 13 and 8 at the training shapes.
+        ts = [randn(32, 256, 256, seed=50 + i, dtype=dt) for i in range(6)]
+        lbits = torch.randint(0, 256, (2, 32, 4, 256, 256), generator=gen,
+                              dtype=torch.uint8).cuda()
+        cases |= {
+            "local grads P=256": functools.partial(ak.local_two_phase_grads, *ts, 4, 16),
+            "local grads prng P=256": functools.partial(
+                ak.local_two_phase_grads_prng, *ts[:5], seed, ts[5], 4, 16, threshold=THRESHOLD),
+            "local grads bits P=256": functools.partial(
+                ak.local_two_phase_grads_bits, *ts[:5], lbits[0], lbits[1], ts[5], 4, 16,
+                threshold=THRESHOLD),
+        }
+        cases = {case: fn for case, fn in cases.items() if selected(case)}
         for case, fn in cases.items():
             if not case.startswith(NOT_HASHED):
                 digests[f"{case} {name}"] = digest(fn())
             times[f"{case} {name}"] = time_ms(fn)
-        profiled += [cases["grads S=250"], cases["grads prng S=250"]]
+        profiled += [cases[c] for c in PROFILED if c in cases]
         del cases
         torch.cuda.empty_cache()
-        convnext_cases(name, dt, times, digests, time_ms, digest)
+        if selected("stage"):
+            convnext_cases(name, dt, times, digests, time_ms, digest)
     # Kernel 14 at the bits route's two geometries (the global attention's
     # 4 heads at S = 250, the two-phase local attention's 2 x 4 at P = 256),
     # beside torch.randint of the same shape.
     for samples, cores, p_len in ((32, 4, 250), (32, 8, 256)):
+        if not selected("philox bits"):
+            break
         shape = (samples, cores, p_len, p_len)
         bits_case = functools.partial(ak.philox_bits, seed, samples, cores, p_len)
         digests[f"philox bits {shape}"] = digest(bits_case())
         times[f"philox bits {shape}"] = time_ms(bits_case)
         times[f"library randint {shape}"] = time_ms(functools.partial(
             torch.randint, 0, 256, shape, dtype=torch.uint8, device="cuda"))
-    # The dq and dk/dv kernels apart: device time per launch, by torch.profiler
-    # in one session, told apart by their template arguments (dtype, hd 64,
-    # mask source 0: none, 2: seeded).
+    # Device time per launch, by torch.profiler in one session: the global
+    # backward's dq and dk/dv kernels apart, and the local backward's kernel,
+    # told apart by their template arguments (dtype, hd 64, mask source 0:
+    # none, 1: bits, 2: seeded; the local kernel's rows per block follow).
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for fn in profiled:
             for _ in range(10):
                 fn()
         torch.cuda.synchronize()
     for ev in prof.key_averages():
-        for kernel in ("dq", "dkv"):
-            for name, dtype in (("f32", "float"), ("bf16", "__nv_bfloat16")):
+        for name, dtype in (("f32", "float"), ("bf16", "__nv_bfloat16")):
+            for kernel in ("dq", "dkv"):
                 for case, mask in (("grads S=250", 0), ("grads prng S=250", 2)):
                     if f"global_attention_{kernel}_kernel<{dtype}, 64, {mask}>" in ev.key:
                         us = ev.device_time_total
                         times[f"{case} {name}, its {kernel} kernel"] = us / ev.count / 1e3
+            for case, mask in (("local grads P=256", 0), ("local grads bits P=256", 1),
+                               ("local grads prng P=256", 2)):
+                if re.search(rf"local_two_phase_grads_kernel<{dtype}, 64, {mask}[,>]", ev.key):
+                    times[f"{case} {name}, per launch"] = ev.device_time_total / ev.count / 1e3
+    serving = {}
+    if only:
+        print(json.dumps({"times": times, "digests": digests, "serving": serving}))
+        return
     # The serving forward: "pallas", 128 windows, the median and quartiles of
     # 20 forwards timed one by one.
     cfg = DEFAULT_CONFIG.model
@@ -232,7 +269,6 @@ def worker(root: Path) -> None:
     rope = model_lib.make_rope(cfg, "cuda")
     gen = torch.Generator(device="cpu").manual_seed(5)
     windows = torch.randn(128, 2, 80_000, generator=gen) * 0.5
-    serving = {}
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
         x = windows.to(device="cuda", dtype=dt)
@@ -357,11 +393,15 @@ def short(name: str) -> str:
     return hit.group(0) if hit else name
 
 
-KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "mma_gemm_kernel")
+KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "mma_gemm_kernel",
+                       "local_two_phase_grads")
 # The kernels whose SASS must be the other tree's: those of kernels 1, 3, 4,
-# 15, 9, 16 and 10, which share the tile primitives the kernel-20 product
-# reuses.
-SAME_SASS = ("global_attention", "rope_attention")
+# 15, 9, 16 and 10 and kernel 20's product, which share the tile primitives
+# the local backward reuses.
+SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel")
+# The cases whose kernels torch.profiler times launch by launch.
+PROFILED = ("grads S=250", "grads prng S=250", "local grads P=256", "local grads bits P=256",
+            "local grads prng P=256")
 
 
 def sass_counts(library: Path) -> dict[str, dict]:
@@ -430,10 +470,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="a checkout of another commit")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "smoke")
+    ap.add_argument("--cases", nargs="+", help="only the kernel cases with these prefixes")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        worker(args.worker)
+        worker(args.worker, args.cases)
         return 0
     import torch
 
@@ -467,7 +508,8 @@ def main() -> int:
     print(card)
     turns = {"other": [], "this": []}
     for label in ("other", "this", "this", "other"):
-        run = subprocess.run([sys.executable, __file__, "--worker", str(trees[label])],
+        run = subprocess.run([sys.executable, __file__, "--worker", str(trees[label]),
+                              *(["--cases", *args.cases] if args.cases else [])],
                              capture_output=True, text=True)
         if run.returncode != 0:
             print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
