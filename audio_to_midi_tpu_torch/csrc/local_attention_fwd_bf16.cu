@@ -1,0 +1,8 @@
+// The bf16 instantiations of the two-phase local attention forward
+// (local_attention_fwd.cuh): 3 head dims x 3 mask sources.
+
+#include "local_attention_fwd.cuh"
+
+cudaError_t a2m::local_two_phase_bf16(const a2m::LocalArgs& a, int hd) {
+  return dispatch_hd<__nv_bfloat16>(a, hd);
+}

@@ -1,6 +1,6 @@
 // Reduced-width two-phase local attention: window 16, stride 8, with the
 // overlap average, in padded coordinates -- the TPU's per-window variant of
-// kernel 2 (local_attention.cu), attention_impl="pallas_rw".
+// kernel 2 (local_attention_fwd.cuh), attention_impl="pallas_rw".
 //
 // Replaces audio_to_midi_tpu/ops/pallas_attention.py fused_local_two_phase_rw
 // (:847; _two_phase_rw_impl :832 -> pallas_call :836, body
@@ -23,17 +23,16 @@
 // A phase-B window at the run's edge holds rows of two runs; each run
 // computes it for its own rows, so every (row, key) pair of either phase is
 // computed once.  As in the TPU body, q is scaled in its dtype, the fp32
-// softmax weights are cast to v's dtype before their product with v (kernel
-// 2 keeps them in fp32), the products accumulate in fp32, and out = (a + b)
-// / 2 inside [8, P - 8), a outside.
+// softmax weights are cast to v's dtype before their product with v (as
+// kernel 2 does), the products accumulate in fp32, and out = (a + b) / 2
+// inside [8, P - 8), a outside.
 //
 // What bounds it on the card: memory, as kernel 2.  Per (sample, head,
 // window) it does 2 x 16 x 16 x hd MACs for the logits and as many for the
 // outputs, and it reads the five (B, P, H*hd) inputs and writes the output
 // -- ~6 x 16 x 256 x 256 elements at the serving shapes, ~25 MB in f32,
-// against ~0.13 GFLOP.  Kernel 2 stages 32 rows of kb and v for each 16
-// output rows (the neighbour reads the other half again, from L2); a run of
-// kRun = 2 windows stages 48 for 32, and keeps 512 threads and ~53 KB of
+// against ~0.13 GFLOP.  A run of kRun = 2 windows stages 48 rows of kb and
+// v for 32 output rows, and keeps 512 threads and ~53 KB of
 // shared memory per block (hd 64, f32), three or four blocks to an SM.
 
 #include <math.h>

@@ -16,7 +16,9 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
 * :func:`local_two_phase`, :func:`local_two_phase_dropout_bits`,
   :func:`local_two_phase_dropout` -- ``fused_local_two_phase`` and its
   ``_dropout`` and ``_dropout_prng`` forms (local layers).
-  CUDA source: ``csrc/local_attention.cu``.
+  CUDA sources: ``csrc/local_attention.cu`` (the entry),
+  ``csrc/local_attention_fwd.cuh`` (the tensor-core body of all three, the
+  mask source a template parameter).
 * :func:`global_attention_grads` -- ``nhd_grads``: dq, dk, dv of the global
   attention, optionally with the uint8 dropout bits its forward applied;
   :func:`global_attention_grads_prng` -- ``nhd_grads_prng``, with the
@@ -77,7 +79,10 @@ lanes, the weights passed from accumulator registers into the next product
 unnormalised weights ``exp(s - m)`` to bf16 before their product with v, as
 the TPU kernels round their weights (``weights.astype(v.dtype)``); the plain
 versions keep them in fp32, a difference of bf16 rounding.  With dropout
-the mask and its scale go on those weights before that rounding.  Kernel 10
+the mask and its scale go on those weights before that rounding.  The local
+attention's forward (kernels 2, 5, 12) and backward (7, 8, 13) take the
+same products, one 16 x 16 window per warp; the forward rounds the
+normalized, masked weights to bf16, as the TPU kernel does.  Kernel 10
 (RoPE inside) still runs scalar fp32 FMA loops over shared memory
 (``csrc/attention_tile.cuh``), paced by those shared-memory reads, bf16 at
 f32's speed; it moves onto the tensor-core body next, and the scalar loop

@@ -10,9 +10,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. kernels: build from csrc/, then each kernel against its plain version
      -- the forward kernels at the serving shapes (16 windows, S=250 /
-     P=256, 4 heads x 64) and at the training shapes (32 windows), kernel 1
-     also at the serving batch of 128 windows and, with kernel 3, twice on
-     the same inputs, which must give the same bits; the
+     P=256, 4 heads x 64) and at the training shapes (32 windows), kernels 1
+     and 2 also at the serving batch of 128 windows, kernel 1 with kernel 3
+     twice on the same inputs, which must give the same bits; the
      backward kernels and every dropout kernel (seeded: against the plain
      version on the bytes the dump kernel gives for the seed; bits: on
      random bytes) at the training shapes, f32 and bf16 -- with its time
@@ -23,8 +23,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      F.scaled_dot_product_attention on the same tensors (CUDA events); the
      global backward also at a ragged S = 65 and, for each mask source,
      twice on the same inputs, which must give the same bits; the local
-     backward (kernels 7, 13, 8) likewise at P = 80, a 64-row block cut
-     short, and twice on the same inputs for each mask source; the global
+     forward and backward (kernels 2, 12, 5 and 7, 13, 8) likewise at P = 80,
+     a 64-row block cut short, and twice on the same inputs for each mask
+     source; the global
      dropout forward (kernels 15 and 4) at S = 250, valid_len 200 and S =
      496 with block 16, where the seeded kernel must equal the bits kernel
      on the dumped bytes and each must repeat bit for bit; the ConvNeXt
@@ -502,6 +503,13 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase(*ts, HEADS, 16),
             lambda: ak.local_two_phase_plain(*ts, HEADS, 16), kernel_tol,
             bound(6, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 2)))
+        # Kernel 2 at the serving batch of 128 windows.
+        bts = [randn(SERVING_BATCH, PADDED, width, seed=85 + i, dtype=dt) for i in range(5)]
+        run(f"local P=256 B={SERVING_BATCH}", name,
+            lambda: ak.local_two_phase(*bts, HEADS, 16),
+            lambda: ak.local_two_phase_plain(*bts, HEADS, 16), kernel_tol,
+            bound(6, bts[0].numel(), name, 2 * attn_flops(SERVING_BATCH, PADDED, 16, 2)))
+        del bts
         check_variant_kernels(ak, results, name, dt, ts, (q, k, v))
 
         # --- forward and backward kernels at the training shapes ---
@@ -566,6 +574,10 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads(*ts80, HEADS, 16),
             lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16), grads_tol,
             bound(11, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 5)))
+        run("local P=80", name,
+            lambda: ak.local_two_phase(*ts80[:5], HEADS, 16),
+            lambda: ak.local_two_phase_plain(*ts80[:5], HEADS, 16), kernel_tol,
+            bound(6, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 2)))
 
         # --- the dropout kernels at the training shapes ---
         thr = DROPOUT_THRESHOLD
@@ -656,6 +668,10 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads_plain(*ts, HEADS, 16, dumped_a, dumped_b, thr),
             grads_tol, bound(11, ts[0].numel(), name, 2 * attn_flops(n, PADDED, 16, 5)))
         dumped80 = ak.two_phase_planes(ak.philox_bits(seed, n, 2 * HEADS, 80), HEADS)
+        run("local dropout P=80", name,
+            lambda: ak.local_two_phase_dropout(*ts80[:5], seed, HEADS, 16, **drop),
+            lambda: ak.local_two_phase_plain(*ts80[:5], HEADS, 16, *dumped80, thr),
+            kernel_tol, bound(6, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 2)))
         run("local grads prng P=80", name,
             lambda: ak.local_two_phase_grads_prng(*ts80[:5], seed, ts80[5], HEADS, 16, **drop),
             lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16, *dumped80, thr),
@@ -684,6 +700,21 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             lambda: ak.local_two_phase_grads_plain(*ts80, HEADS, 16, *bits80, thr),
             grads_tol, bound(11, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 5),
                              extra_bytes=2 * n * HEADS * 80 * 16))
+        run("local dropout bits P=80", name,
+            lambda: ak.local_two_phase_dropout_bits(*ts80[:5], *bits80, HEADS, 16, **drop),
+            lambda: ak.local_two_phase_plain(*ts80[:5], HEADS, 16, *bits80, thr),
+            kernel_tol, bound(6, ts80[0].numel(), name, 2 * attn_flops(n, 80, 16, 2),
+                              extra_bytes=2 * n * HEADS * 80 * 16))
+        # Kernels 2, 12 and 5 repeat bit for bit: no atomics, sums in a fixed order.
+        for what, call in (
+                ("", lambda: ak.local_two_phase(*ts[:5], HEADS, 16)),
+                (" dropout", lambda: ak.local_two_phase_dropout(*ts[:5], seed, HEADS, 16, **drop)),
+                (" dropout bits", lambda: ak.local_two_phase_dropout_bits(
+                    *ts[:5], bits_a, bits_b, HEADS, 16, **drop))):
+            same = torch.equal(call(), call())
+            log(f"local{what} P=256 {name}: the same inputs twice, identical bits {same}")
+            if not same:
+                raise AssertionError(f"local{what} does not repeat bit for bit")
         # Kernels 7, 13 and 8 repeat bit for bit: no atomics, sums in a fixed order.
         for what, call in (
                 ("", lambda: ak.local_two_phase_grads(*ts, HEADS, 16)),
@@ -1830,19 +1861,20 @@ def main() -> int:
     }
     attention = {
         "global_attention": ("global_attention_fwd.cuh", "140", "global S=250 f32"),
-        "local_two_phase": ("local_attention.cu", "608", "local P=256 f32"),
+        "local_two_phase": ("local_attention_fwd.cuh", "608", "local P=256 f32"),
         "global_attention_grads": ("global_attention_bwd.cuh", "1104", "global grads S=250 bf16"),
         "local_two_phase_grads": ("local_attention_bwd.cuh", "992", "local grads P=256 bf16"),
         "global_attention_dropout": ("global_attention_fwd.cuh", "1783",
                                      "global dropout S=250 bf16"),
-        "local_two_phase_dropout": ("local_attention.cu", "1622", "local dropout P=256 bf16"),
+        "local_two_phase_dropout": ("local_attention_fwd.cuh", "1622",
+                                    "local dropout P=256 bf16"),
         "global_attention_grads_prng": ("global_attention_bwd.cuh", "1833",
                                         "global grads prng S=250 bf16"),
         "local_two_phase_grads_prng": ("local_attention_bwd.cuh", "1682",
                                        "local grads prng P=256 bf16"),
         "global_attention_dropout_bits": ("global_attention_fwd.cuh", "381",
                                           "global dropout bits S=250 bf16"),
-        "local_two_phase_dropout_bits": ("local_attention.cu", "697",
+        "local_two_phase_dropout_bits": ("local_attention_fwd.cuh", "697",
                                          "local dropout bits P=256 bf16"),
         "local_two_phase_grads_bits": ("local_attention_bwd.cuh", "1025",
                                        "local grads bits P=256 bf16"),

@@ -99,10 +99,12 @@ def cuda_device():
 # mantissa bits, one ulp near 1 is 2**-7 = 7.8e-3.  In bf16 the tensor-core
 # forward of kernels 1, 3, 4 and 15 rounds each tile's unnormalised softmax
 # weights (with dropout: kept and scaled, or 0) to bf16 before their product
-# with v, as the TPU kernels round theirs, where the plain version keeps
+# with v, and that of kernels 2, 12 and 5 its normalized (and masked)
+# weights, as the TPU kernels round theirs, where the plain versions keep
 # them in fp32: a relative 2**-9 per weight, well inside one output ulp
-# (tests/test_torch_attention_fwd.py emulates it on the CPU); kernel 10's
-# scalar loop keeps fp32 weights and sums in another order.
+# (tests/test_torch_attention_fwd.py and tests/test_torch_local_attention_fwd.py
+# emulate it on the CPU); kernel 10's scalar loop keeps fp32 weights and sums
+# in another order.
 CARD_CASES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
 
@@ -666,6 +668,112 @@ def test_local_two_phase_grads_refuses_misaligned_buffers_on_card(cuda_device, w
     assert wrapper.launches == before
 
 
+# The tensor-core forward of kernels 2, 12 and 5 (csrc/local_attention_fwd.cuh)
+# at the geometries it must take: P from one 64-row block short (32, 48) to
+# past a multiple of it (80, 272), one sample to the serving batch, head dims
+# 16, 32, 64.  Beside the plain version (CARD_CASES: in bf16 it keeps fp32
+# weights where the kernel rounds them, as the TPU kernel does) it is held to
+# the emulation of its own order of operations,
+# tests/test_torch_local_attention_fwd.tensor_core_local_forward, run on the
+# card: f32 within 2e-6 (3xTF32 products against fp32 ones, ~1e-6 relative),
+# bf16 within one ulp of the output's top binade (an fp32 sum in another
+# order flips a rounding by one ulp).
+LOCAL_FWD_TO_EMULATION = {torch.float32: 2e-6, torch.bfloat16: 1}
+
+
+def _local_forward_call(source: str, ts, heads: int, device, seed_words: tuple[int, int]):
+    """(wrapper, call, bits_a, bits_b, threshold) of one mask source; the
+    seeded source's bits are the dump kernel's bytes of its seed."""
+    b, p_len = ts[0].shape[:2]
+    if source == "philox":
+        seed = _seed(*seed_words, device)
+        bits = ak.two_phase_planes(ak.philox_bits(seed, b, 2 * heads, p_len), heads)
+        wrapper = ak.local_two_phase_dropout
+        call = lambda: wrapper(*ts, seed, heads, 16, threshold=THRESHOLD)
+        return wrapper, call, *bits, THRESHOLD
+    if source == "bits":
+        bits = [_random_bits((b, heads, p_len, p_len), sum(seed_words) + i, device)
+                for i in range(2)]
+        wrapper = ak.local_two_phase_dropout_bits
+        call = lambda: wrapper(*ts, *bits, heads, 16, threshold=THRESHOLD)
+        return wrapper, call, *bits, THRESHOLD
+    return ak.local_two_phase, lambda: ak.local_two_phase(*ts, heads, 16), None, None, 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("source", ["none", "philox", "bits"])
+@pytest.mark.parametrize("hd", [64, 32, 16])
+@pytest.mark.parametrize("batch", [1, 16, 128])
+@pytest.mark.parametrize("p_len", [32, 48, 80, 256, 272])
+def test_local_two_phase_forward_kernels_match_plain_on_card(cuda_device, dtype, tol, source,
+                                                             hd, batch, p_len):
+    """Kernels 2, 12 and 5 against their plain version and against the
+    emulation of the tensor-core body's arithmetic."""
+    # By the name pytest imports the test files under: a package named
+    # ``tests`` may be installed on the card's machine.
+    from test_torch_local_attention_fwd import tensor_core_local_forward
+
+    heads = 4 if hd > 16 else 2
+    ts = [_randn(batch, p_len, heads * hd, seed=p_len + hd + batch + i, device=cuda_device,
+                 dtype=dtype) for i in range(5)]
+    wrapper, call, bits_a, bits_b, threshold = _local_forward_call(source, ts, heads, cuda_device,
+                                                                   (p_len, batch))
+    before = wrapper.launches
+    out = call()
+    ref = ak.local_two_phase_plain(*ts, heads, 16, bits_a, bits_b, threshold)
+    emulated = tensor_core_local_forward(*ts, heads, bits_a, bits_b, threshold)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    err = (out.float() - emulated.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        top = emulated.float().abs().max().item()
+        err /= 2.0 ** (math.ceil(math.log2(max(top, 2.0 ** -100))) - 8)  # in ulps
+    assert err <= LOCAL_FWD_TO_EMULATION[dtype]
+    if source != "none":
+        plain_free = ak.local_two_phase_plain(*ts, heads, 16)
+        assert (out.float() - plain_free.float()).abs().max().item() > 10 * tol  # it did drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", ["none", "philox", "bits"])
+def test_local_two_phase_forward_kernels_repeat_bit_for_bit_on_card(cuda_device, dtype, source):
+    """Kernels 2, 12 and 5: no atomics and sums in a fixed order, so the same
+    inputs give the same bits."""
+    ts = [_randn(32, 256, 256, seed=45 + i, device=cuda_device, dtype=dtype) for i in range(5)]
+    _, call, *_ = _local_forward_call(source, ts, 4, cuda_device, (21, 22))
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 4, "bits"])
+def test_local_two_phase_refuses_misaligned_buffers_on_card(cuda_device, which):
+    """The rows are copied and the output stored 16 bytes at a time (the bits
+    copied 8): an input that does not start on 16 bytes is refused by the C
+    entry, nothing launched."""
+    ts = [torch.zeros(2, 64, 64, device=cuda_device) for _ in range(5)]
+    bits = [torch.zeros(2, 4, 64, 64, dtype=torch.uint8, device=cuda_device) for _ in range(2)]
+    if which == "bits":
+        bits[0] = torch.zeros(1 + bits[0].numel(), dtype=torch.uint8,
+                              device=cuda_device)[1:].view(2, 4, 64, 64)
+        wrapper = ak.local_two_phase_dropout_bits
+        call = lambda: wrapper(*ts, *bits, 4, 16, threshold=THRESHOLD)
+    else:
+        ts[which] = torch.zeros(1 + ts[which].numel(), device=cuda_device)[1:].view(2, 64, 64)
+        wrapper = ak.local_two_phase
+        call = lambda: wrapper(*ts, 4, 16)
+    assert all(t.is_contiguous() for t in ts + bits)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        call()
+    assert wrapper.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,heads", [(16, 2), (32, 2)])
 def test_dropout_kernels_other_head_dims_on_card(cuda_device, hd, heads):
@@ -832,8 +940,8 @@ def test_variant_kernels_match_plain_on_card(cuda_device, dtype, tol, hd, heads,
 @pytest.mark.parametrize("p_len", [256, 64])
 def test_reduced_width_kernel_matches_the_two_phase_kernel_on_card(cuda_device, dtype, tol,
                                                                    p_len):
-    """Kernel 6 computes kernel 2's function; in bf16 it rounds its softmax
-    weights to the dtype before the product with v, kernel 2 does not."""
+    """Kernel 6 computes kernel 2's function; in bf16 both round their
+    softmax weights to the dtype before the product with v."""
     ts = [_randn(16, p_len, 256, seed=70 + i, device=cuda_device, dtype=dtype) for i in range(5)]
     out, ref = ak.local_two_phase_rw(*ts, 4, 16), ak.local_two_phase(*ts, 4, 16)
     assert (out.float() - ref.float()).abs().max().item() <= tol

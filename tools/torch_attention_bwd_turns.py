@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Times the kernels of this checkout beside another checkout's, in turns
 on one card: the global attention forward (TPU kernels 1, 3, 4 and 15, and
-10 beside them) and backward (9 and 16), the local two-phase backward (7, 13
-and 8), the ConvNeXt stage kernels (20 and 19), the Philox bits dump (14),
-and the serving forward of the model.
+10 beside them) and backward (9 and 16), the local two-phase forward (2, 12
+and 5) and backward (7, 13 and 8), the ConvNeXt stage kernels (20 and 19),
+the Philox bits dump (14), and the serving forward of the model.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
         [--cases PREFIX ...]
@@ -26,6 +26,10 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
     backward; the dq and dk/dv kernels apart (device time per launch by
     torch.profiler, no mask and the seeded mask);
+  * the local two-phase forward at 16, 32 and 128 windows, P = 256: kernel
+    2 (``local P=256``), 12 (``local dropout``, the seeded mask) and 5
+    (``local dropout bits``, random bits), and each one's device time per
+    launch by torch.profiler, one session per case;
   * the local two-phase backward at the training shapes, 32 windows, P =
     256: kernel 7 (no mask), 13 (the seeded mask) and 8 (random bits), and
     each one's device time per launch by torch.profiler;
@@ -40,22 +44,23 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     attention_impl "pallas") at 128 windows, bf16 and f32: the median and
     quartiles of 20 forwards, each timed by CUDA events, then 3 forwards
     under torch.profiler: device busy time, the idle share against the
-    median, the global attention's share of device time, the largest
-    kernels.
+    median, the global and the local attention's shares of device time, the
+    largest kernels.
 Kernels by CUDA events over 50 back-to-back launches.  ``--cases`` keeps
 only the kernel cases whose names start with one of the prefixes (for
 example ``"local grads"``), and then skips the serving forward.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
 hashes and exits 1 where a tree does not repeat its own bits, or where two
 builds of kernels whose outputs must not change give different bits:
-against the tree before the local backward was redesigned, every kernel
-but 7, 13 and 8 (SAME_CODE).  From the two builds it reports, per
-instantiation of the global attention kernels, the local backward and
-kernel 20's product (``mma_gemm_kernel``), the SASS counts of HMMA (tensor
-core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
-registers and spill bytes ``-Xptxas -v`` wrote to the build log; and it
-exits 1 where the SASS of a global attention, RoPE or kernel-20 product
-kernel differs from the other tree's (SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
+against the tree before the local forward was redesigned, every kernel
+but 2, 12 and 5 (SAME_CODE).  From the two builds it reports, per
+instantiation of the global attention kernels, the local forward and
+backward and kernel 20's product (``mma_gemm_kernel``), the SASS counts of
+HMMA (tensor core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and
+FFMA, and the registers and spill bytes ``-Xptxas -v`` wrote to the build
+log; and it exits 1 where the SASS of a global attention, RoPE, kernel-20
+product or local backward kernel differs from the other tree's
+(SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
 to --out.  Needs one CUDA device; imports no JAX.
 """
 
@@ -76,13 +81,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
 # The cases (by their first words) whose outputs must agree bit for bit with
-# the other tree's, against the tree before the local backward was
+# the other tree's, against the tree before the local forward was
 # redesigned: kernels 1 ("forward"), 3 ("head major"), 4 and 15
-# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 14 ("philox bits"), 19
-# ("stage fwd") and 20 ("stage bwd").  Kernels 7, 13 and 8 ("local grads")
-# may differ from the other tree; they must repeat themselves.
-SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "philox bits", "stage fwd",
-             "stage bwd")
+# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 7, 13 and 8 ("local
+# grads"), 14 ("philox bits"), 19 ("stage fwd") and 20 ("stage bwd").
+# Kernels 2, 12 and 5 ("local P=256", "local dropout") may differ from the
+# other tree; they must repeat themselves.
+SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "local grads", "philox bits",
+             "stage fwd", "stage bwd")
 # Cases timed beside a kernel and never hashed: library calls and the paths
 # the kernels replace.
 NOT_HASHED = ("SDPA", "library")
@@ -216,12 +222,38 @@ def worker(root: Path, only: list[str] | None) -> None:
                 ak.local_two_phase_grads_bits, *ts[:5], lbits[0], lbits[1], ts[5], 4, 16,
                 threshold=THRESHOLD),
         }
+        # Kernels 2, 12 and 5 at 16, 32 and 128 windows, P = 256.
+        fgen = torch.Generator(device="cpu").manual_seed(43)
+        for n in (16, 32, 128):
+            fts = [randn(n, 256, 256, seed=100 + n + i, dtype=dt) for i in range(5)]
+            fbits = torch.randint(0, 256, (2, n, 4, 256, 256), generator=fgen,
+                                  dtype=torch.uint8).cuda()
+            cases |= {
+                f"local P=256 B={n}": functools.partial(ak.local_two_phase, *fts, 4, 16),
+                f"local dropout P=256 B={n}": functools.partial(
+                    ak.local_two_phase_dropout, *fts, seed, 4, 16, threshold=THRESHOLD),
+                f"local dropout bits P=256 B={n}": functools.partial(
+                    ak.local_two_phase_dropout_bits, *fts, fbits[0], fbits[1], 4, 16,
+                    threshold=THRESHOLD),
+            }
         cases = {case: fn for case, fn in cases.items() if selected(case)}
         for case, fn in cases.items():
             if not case.startswith(NOT_HASHED):
                 digests[f"{case} {name}"] = digest(fn())
             times[f"{case} {name}"] = time_ms(fn)
         profiled += [cases[c] for c in PROFILED if c in cases]
+        # The local forward's device time per launch, one profiler session per
+        # case: its three geometries launch the same kernel instantiation.
+        for case, fn in cases.items():
+            if not case.startswith(("local P=256", "local dropout")):
+                continue
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(ev.device_time_total for ev in prof.key_averages()
+                     if re.search(LOCAL_FORWARD_KERNEL, ev.key))
+            times[f"{case} {name}, per launch"] = us / 10 / 1e3
         del cases
         torch.cuda.empty_cache()
         if selected("stage"):
@@ -297,10 +329,12 @@ def worker(root: Path, only: list[str] | None) -> None:
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
         attention = sum(ms for key, ms in kernels.items()
                         if "global_attention_fwd_kernel<" in key)
+        local = sum(ms for key, ms in kernels.items() if re.search(LOCAL_FORWARD_KERNEL, key))
         serving[f"serving forward 128 windows {name}"] = {
             "median": median, "q1": q1, "q3": q3, "device_busy_ms": busy,
             "idle_share": 1 - busy / median, "global_attention_ms": attention,
-            "global_attention_share": attention / busy,
+            "global_attention_share": attention / busy, "local_attention_ms": local,
+            "local_attention_share": local / busy,
             "top_kernels": [(key[:120], ms / busy) for key, ms in top]}
         del m, x
         torch.cuda.empty_cache()
@@ -394,11 +428,15 @@ def short(name: str) -> str:
 
 
 KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "mma_gemm_kernel",
-                       "local_two_phase_grads")
+                       "local_two_phase_grads", "local_two_phase_fwd_kernel",
+                       "local_two_phase_kernel")
 # The kernels whose SASS must be the other tree's: those of kernels 1, 3, 4,
-# 15, 9, 16 and 10 and kernel 20's product, which share the tile primitives
-# the local backward reuses.
-SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel")
+# 15, 9, 16 and 10, kernel 20's product and the local backward (7, 13, 8),
+# which share the tile primitives the local forward reuses.
+SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel", "local_two_phase_grads")
+# The local forward's kernel, in this tree and in a tree before its
+# redesign (the scalar body: local_two_phase_kernel).
+LOCAL_FORWARD_KERNEL = r"local_two_phase(_fwd)?_kernel<"
 # The cases whose kernels torch.profiler times launch by launch.
 PROFILED = ("grads S=250", "grads prng S=250", "local grads P=256", "local grads bits P=256",
             "local grads prng P=256")
@@ -415,7 +453,11 @@ def sass_counts(library: Path) -> dict[str, dict]:
     ops = ("HMMA", "LDGSTS", "LDSM", "FFMA")
     counts, texts, name = {}, {}, None
     for line in sass.splitlines():
-        if "Function :" in line:
+        if line.startswith("Fatbin"):
+            # The next object's header: it ends the function before it, whose
+            # text would otherwise depend on which objects follow in the library.
+            name = None
+        elif "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if any(k in name for k in KERNELS_OF_INTEREST) else None
             if name:
@@ -534,7 +576,8 @@ def main() -> int:
                 r = t["serving"][case]
                 print(f"  {label}: device busy {r['device_busy_ms']:.2f} ms per forward, idle "
                       f"share {r['idle_share']:.3f}, global attention {r['global_attention_ms']:.2f}"
-                      f" ms ({r['global_attention_share']:.1%} of device time); largest "
+                      f" ms ({r['global_attention_share']:.1%} of device time), local attention "
+                      f"{r['local_attention_ms']:.2f} ms ({r['local_attention_share']:.1%}); largest "
                       + ", ".join(f"{k[:60]} {v:.1%}" for k, v in r["top_kernels"]))
     # The bits: each tree's two turns agree with themselves, and the trees
     # agree where their device code is the same.
