@@ -18,8 +18,10 @@
 // What bounds it on the card: the products, 2 P D (H hd + C) + 4 P C H hd +
 // 2 P H hd D operations a sample (~92 MFLOP at the default widths), plus the
 // attention's (local: ~4 MFLOP; global: ~67), against 2 P D elements in
-// and out.  The design: four product launches and one attention launch into
-// a workspace, then the out-projection (see fused_layer.cuh).
+// and out.  The design: four product launches and the attention (local: one
+// launch; global: a RoPE pass and the core) into a workspace, then the
+// out-projection; the products and the global core on the tensor cores
+// (fused_layer.cuh, fused_layer_impl.cuh).
 
 #include "fused_layer.cuh"
 
@@ -47,19 +49,18 @@ cudaError_t run(const Args& a, size_t* need) {
     return cudaSuccess;
   }
   const T* x = static_cast<const T*>(a.x);
-  cudaError_t err = launch_projections<T>(x, static_cast<const T*>(a.wq),
-                                          static_cast<const T*>(a.wkv),
-                                          static_cast<const T*>(a.wk),
-                                          static_cast<const T*>(a.wv), b, a.g, a.stream);
+  using L = Layer<T>;
+  cudaError_t err = L::projections(x, static_cast<const T*>(a.wq), static_cast<const T*>(a.wkv),
+                                   static_cast<const T*>(a.wk), static_cast<const T*>(a.wv), b,
+                                   a.g, a.stream);
   if (err != cudaSuccess) return err;
   const float* tables[2] = {a.cos, a.sin};
   err = a.window > 0
-            ? launch_local<T>(b, tables, kTablesByWindow, a.g, 0, a.g.P, a.scale, a.stream)
-            : launch_global<T>(b, a.cos, a.sin, a.g, 0, a.valid_len, a.scale, a.stream);
+            ? L::local_core(b, tables, kTablesByWindow, a.g, 0, a.g.P, a.scale, a.stream)
+            : L::global_core(b, a.cos, a.sin, a.g, 0, a.valid_len, a.scale, a.stream);
   if (err != cudaSuccess) return err;
-  const int R = static_cast<int>(a.g.rows()), W = a.g.width();
-  return launch_gemm<T, true, false>(b.attn, static_cast<const T*>(a.wo), R, a.g.D, W, W, a.g.D,
-                                     W, 1, StoreEpi<T>{static_cast<T*>(a.out), a.g.D}, a.stream);
+  return L::out_projection(b.attn, static_cast<const T*>(a.wo), static_cast<T*>(a.out), a.g,
+                           a.stream);
 }
 
 static bool valid(const Args& a) {

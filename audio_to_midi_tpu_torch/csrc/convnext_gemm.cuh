@@ -1,10 +1,13 @@
 // The tensor-core product of the ConvNeXt stage backward (TPU kernel 20,
-// convnext_stage_bwd.cu): out(m, n) = sum_k A(m, k) B(k, n) over one chunk
-// of the depth, handed to an epilogue functor by pairs of columns.
+// convnext_stage_bwd.cu) and of the fused transformer layers (TPU kernels
+// 11, 17 and 18, fused_layer_impl.cuh): out(m, n) = sum_k A(m, k) B(k, n)
+// over one chunk of the depth, handed to an epilogue functor by pairs of
+// columns.
 //
 // Each operand is stored along the depth (K_CONTIG: element (i, k) at
 // src[i * ld + k]) or across it (at src[k * ld + i]); the six products of a
-// block take all four pairings.  The design:
+// kernel-20 block take all four pairings, those of the fused layers
+// activations along the depth and weights across it.  The design:
 //   * warp-level mma.sync from mma_tile.cuh: bf16 m16n8k16 on the operands
 //     as stored, fp32 accumulation; f32 as 3xTF32 m16n8k8, each fragment
 //     split once per depth step and each depth step's three products added
@@ -29,8 +32,16 @@
 //     (biases, the cotangent, the activation) as 4- or 8-byte pairs, all in
 //     flight together, then writes that slice as pairs;
 //   * the sum of an output runs in one thread in depth order, whatever the
-//     grid: the same call gives the same bits.  No atomics.
+//     grid: the same call gives the same bits.  No atomics;
+//   * an operand whose rows do not start on 16 bytes (a width that does not
+//     fill whole 16-byte pieces, a base off 16 bytes: no model path, but the
+//     fused layers' entries take any width) is copied element by element
+//     (copy_elements), in the same kernel, where its epilogue type says so
+//     (kElementCopies); kernel 20's epilogues do not, and its instantiations
+//     compile as before.
 #pragma once
+
+#include <type_traits>
 
 #include "convnext_stage.cuh"
 #include "mma_tile.cuh"
@@ -82,6 +93,39 @@ __device__ __forceinline__ void copy_operand(T* dst, const T* __restrict__ src, 
     cp_async16(dst + r * P + c, src + (inside ? at : 0), inside);
   }
 }
+
+// copy_operand element by element, with plain loads and stores: for
+// operands whose rows do not start on 16 bytes.  Synchronous, yet safe in the
+// pipeline: the stage it fills was freed by the barrier at the top of the
+// iteration, and is read after a later one.
+template <typename T, bool K_CONTIG, int W>
+__device__ __forceinline__ void copy_elements(T* dst, const T* __restrict__ src, int ld, int i0,
+                                              int ilim, int k0, int klim) {
+  using Tile = MmaTile<T>;
+  constexpr int P = Tile::template pitch<K_CONTIG, W>();
+  constexpr int kCols = K_CONTIG ? Tile::kK : W;   // per stored row
+  constexpr int kRows = K_CONTIG ? W : Tile::kK;
+  static_assert(kRows * kCols % kMmaThreads == 0, "whole copies per thread");
+#pragma unroll 4
+  for (int it = 0; it < kRows * kCols / kMmaThreads; ++it) {
+    const int p = threadIdx.x + it * kMmaThreads;
+    const int r = p / kCols, c = p % kCols;
+    const int i = K_CONTIG ? r : c, k = K_CONTIG ? c : r;
+    const bool inside = i0 + i < ilim && k0 + k < klim;
+    const size_t at = K_CONTIG ? static_cast<size_t>(i0 + i) * ld + k0 + k
+                               : static_cast<size_t>(k0 + k) * ld + i0 + i;
+    dst[r * P + c] = inside ? src[at] : from_float<T>(0.f);
+  }
+}
+
+// Whether an epilogue type asks for copy_elements (static constexpr bool
+// kElementCopies = true); by default the tiles are copied by copy_operand.
+template <typename Epi, typename = void>
+struct ElementCopies : std::false_type {};
+
+template <typename Epi>
+struct ElementCopies<Epi, std::void_t<decltype(Epi::kElementCopies)>>
+    : std::integral_constant<bool, Epi::kElementCopies> {};
 
 // acc += the warp's 64 x 32 outputs of (A tile) . (B tile) over one depth
 // tile.  wm, wn: the warp's first row and column in the block tile.
@@ -190,13 +234,15 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 }
 
 // out(m, n) = sum_k A(m, k) B(n, k) over k in [z * chunk, (z + 1) * chunk)
-// of [0, K), z = blockIdx.z, for m < M, n < N (N even), handed to the
-// epilogue by column pairs: first in = epi.load(m, n) for the 8 pairs of a
+// of [0, K), z = blockIdx.z, for m < M, n < N (N even, or an epilogue that
+// stores the last column of an odd N alone), handed to the epilogue by column
+// pairs: first in = epi.load(m, n) for the 8 pairs of a
 // thread's 16-row slice, then epi.store(m, n, in, sum(m, n), sum(m, n + 1),
 // z) for each.  The loads of a slice are in flight together: handed one
 // element at a time, each load would wait for the stores before it, which
 // the compiler must assume may alias it.
-// A_KC / B_KC: each operand stored along k or across it (copy_operand).
+// A_KC / B_KC: each operand stored along k or across it (copy_operand, or
+// copy_elements where ElementCopies<Epi>).
 template <typename T, bool A_KC, bool B_KC, typename Epi>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, int K, int lda,
@@ -215,8 +261,13 @@ mma_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, int M, int N, 
   auto load = [&](int kt) {
     T* stage = smem + (kt % kMmaStages) * kStage;
     const int k0 = k_begin + kt * Tile::kK;
-    copy_operand<T, A_KC, kMmaM>(stage, A, lda, m0, M, k0, k_end);
-    copy_operand<T, B_KC, kMmaN>(stage + kA, B, ldb, n0, N, k0, k_end);
+    if constexpr (ElementCopies<Epi>::value) {
+      copy_elements<T, A_KC, kMmaM>(stage, A, lda, m0, M, k0, k_end);
+      copy_elements<T, B_KC, kMmaN>(stage + kA, B, ldb, n0, N, k0, k_end);
+    } else {
+      copy_operand<T, A_KC, kMmaM>(stage, A, lda, m0, M, k0, k_end);
+      copy_operand<T, B_KC, kMmaN>(stage + kA, B, ldb, n0, N, k0, k_end);
+    }
   };
 #pragma unroll
   for (int s = 0; s < kMmaStages - 1; ++s) {

@@ -14,14 +14,13 @@
 // grid-wide barrier between blocks.  What passes from launch to launch is
 // a scratch of one block's rows, reused for every block.
 //
-// gemm_kernel, the product on the CUDA cores, serves only the stage forward
-// (kernel 19) now; the backward's products run on the tensor cores
+// gemm_kernel, the product on the CUDA cores, serves the stage forward
+// (kernel 19) alone: the products of the stage backward (kernel 20) and of
+// the fused transformer layers (kernels 11, 17, 18) run on the tensor cores
 // (convnext_gemm.cuh).  It runs 64 x 64 x 16 tiles in shared memory, 256
 // threads with 4 x 4 accumulators each, fp32 FMAs on operands widened from
 // the storage type: both storage types (f32, bf16) take the same code and
 // the same summation order, which is fixed, so a call repeats bit for bit.
-// Moving kernel 19 onto the tensor-core product is the next change for
-// speed.
 #pragma once
 
 #include <math.h>

@@ -5,9 +5,11 @@
 // (local_attention_bwd.cuh, TPU kernels 7, 8 and 13, which take the
 // products and copies but not the 64-row tile).  One copy, in namespace
 // a2m; nothing here launches.
-// The ConvNeXt stage backward's product (convnext_gemm.cuh, TPU kernel 20)
-// takes its copies, ldmatrix loads and mma from here too, but not the
-// 64-row tile: its tiles are its own.
+// The tensor-core product (convnext_gemm.cuh: TPU kernel 20 and the fused
+// layers, 11, 17, 18) takes its copies, ldmatrix loads and mma from here
+// too, but not the 64-row tile: its tiles are its own.  The fused layers'
+// global core (fused_layer_impl.cuh) takes the 64-row tile, copy_tile, the
+// resident Q, chunk_product and accumulate_product.
 //
 // What bounds those kernels on this card, and what these pieces do about it.
 // At the model's shapes (S = 250, 4 heads x 64) an attention core is a few

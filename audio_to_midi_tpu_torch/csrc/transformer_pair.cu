@@ -14,11 +14,13 @@
 // through a workspace; the kernel boundary is the barrier between row-wise
 // steps and attention.
 //
-// What bounds it on the card: the products, ~660 MFLOP a sample at the
-// default widths (~10.6 GFLOP at 16 windows: ~0.16 ms at the fp32 peak,
-// ~0.011 ms at the bf16 tensor-core peak), against 2 P D elements in and out.
-// The products run on the fp32 cores: tensor cores are the first thing to
-// change for speed.
+// What bounds it on the card: ~660 MFLOP a sample at the default widths
+// (~10.6 GFLOP at 16 windows, ~9.4 of them in the 14 products: ~0.011 ms at
+// the bf16 tensor-core peak, ~0.064 ms as 3xTF32 in f32), against 2 P D
+// elements in and out.  Every product and the global attention core run on
+// the tensor cores (fused_layer_impl.cuh); at 16 windows the pair's 23
+// launches are short enough that their latency and tails, not a roofline,
+// set its time.
 
 #include "fused_layer.cuh"
 
@@ -58,17 +60,18 @@ cudaError_t run(const Args& a, size_t* need) {
   auto ln = [&](int i) { return static_cast<const float*>(a.w[i]); };
   const float* local_tables[4] = {a.t[0], a.t[1], a.t[2], a.t[3]};
   const float* global_tables[2] = {a.t[4], a.t[5]};
-  cudaError_t err = attention_sublayer<T>(static_cast<const T*>(a.x), ln(0), w(1), w(2), w(3),
+  using L = Layer<T>;
+  cudaError_t err = L::attention_sublayer(static_cast<const T*>(a.x), ln(0), w(1), w(2), w(3),
                                           w(4), w(5), local_tables, xa, b, a.g, a.S, a.pad_l,
                                           true, a.scale, a.stream);
   if (err != cudaSuccess) return err;
-  err = ffn_sublayer<T>(xa, ln(6), w(7), w(8), w(9), w(10), xb, b.normed, h1, gate, a.g, a.S,
+  err = L::ffn_sublayer(xa, ln(6), w(7), w(8), w(9), w(10), xb, b.normed, h1, gate, a.g, a.S,
                         a.pad_l, a.stream);
   if (err != cudaSuccess) return err;
-  err = attention_sublayer<T>(xb, ln(11), w(12), w(13), w(14), w(15), w(16), global_tables, xa, b,
-                              a.g, a.S, a.pad_l, false, a.scale, a.stream);
+  err = L::attention_sublayer(xb, ln(11), w(12), w(13), w(14), w(15), w(16), global_tables, xa,
+                              b, a.g, a.S, a.pad_l, false, a.scale, a.stream);
   if (err != cudaSuccess) return err;
-  return ffn_sublayer<T>(xa, ln(17), w(18), w(19), w(20), w(21), static_cast<T*>(a.out),
+  return L::ffn_sublayer(xa, ln(17), w(18), w(19), w(20), w(21), static_cast<T*>(a.out),
                          b.normed, h1, gate, a.g, a.S, a.pad_l, a.stream);
 }
 

@@ -1,9 +1,10 @@
 """The fused transformer-layer kernels, with their plain versions.
 
 Counterpart of kernels 11, 17 and 18 of the JAX package, one family of
-device code (``csrc/fused_layer.cuh``): row LayerNorm -> q / kv / k / v
-products -> RoPE -> masked multi-head attention -> out-proj (-> masked
-residual, -> GLU FFN).
+device code (``csrc/fused_layer.cuh``, ``csrc/fused_layer_impl.cuh``): row
+LayerNorm -> q / kv / k / v products -> RoPE -> masked multi-head attention
+-> out-proj (-> masked residual, -> GLU FFN), the products and the global
+attention on the tensor cores.
 
 * :func:`attention_block` -- ``ops/pallas_attention.py``
   ``fused_attention_layer`` (``attention_impl="pallas_block"``): x

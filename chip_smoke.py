@@ -1885,8 +1885,11 @@ def main() -> int:
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)
                for name, (source, line, case) in attention.items()} | sources
-    # Where a kernel's products live apart from its entry.
-    products = {"stage_bwd": "convnext_gemm.cuh"}
+    # Where a kernel's products live apart from its entry: the tensor-core
+    # product of kernel 20 and of the fused layers, whose device code is in
+    # fused_layer_impl.cuh.
+    products = dict.fromkeys(("stage_bwd", "attention_block", "fused_local_sublayer",
+                              "fused_global_sublayer", "transformer_pair"), "convnext_gemm.cuh")
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]

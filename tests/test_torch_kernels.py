@@ -12,6 +12,7 @@ is no CUDA device.  On a GPU machine:
 """
 
 import dataclasses
+import functools
 import math
 
 import pytest
@@ -1203,41 +1204,12 @@ FUSED_CASES = ("block local", "block global", "local sublayer", "global sublayer
 def _fused_outputs(case: str, seq: int, batch: int, dtype, device="cpu", seed=0):
     """(wrapper output, plain version's output) of one case on seeded inputs
     and a seeded pair whose LayerNorms are off the identity."""
-    cfg = FUSED_CFG
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    pair = pt_transformer.AlternatingLayer(cfg, gen)
+    # By the name pytest imports the test files under (see above).
+    from test_torch_fused_mma import fused_call
+
+    wrapper, plain, args, kwargs = fused_call(case, FUSED_CFG, seq, batch, dtype, device, seed)
     with torch.no_grad():
-        for name, p in pair.named_parameters():
-            if "norm" in name:
-                p.add_(0.1 * torch.randn(p.shape, generator=gen))
-    pair = pair.to(device)
-    rope = pt_model.make_rope(cfg, device)
-    pad_l, pad_r = pt_attention._local_padding(seq, 16)
-    p_len = seq + pad_l + pad_r
-    x = _randn(batch, seq, 256, seed=seed + 1, device=device, dtype=dtype)
-    xp = torch.nn.functional.pad(x, (0, 0, pad_l, pad_r))
-    geometry = dict(num_heads=4, valid_len=seq, pad_l=pad_l)
-    tables = pt_transformer._pair_rope_tables(rope, cfg, p_len, pad_l)
-    with torch.no_grad():
-        if case.startswith("block"):
-            att = pair.get_submodule("local").attention
-            ws = [lin.w.to(dtype) for lin in (att.q_up, att.kv_down, att.k_up, att.v_up, att.out)]
-            window, rows_in = (16, xp) if case == "block local" else (0, x)
-            p = rows_in.shape[1]
-            cos, sin = pt_attention._rope_tables(rope, (p // 8 - 1) * 16 if window else p, window)
-            args = (rows_in, *ws, cos, sin, 4, p, window)
-            return flk.attention_block(*args), flk.attention_block_plain(*args)
-        if case == "pair":
-            pw = flk.pair_weights(pair, dtype)
-            return (flk.transformer_pair(xp, pw, tables, window=16, **geometry),
-                    flk.transformer_pair_plain(xp, pw, tables, window=16, **geometry))
-        if case == "local sublayer":
-            sw = flk.sublayer_weights(pair.get_submodule("local"), dtype)
-            return (flk.fused_local_sublayer(xp, sw, tables[:4], window=16, **geometry),
-                    flk.fused_sublayer_plain(xp, sw, tables[:4], window=16, **geometry))
-        sw = flk.sublayer_weights(pair.get_submodule("global"), dtype)
-        return (flk.fused_global_sublayer(xp, sw, tables[4:], **geometry),
-                flk.fused_sublayer_plain(xp, sw, tables[4:], **geometry))
+        return wrapper(*args, **kwargs), plain(*args, **kwargs)
 
 
 def test_fused_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
@@ -1319,3 +1291,104 @@ def test_fused_layer_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     with pytest.raises(ValueError):                            # bf16 rows, f32 weights
         flk.attention_block(x.bfloat16(), *ws, cos, sin, 4, 250, 0)
     assert [fn.launches for fn in flk.KERNELS] == before
+
+
+# Kernels 11, 17 and 18 against the emulation of their tensor-core arithmetic
+# (tests/test_torch_fused_mma.py, run on the card: 3xTF32 products in f32,
+# the global core's weights rounded after the whole row), at the limits they
+# are held to against the plain versions; at widths that do not fill 16-byte
+# pieces (kv 50, FFN 298: the products copy element by element); on an x that
+# does not start on 16 bytes; and the operands the model paths hand them.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq,batch", [(250, 16), (58, 3)])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_layer_kernels_match_their_emulation_on_card(cuda_device, dtype, seq, batch, case):
+    # By the name pytest imports the test files under (see above).
+    from test_torch_fused_mma import emulate, fused_call
+
+    wrapper, plain, args, kwargs = fused_call(case, FUSED_CFG, seq, batch, dtype, cuda_device,
+                                              seed=seq)
+    with torch.no_grad():
+        out = wrapper(*args, **kwargs)
+    emulated = emulate(plain, *args, **kwargs)
+    torch.cuda.synchronize()
+    assert out.dtype == emulated.dtype and out.shape == emulated.shape
+    assert (out.float() - emulated.float()).abs().max().item() <= _fused_limit(emulated)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_layer_kernels_take_widths_off_16_bytes_on_card(cuda_device, dtype, case):
+    """kv 50 and FFN 298 (rows of 100 and 596 bytes in bf16, 200 and 1192 in
+    f32): the entries take them, as before the products moved to the tensor
+    cores; the same inputs give the same bits, padding rows stay zero."""
+    from test_torch_fused_mma import RAGGED_CFG, emulate, fused_call
+
+    wrapper, plain, args, kwargs = fused_call(case, RAGGED_CFG, 58, 3, dtype, cuda_device, seed=5)
+    before = wrapper.launches
+    with torch.no_grad():
+        out, again = wrapper(*args, **kwargs), wrapper(*args, **kwargs)
+        ref = plain(*args, **kwargs)
+    emulated = emulate(plain, *args, **kwargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _fused_limit(ref)
+    assert (out.float() - emulated.float()).abs().max().item() <= _fused_limit(emulated)
+    assert torch.equal(out, again)
+    if not case.startswith("block"):
+        pad_l = pt_attention._local_padding(58, 16)[0]
+        assert not out[:, :pad_l].any() and not out[:, pad_l + 58:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["block global", "global sublayer", "pair"])
+def test_fused_layer_kernels_take_an_x_off_16_bytes_on_card(cuda_device, dtype, case):
+    """An x one element past a 16-byte boundary: the products that read it
+    copy it element by element, in the same order of sums, so the output
+    has the bits of the aligned call."""
+    from test_torch_fused_mma import fused_call
+
+    wrapper, _, args, kwargs = fused_call(case, FUSED_CFG, 58, 3, dtype, cuda_device, seed=6)
+    x = args[0]
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    with torch.no_grad():
+        out, ref = wrapper(shifted, *args[1:], **kwargs), wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["pallas_block", "pallas_fused", "pallas_pair"])
+def test_model_paths_hand_the_fused_kernels_16_byte_operands_on_card(cuda_device, monkeypatch,
+                                                                     dtype, impl):
+    """Every tensor the transformer stack hands kernels 11, 17 and 18 at the
+    default widths starts on 16 bytes and holds rows of whole 16-byte pieces,
+    so no model path takes the products' element copies."""
+    seen = []
+    for kernel in flk.KERNELS:
+        @functools.wraps(kernel)  # keeps .launches, which the wrappers count by their name
+        def recording(*args, _kernel=kernel, **kwargs):
+            for a in args:
+                for t in a if isinstance(a, (tuple, list)) else (a,):
+                    if isinstance(t, torch.Tensor):
+                        seen.append((t.data_ptr(), t.shape[-1] * t.element_size()))
+            return _kernel(*args, **kwargs)
+        monkeypatch.setattr(flk, kernel.__name__, recording)
+    cfg = dataclasses.replace(FUSED_CFG, attention_impl=impl, num_transformer_layers=2)
+    stack = pt_transformer.TransformerStack(cfg, torch.Generator().manual_seed(1))
+    stack = stack.to(device=cuda_device, dtype=dtype)
+    x = _randn(4, 250, cfg.transformer_hidden_dim, seed=8, device=cuda_device, dtype=dtype)
+    with torch.no_grad():
+        out = pt_transformer.transformer_stack(x, stack, pt_model.make_rope(cfg, cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and len(seen) > 0
+    assert all(ptr % 16 == 0 and row_bytes % 16 == 0 for ptr, row_bytes in seen), seen

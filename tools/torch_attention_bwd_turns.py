@@ -3,7 +3,8 @@
 on one card: the global attention forward (TPU kernels 1, 3, 4 and 15, and
 10 beside them) and backward (9 and 16), the local two-phase forward (2, 12
 and 5) and backward (7, 13 and 8), the ConvNeXt stage kernels (20 and 19),
-the Philox bits dump (14), and the serving forward of the model.
+the Philox bits dump (14), the fused transformer-layer kernels (11, 18 and
+17), and the serving forward of the model by attention route.
 
     python3 tools/torch_attention_bwd_turns.py --other DIR [--out OUT]
         [--cases PREFIX ...]
@@ -40,28 +41,38 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     19 (``stage_fwd``) at stage 5, 16 windows, beside the loop's forward;
   * kernel 14 (``philox_bits``) at (32, 4, 250, 250) and (32, 8, 256, 256),
     beside torch.randint of the same shape;
-  * the serving forward of the default model (seeded weights,
-    attention_impl "pallas") at 128 windows, bf16 and f32: the median and
+  * the fused transformer-layer kernels at the default widths (D 256, 4
+    heads x 64, kv 64, FFN 512; S = 250 -> P = 256, pad_l 3) at 16 and 128
+    windows, f32 and bf16: kernel 11 (``attention block local P=256``,
+    ``attention block global S=250``), 18 (``fused local|global sublayer``)
+    and 17 (``transformer pair``), and the device time of each of an entry's
+    launches by kernel name (products, LayerNorm, GLU, local and global
+    core), torch.profiler over 10 calls, one session per case;
+  * the serving forward of the default model (seeded weights) by
+    attention_impl ("pallas", "pallas_block", "pallas_fused",
+    "pallas_pair") at 16 and 128 windows, bf16 and f32: the median and
     quartiles of 20 forwards, each timed by CUDA events, then 3 forwards
     under torch.profiler: device busy time, the idle share against the
-    median, the global and the local attention's shares of device time, the
-    largest kernels.
+    median, the global and the local attention's and the fused layers'
+    shares of device time, the largest kernels.
 Kernels by CUDA events over 50 back-to-back launches.  ``--cases`` keeps
 only the kernel cases whose names start with one of the prefixes (for
 example ``"local grads"``), and then skips the serving forward.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
 hashes and exits 1 where a tree does not repeat its own bits, or where two
 builds of kernels whose outputs must not change give different bits:
-against the tree before the local forward was redesigned, every kernel
-but 2, 12 and 5 (SAME_CODE).  From the two builds it reports, per
-instantiation of the global attention kernels, the local forward and
-backward and kernel 20's product (``mma_gemm_kernel``), the SASS counts of
-HMMA (tensor core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and
-FFMA, and the registers and spill bytes ``-Xptxas -v`` wrote to the build
-log; and it exits 1 where the SASS of a global attention, RoPE, kernel-20
-product or local backward kernel differs from the other tree's
-(SAME_SASS).  Prints one line per case and writes ``attention_turns.json``
-to --out.  Needs one CUDA device; imports no JAX.
+against the tree before the fused layers' products moved to the tensor
+cores, every kernel but 11, 17 and 18 (SAME_CODE).  From the two builds it
+reports, per instantiation of the global attention kernels, the local
+forward and backward, the tensor-core product (``mma_gemm_kernel``: kernel
+20's and the fused layers'), kernel 19's product (``gemm_kernel``) and the
+fused layers' global core and RoPE pass, the SASS counts of HMMA (tensor
+core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
+registers and spill bytes ``-Xptxas -v`` wrote to the build log; and it
+exits 1 where the SASS of a global attention, RoPE, product (kernel 20's,
+kernel 19's) or local forward or backward kernel that both trees build
+differs (SAME_SASS).  Prints one line per case and writes
+``attention_turns.json`` to --out.  Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -81,14 +92,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
 # The cases (by their first words) whose outputs must agree bit for bit with
-# the other tree's, against the tree before the local forward was
-# redesigned: kernels 1 ("forward"), 3 ("head major"), 4 and 15
-# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 7, 13 and 8 ("local
-# grads"), 14 ("philox bits"), 19 ("stage fwd") and 20 ("stage bwd").
-# Kernels 2, 12 and 5 ("local P=256", "local dropout") may differ from the
-# other tree; they must repeat themselves.
-SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "local grads", "philox bits",
-             "stage fwd", "stage bwd")
+# the other tree's, against the tree before the fused layers' products moved
+# to the tensor cores: kernels 1 ("forward"), 3 ("head major"), 4 and 15
+# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 2, 12 and 5 ("local P=256",
+# "local dropout"), 7, 13 and 8 ("local grads"), 14 ("philox bits"), 19
+# ("stage fwd") and 20 ("stage bwd").  Kernels 11, 18 and 17 ("attention
+# block", "fused", "transformer pair") may differ from the other tree; they
+# must repeat themselves.
+SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "local P=256", "local dropout",
+             "local grads", "philox bits", "stage fwd", "stage bwd")
 # Cases timed beside a kernel and never hashed: library calls and the paths
 # the kernels replace.
 NOT_HASHED = ("SDPA", "library")
@@ -102,13 +114,13 @@ def worker(root: Path, only: list[str] | None) -> None:
     with a prefix in ``only``, if given) and prints one JSON line."""
     sys.path.insert(0, str(root))
     import copy
+    import dataclasses
 
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
-    from audio_to_midi_tpu_torch.infer import _parity_precision
     from audio_to_midi_tpu_torch.models import model as model_lib
     from audio_to_midi_tpu_torch.models.rope import precompute_frequencies
     from audio_to_midi_tpu_torch.ops import attention_kernels as ak
@@ -236,6 +248,8 @@ def worker(root: Path, only: list[str] | None) -> None:
                     ak.local_two_phase_dropout_bits, *fts, fbits[0], fbits[1], 4, 16,
                     threshold=THRESHOLD),
             }
+        for n in (16, 128):
+            cases |= fused_cases(n, dt, randn)
         cases = {case: fn for case, fn in cases.items() if selected(case)}
         for case, fn in cases.items():
             if not case.startswith(NOT_HASHED):
@@ -254,6 +268,19 @@ def worker(root: Path, only: list[str] | None) -> None:
             us = sum(ev.device_time_total for ev in prof.key_averages()
                      if re.search(LOCAL_FORWARD_KERNEL, ev.key))
             times[f"{case} {name}, per launch"] = us / 10 / 1e3
+        # The fused layers' device time per call, kernel by kernel, one
+        # profiler session per case (kernel names are the tree's own).
+        for case, fn in cases.items():
+            if not case.startswith(FUSED_CASES):
+                continue
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                if ev.device_time_total > 0 and "a2m::" in ev.key:
+                    times[f"{case} {name}, {short(ev.key)} x{ev.count // 10}"] = (
+                        ev.device_time_total / 10 / 1e3)
         del cases
         torch.cuda.empty_cache()
         if selected("stage"):
@@ -294,51 +321,117 @@ def worker(root: Path, only: list[str] | None) -> None:
     if only:
         print(json.dumps({"times": times, "digests": digests, "serving": serving}))
         return
-    # The serving forward: "pallas", 128 windows, the median and quartiles of
-    # 20 forwards timed one by one.
-    cfg = DEFAULT_CONFIG.model
-    model = model_lib.Model(cfg, torch.Generator().manual_seed(0)).cuda().eval()
-    rope = model_lib.make_rope(cfg, "cuda")
+    # The serving forward by attention route at 16 and 128 windows, the
+    # median and quartiles of 20 forwards timed one by one.
+    base = DEFAULT_CONFIG.model
+    model = model_lib.Model(base, torch.Generator().manual_seed(0)).cuda().eval()
+    rope = model_lib.make_rope(base, "cuda")
     gen = torch.Generator(device="cpu").manual_seed(5)
     windows = torch.randn(128, 2, 80_000, generator=gen) * 0.5
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
-        x = windows.to(device="cuda", dtype=dt)
-        per = []
-        with torch.inference_mode(), _parity_precision(dt):
-            for i in range(23):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                model_lib.forward(m, cfg, x, rope)
-                end.record()
-                torch.cuda.synchronize()
-                if i >= 3:  # warm-up
-                    per.append(start.elapsed_time(end))
-        q1, median, q3 = statistics.quantiles(per, n=4)
-        # Where the device time of a forward goes: kernel time by name over 3
-        # profiled forwards; the idle share against the unprofiled median.
-        with torch.inference_mode(), _parity_precision(dt), profile(
-                activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                model_lib.forward(m, cfg, x, rope)
-            torch.cuda.synchronize()
-        kernels = {ev.key: ev.self_device_time_total / 3e3 for ev in prof.key_averages()
-                   if ev.self_device_time_total > 0}
-        busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
-        attention = sum(ms for key, ms in kernels.items()
-                        if "global_attention_fwd_kernel<" in key)
-        local = sum(ms for key, ms in kernels.items() if re.search(LOCAL_FORWARD_KERNEL, key))
-        serving[f"serving forward 128 windows {name}"] = {
-            "median": median, "q1": q1, "q3": q3, "device_busy_ms": busy,
-            "idle_share": 1 - busy / median, "global_attention_ms": attention,
-            "global_attention_share": attention / busy, "local_attention_ms": local,
-            "local_attention_share": local / busy,
-            "top_kernels": [(key[:120], ms / busy) for key, ms in top]}
-        del m, x
+        for n in (16, 128):
+            x = windows[:n].to(device="cuda", dtype=dt)
+            for impl in SERVING_ROUTES:
+                cfg = dataclasses.replace(base, attention_impl=impl)
+                serving[f"serving forward {impl} {n} windows {name}"] = serving_forward(
+                    m, cfg, x, rope)
+            del x
+        del m
         torch.cuda.empty_cache()
     print(json.dumps({"times": times, "digests": digests, "serving": serving}))
+
+
+def serving_forward(model, cfg, x, rope) -> dict:
+    """The median and quartiles of 20 forwards (CUDA events, after 3), then
+    where the device time of 3 profiled forwards goes: busy time, the idle
+    share against the median, the attention kernels' and the fused layers'
+    shares, the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.models import model as model_lib
+
+    per = []
+    with torch.inference_mode(), _parity_precision(x.dtype):
+        for i in range(23):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model_lib.forward(model, cfg, x, rope)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 3:  # warm-up
+                per.append(start.elapsed_time(end))
+    q1, median, q3 = statistics.quantiles(per, n=4)
+    with torch.inference_mode(), _parity_precision(x.dtype), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            model_lib.forward(model, cfg, x, rope)
+        torch.cuda.synchronize()
+    kernels = {ev.key: ev.self_device_time_total / 3e3 for ev in prof.key_averages()
+               if ev.self_device_time_total > 0}
+    busy = sum(kernels.values())
+    share = lambda pattern: sum(ms for key, ms in kernels.items() if re.search(pattern, key))
+    attention, local, fused = (share(r"global_attention_fwd_kernel<"),
+                               share(LOCAL_FORWARD_KERNEL), share(r"a2m::fl::"))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"median": median, "q1": q1, "q3": q3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / median, "global_attention_ms": attention,
+            "global_attention_share": attention / busy, "local_attention_ms": local,
+            "local_attention_share": local / busy, "fused_layers_ms": fused,
+            "fused_layers_share": fused / busy,
+            "top_kernels": [(key[:120], ms / busy) for key, ms in top]}
+
+
+def fused_cases(n: int, dt, randn) -> dict:
+    """Kernels 11, 18 and 17 at the default widths on n windows of S = 250
+    (P = 256, pad_l 3): a seeded pair with its LayerNorms off the identity,
+    as ``chip_smoke.py`` phase 2 makes it."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
+    from audio_to_midi_tpu_torch.models import attention as attn_lib
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.models import transformer as tf_lib
+    from audio_to_midi_tpu_torch.ops import fused_layer_kernels as flk
+
+    c = DEFAULT_CONFIG.model
+    gen = torch.Generator().manual_seed(71)
+    pair = tf_lib.AlternatingLayer(c, gen)
+    with torch.no_grad():
+        for pname, prm in pair.named_parameters():
+            if "norm" in pname:
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    pair = pair.cuda()
+    rope = model_lib.make_rope(c, "cuda")
+    seq, window, heads = 250, c.local_context_window, c.num_transformer_heads
+    pad_l, pad_r = attn_lib._local_padding(seq, window)
+    p_len = seq + pad_l + pad_r
+    tables = tf_lib._pair_rope_tables(rope, c, p_len, pad_l)
+    x = randn(n, seq, c.transformer_hidden_dim, seed=72 + n, dtype=dt)
+    xp = F.pad(x, (0, 0, pad_l, pad_r))
+    att = pair.get_submodule("local").attention
+    ws = [lin.w.to(dt) for lin in (att.q_up, att.kv_down, att.k_up, att.v_up, att.out)]
+    cos_w, sin_w = attn_lib._rope_tables(rope, (p_len // (window // 2) - 1) * window, window)
+    cos_g, sin_g = attn_lib._rope_tables(rope, seq, 0)
+    geometry = dict(num_heads=heads, valid_len=seq, pad_l=pad_l)
+    sub = lambda side: flk.sublayer_weights(pair.get_submodule(side), dt)
+    return {
+        f"attention block local P=256 B={n}": functools.partial(
+            flk.attention_block, xp, *ws, cos_w, sin_w, heads, p_len, window),
+        f"attention block global S=250 B={n}": functools.partial(
+            flk.attention_block, x, *ws, cos_g, sin_g, heads, seq, 0),
+        f"fused local sublayer P=256 B={n}": functools.partial(
+            flk.fused_local_sublayer, xp, sub("local"), tables[:4], window=window, **geometry),
+        f"fused global sublayer P=256 B={n}": functools.partial(
+            flk.fused_global_sublayer, xp, sub("global"), tables[4:], **geometry),
+        f"transformer pair P=256 B={n}": functools.partial(
+            flk.transformer_pair, xp, flk.pair_weights(pair, dt), tables, window=window,
+            **geometry),
+    }
 
 
 def stage_operands(depth, b, l, c, hidden, dtype, seed):
@@ -427,16 +520,23 @@ def short(name: str) -> str:
     return hit.group(0) if hit else name
 
 
-KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "mma_gemm_kernel",
+KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "gemm_kernel",
                        "local_two_phase_grads", "local_two_phase_fwd_kernel",
-                       "local_two_phase_kernel")
-# The kernels whose SASS must be the other tree's: those of kernels 1, 3, 4,
-# 15, 9, 16 and 10, kernel 20's product and the local backward (7, 13, 8),
-# which share the tile primitives the local forward reuses.
-SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel", "local_two_phase_grads")
+                       "local_two_phase_kernel", "global_core_kernel", "rope_rows_kernel")
+# The kernels both trees build whose SASS must be the other tree's: those of
+# kernels 1, 3, 4, 15, 9, 16 and 10, the products of kernels 20
+# (mma_gemm_kernel) and 19 (gemm_kernel), and the local forward (2, 12, 5)
+# and backward (7, 13, 8), which share the tile primitives the fused layers'
+# global core reuses.  The fused layers' new instantiations have no
+# counterpart in a tree before them and are only reported.
+SAME_SASS = ("global_attention", "rope_attention", "gemm_kernel", "local_two_phase_grads",
+             "local_two_phase_fwd_kernel")
 # The local forward's kernel, in this tree and in a tree before its
 # redesign (the scalar body: local_two_phase_kernel).
 LOCAL_FORWARD_KERNEL = r"local_two_phase(_fwd)?_kernel<"
+# The fused layers' cases (kernels 11, 18, 17) and the serving routes.
+FUSED_CASES = ("attention block", "fused", "transformer pair")
+SERVING_ROUTES = ("pallas", "pallas_block", "pallas_fused", "pallas_pair")
 # The cases whose kernels torch.profiler times launch by launch.
 PROFILED = ("grads S=250", "grads prng S=250", "local grads P=256", "local grads bits P=256",
             "local grads prng P=256")
@@ -577,8 +677,9 @@ def main() -> int:
                 print(f"  {label}: device busy {r['device_busy_ms']:.2f} ms per forward, idle "
                       f"share {r['idle_share']:.3f}, global attention {r['global_attention_ms']:.2f}"
                       f" ms ({r['global_attention_share']:.1%} of device time), local attention "
-                      f"{r['local_attention_ms']:.2f} ms ({r['local_attention_share']:.1%}); largest "
-                      + ", ".join(f"{k[:60]} {v:.1%}" for k, v in r["top_kernels"]))
+                      f"{r['local_attention_ms']:.2f} ms ({r['local_attention_share']:.1%}), fused "
+                      f"layers {r['fused_layers_ms']:.2f} ms ({r['fused_layers_share']:.1%}); "
+                      "largest " + ", ".join(f"{k[:60]} {v:.1%}" for k, v in r["top_kernels"]))
     # The bits: each tree's two turns agree with themselves, and the trees
     # agree where their device code is the same.
     bits = {}
