@@ -1,13 +1,13 @@
-// The tensor-core product of the ConvNeXt stage backward (TPU kernel 20,
-// convnext_stage_bwd.cu) and of the fused transformer layers (TPU kernels
-// 11, 17 and 18, fused_layer_impl.cuh): out(m, n) = sum_k A(m, k) B(k, n)
-// over one chunk of the depth, handed to an epilogue functor by pairs of
-// columns.
+// The tensor-core product of the ConvNeXt stage kernels (TPU kernels 19
+// and 20, convnext_stage_fwd.cu and convnext_stage_bwd.cu) and of the fused
+// transformer layers (TPU kernels 11, 17 and 18, fused_layer_impl.cuh):
+// out(m, n) = sum_k A(m, k) B(k, n) over one chunk of the depth, handed to
+// an epilogue functor by pairs of columns.
 //
 // Each operand is stored along the depth (K_CONTIG: element (i, k) at
 // src[i * ld + k]) or across it (at src[k * ld + i]); the six products of a
-// kernel-20 block take all four pairings, those of the fused layers
-// activations along the depth and weights across it.  The design:
+// kernel-20 block take all four pairings, those of kernel 19 and of the
+// fused layers activations along the depth and weights across it.  The design:
 //   * warp-level mma.sync from mma_tile.cuh: bf16 m16n8k16 on the operands
 //     as stored, fp32 accumulation; f32 as 3xTF32 m16n8k8, each fragment
 //     split once per depth step and each depth step's three products added
@@ -35,10 +35,10 @@
 //     grid: the same call gives the same bits.  No atomics;
 //   * an operand whose rows do not start on 16 bytes (a width that does not
 //     fill whole 16-byte pieces, a base off 16 bytes: no model path, but the
-//     fused layers' entries take any width) is copied element by element
-//     (copy_elements), in the same kernel, where its epilogue type says so
-//     (kElementCopies); kernel 20's epilogues do not, and its instantiations
-//     compile as before.
+//     entries of kernel 19 and of the fused layers take any width) is
+//     copied element by element (copy_elements), in the same kernel, where
+//     its epilogue type says so (kElementCopies); kernel 20's epilogues do
+//     not, and its instantiations compile as before.
 #pragma once
 
 #include <type_traits>
@@ -231,6 +231,26 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The pair (n, n + 1) of an epilogue that reads and writes element by
+// element (ELEMS: its rows do not all start on 16 bytes), the second value
+// only where `second` (n + 1 < N, an odd width's last column alone); by
+// load_pair / store_pair otherwise.
+template <bool ELEMS, typename T>
+__device__ __forceinline__ float2 get2(const T* p, bool second) {
+  if constexpr (ELEMS) return make_float2(to_float(p[0]), second ? to_float(p[1]) : 0.f);
+  else return load_pair(p);
+}
+
+template <bool ELEMS, typename T>
+__device__ __forceinline__ void put2(T* p, float x, float y, bool second) {
+  if constexpr (ELEMS) {
+    p[0] = from_float<T>(x);
+    if (second) p[1] = from_float<T>(y);
+  } else {
+    store_pair<T>(p, x, y);
+  }
 }
 
 // out(m, n) = sum_k A(m, k) B(n, k) over k in [z * chunk, (z + 1) * chunk)

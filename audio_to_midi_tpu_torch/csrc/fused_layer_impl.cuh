@@ -51,21 +51,8 @@ constexpr int kCoreThreads = 256;    // the local core's block
 // bias rows hold N = ld values.
 // ---------------------------------------------------------------------------
 
-template <bool ELEMS, typename T>
-__device__ __forceinline__ float2 get2(const T* p, bool second) {
-  if constexpr (ELEMS) return make_float2(to_float(p[0]), second ? to_float(p[1]) : 0.f);
-  else return cnx::load_pair(p);
-}
-
-template <bool ELEMS, typename T>
-__device__ __forceinline__ void put2(T* p, float x, float y, bool second) {
-  if constexpr (ELEMS) {
-    p[0] = from_float<T>(x);
-    if (second) p[1] = from_float<T>(y);
-  } else {
-    store_pair<T>(p, x, y);
-  }
-}
+using cnx::get2;
+using cnx::put2;
 
 template <typename T, bool ELEMS>
 struct StoreEpi {  // out = round(acc)

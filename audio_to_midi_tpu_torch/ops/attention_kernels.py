@@ -33,8 +33,10 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
 * :func:`local_two_phase_rw` -- ``fused_local_two_phase_rw``: the two-phase
   local attention with per-window (16, 16) logit tiles, phase B as phase A
   on rows rolled by the stride (``attention_impl="pallas_rw"``); its
-  backward is :func:`local_two_phase_grads`.
-  CUDA source: ``csrc/local_attention_rw.cu``.
+  backward is :func:`local_two_phase_grads`.  It computes kernel 2's
+  function, and on the card it is kernel 2: the entry of
+  ``csrc/local_attention.cu`` with no mask source, which gives kernel 2's
+  bits.
 * :func:`head_major_attention` -- ``fused_attention``: attention over the
   head-major (G, H, S, hd) layout, which is :func:`global_attention` on the
   (G*H, S, hd) view with one head; :func:`rope_attention` --
@@ -80,13 +82,13 @@ unnormalised weights ``exp(s - m)`` to bf16 before their product with v, as
 the TPU kernels round their weights (``weights.astype(v.dtype)``); the plain
 versions keep them in fp32, a difference of bf16 rounding.  With dropout
 the mask and its scale go on those weights before that rounding.  The local
-attention's forward (kernels 2, 5, 12) and backward (7, 8, 13) take the
-same products, one 16 x 16 window per warp; the forward rounds the
-normalized, masked weights to bf16, as the TPU kernel does.  Kernel 10
-(RoPE inside) still runs scalar fp32 FMA loops over shared memory
-(``csrc/attention_tile.cuh``), paced by those shared-memory reads, bf16 at
-f32's speed; it moves onto the tensor-core body next, and the scalar loop
-goes with it.
+attention's forward (kernels 2, 5, 12, and 6, which is kernel 2 on the
+card) and backward (7, 8, 13) take the same products, one 16 x 16 window per
+warp; the forward rounds the normalized, masked weights to bf16, as the TPU
+kernel does.  Kernel 10 (RoPE inside) still runs scalar fp32 FMA loops over
+shared memory (``csrc/attention_tile.cuh``), paced by those shared-memory
+reads, bf16 at f32's speed; it moves onto the tensor-core body next, and the
+scalar loop goes with it.
 
 The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
@@ -649,11 +651,10 @@ def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
                    bits=None, seed=None, threshold: int = 0):
     """The two-phase forward with its mask source: none, ``bits`` = (bits_a,
     bits_b) or ``seed``.  ``wrapper``: the public function this counts as;
-    :func:`local_two_phase_rw` takes the reduced-width kernel's entry."""
+    on the CPU :func:`local_two_phase_rw` takes its own plain version."""
     b, p_len, _ = qa.shape
-    reduced_width = wrapper is local_two_phase_rw
     if qa.device.type == "cpu":
-        if reduced_width:
+        if wrapper is local_two_phase_rw:
             return local_two_phase_rw_plain(qa, ka, qb, kb, v, num_heads, window)
         if seed is not None:
             bits = _seed_planes(seed, b, num_heads, p_len)
@@ -668,17 +669,12 @@ def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
     out = torch.empty_like(qa)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
-    pointers = (qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr())
     with torch.cuda.device(qa.device):
-        if reduced_width:
-            code = lib.a2m_local_two_phase_rw(
-                *pointers, out.data_ptr(), b, p_len, num_heads, hd, scale,
-                _DTYPE_CODES[dtype], _stream_handle(qa.device))
-        else:
-            code = lib.a2m_local_two_phase(
-                *pointers, _pointer(bits_a), _pointer(bits_b), _pointer(seed), out.data_ptr(),
-                b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
-                _stream_handle(qa.device))
+        code = lib.a2m_local_two_phase(
+            qa.data_ptr(), ka.data_ptr(), qb.data_ptr(), kb.data_ptr(), v.data_ptr(),
+            _pointer(bits_a), _pointer(bits_b), _pointer(seed), out.data_ptr(),
+            b, p_len, num_heads, hd, threshold, scale, _DTYPE_CODES[dtype],
+            _stream_handle(qa.device))
     cuda_build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -865,7 +861,14 @@ def local_two_phase_rw(
     A on the rows rolled by the stride, and the softmax weights cast to v's
     dtype before their product with v.  The same contract and the same
     backward (:func:`local_two_phase_grads`, kernel 7), as the JAX package's
-    ``defvjp`` has it.  Differentiable in all five inputs."""
+    ``defvjp`` has it.  Differentiable in all five inputs.
+
+    That is kernel 2's function, value by value, so on the card this
+    launches kernel 2's tensor-core body (``csrc/local_attention_fwd.cuh``)
+    with no mask source and gives kernel 2's bits; it counts its own
+    launches.  The body copies rows 16 bytes at a time: an operand off 16
+    bytes raises.  On the CPU it takes its own plain version, which walks the
+    TPU body's rolled windows."""
     return _LocalTwoPhaseFn.apply(local_two_phase_rw, qa, ka, qb, kb, v, None, None, None,
                                   num_heads, window, 0)
 

@@ -21,6 +21,10 @@ over its blocks (:func:`stage_weights`), already in the compute dtype.
   block loop from it (rematerializing; not kernel 20).  CUDA source:
   ``csrc/convnext_stage_fwd.cu``.
 
+Both kernels run their products on the tensor cores
+(``csrc/convnext_gemm.cuh``: bf16 ``mma.sync``, f32 as 3xTF32), so they
+take each product's fp32 sums in another order than their plain versions.
+
 The two kernels round differently, and each plain version mirrors its own:
 kernel 20 recomputes the forward as the plain blocks run it in the storage
 dtype (conv output rounded before the fp32 LayerNorm; biases, gamma and the
@@ -318,18 +322,25 @@ def stage_bwd_supported(l: int, c: int, hidden: int, depth: int, dtype: torch.dt
 # ---------------------------------------------------------------------------
 
 
+def _product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The fp32 sums of a (..., K) . w (K, N), of operands in the storage
+    type: the two products of :func:`stage_fwd_plain`."""
+    return a.float() @ w.float()
+
+
 def stage_fwd_plain(x: torch.Tensor, weights) -> torch.Tensor:
     """Plain version of :func:`stage_fwd`, rounding where the TPU kernel
     rounds: fp32 from the convolution through the LayerNorm, biases and gamma
-    applied in fp32."""
+    applied in fp32.  The kernel takes the products' fp32 sums in another
+    order (on the tensor cores; f32 as 3xTF32), nothing else."""
     dw, dwb, ln, pw1, pw1b, pw2, pw2b, gamma = weights
     dtype = x.dtype
     for d in range(dw.shape[0]):
         h, _ = _normalize(_depthwise(x.float(), dw[d], dwb[d, 0]))
         h = (h * ln[d, 0] + ln[d, 1]).to(dtype)
-        h1 = h.float() @ pw1[d].float() + pw1b[d, 0].float()
+        h1 = _product(h, pw1[d]) + pw1b[d, 0].float()
         h1 = F.gelu(h1, approximate="tanh").to(dtype)
-        h2 = h1.float() @ pw2[d].float() + pw2b[d, 0].float()
+        h2 = _product(h1, pw2[d]) + pw2b[d, 0].float()
         x = x + (h2 * gamma[d, 0].float()).to(dtype)
     return x
 
@@ -337,7 +348,9 @@ def stage_fwd_plain(x: torch.Tensor, weights) -> torch.Tensor:
 def stage_fwd(x: torch.Tensor, weights) -> torch.Tensor:
     """The forward of all blocks of a stage: x (B, L, C) -> (B, L, C) with
     ``weights`` = :func:`stage_weights` in x's dtype.  Any L: rows are
-    bounds-checked, nothing is padded."""
+    bounds-checked, nothing is padded; any C and H: rows that do not fill
+    whole 16-byte pieces take the kernel's element copies.  The sums run in
+    a fixed order: the same inputs give the same bits."""
     if x.device.type == "cpu":
         return stage_fwd_plain(x, weights)
     if x.device.type != "cuda":

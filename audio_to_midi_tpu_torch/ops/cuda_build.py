@@ -98,8 +98,6 @@ def library() -> ctypes.CDLL:
         "a2m_global_attention_grads": [ptr] * 10 + [i32] * 7 + [f32, i32, ptr],
         "a2m_local_two_phase_grads": [ptr] * 14 + [i32] * 5 + [f32, i32, ptr],
         "a2m_philox_dump": [ptr] * 2 + [i32] * 3 + [ptr],
-        # qa, ka, qb, kb, v, out; B, P, H, hd.
-        "a2m_local_two_phase_rw": [ptr] * 6 + [i32] * 4 + [f32, i32, ptr],
         # q, k, v, out; G, H, S, hd, block.
         "a2m_head_major_attention": [ptr] * 4 + [i32] * 5 + [f32, i32, ptr],
         # q, k, v, cos, sin, out; G, S, H, hd, block.

@@ -32,10 +32,10 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      stage backward at the geometry of stages 5 and 6 at 32 windows and at
      519 rows (not a multiple of its product tiles), each twice on the same
      inputs, which must give the same bits, and the stage forward at stages
-     4, 5, 6 at 16 windows, each beside autograd through (or the forward of)
-     the plain block loop, which is many calls and not one; the Philox dump
-     at the bits route's two geometries and at P = 37 and 496, equal to the
-     plain Philox's bytes, beside torch.randint;
+     4, 5, 6 at 16 windows, likewise twice, each beside autograd through (or
+     the forward of) the plain block loop, which is many calls and not one;
+     the Philox dump at the bits route's two geometries and at P = 37 and
+     496, equal to the plain Philox's bytes, beside torch.randint;
   3. forward: the default model (~11.6 M params) from seeded weights on 16
      seeded windows (16, 2, 80000), kernel path vs plain path, bf16 and f32,
      and 8 launches of each forward kernel per forward;
@@ -92,8 +92,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
 LayerNorm and products, kernels 1 and 2: many calls, not one), and kernels
-6, 3 and 10 at the serving shapes beside kernel 2, F.scaled_dot_product_attention
-and rope + kernel 1, each with its gradient through autograd on the card.  Phase 6's
+6, 3 and 10 at the serving shapes beside kernel 2 (whose bits kernel 6 must
+give: it runs kernel 2's body), F.scaled_dot_product_attention and rope +
+kernel 1, each with its gradient through autograd on the card.  Phase 6's
 plain comparator is "pallas" with the seeded dropout wrappers replaced, in
 this script only, by their plain versions on the plain Philox bytes of the
 same seed: "xla" drops at the exact rate, as the JAX einsum route does.
@@ -370,8 +371,9 @@ def check_variant_kernels(ak, results: dict, name: str, dt, ts, qkv) -> None:
     """Phase 2, kernels 6, 3 and 10 at the serving shapes (16 windows, P =
     256 / S = 250, 4 heads x 64), each beside what it stands in for, in turns:
     kernel 6 beside kernel 2 on the same tensors (the point of the TPU
-    variant; no one PyTorch call computes the two-phase average), kernel 3
-    beside F.scaled_dot_product_attention on the same (G, H, S, hd) tensors
+    variant; no one PyTorch call computes the two-phase average), whose bits
+    it must give, as it runs kernel 2's body; kernel 3 beside
+    F.scaled_dot_product_attention on the same (G, H, S, hd) tensors
     (one call computes it: its library time), kernel 10 beside the "pallas"
     global route -- rope on q and k, then kernel 1, many calls.  Bounds as
     kernels 2 and 1, kernel 10 with its two fp32 tables.  Then each one's
@@ -398,14 +400,14 @@ def check_variant_kernels(ak, results: dict, name: str, dt, ts, qkv) -> None:
         bound(6, ts[0].numel(), name, 2 * attn_flops(PADDED, 16)))
     turns = in_turns({"kernel 6": lambda: ak.local_two_phase_rw(*ts, HEADS, 16),
                       "kernel 2": lambda: ak.local_two_phase(*ts, HEADS, 16)})
-    apart = max_err(ak.local_two_phase_rw(*ts, HEADS, 16), ak.local_two_phase(*ts, HEADS, 16))
+    same = torch.equal(ak.local_two_phase_rw(*ts, HEADS, 16), ak.local_two_phase(*ts, HEADS, 16))
     results[f"local rw P=256 {name}"]["beside"] = {
         "what": "kernel 2 (local_two_phase) on the same tensors", "ms": turns["kernel 2"]}
     log(f"kernel local rw P=256 {name} in turns with kernel 2 on the same tensors: "
         + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in turns.items())
-        + f"; outputs apart by {apart:.3e} (tol {KERNEL_TOL[name]:.0e})")
-    if apart > KERNEL_TOL[name]:
-        raise AssertionError("kernel 6 and kernel 2 compute different functions")
+        + f"; identical bits {same}")
+    if not same:
+        raise AssertionError("kernel 6 does not give kernel 2's bits on the same tensors")
     g = randn(n, PADDED, width, seed=26, dtype=dt)
     check_grads(f"local rw P=256 {name}",
                 autograd_of(lambda *t: ak.local_two_phase_rw(*t, HEADS, 16), ts, g),
@@ -788,6 +790,10 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
                     stage_tol,
                     bound(2, x.numel(), name, 2 * rows_flops, extra_bytes=weight_elems * itemsize),
                     library=loop_forward)
+                same = torch.equal(ck.stage_fwd(x, weights), ck.stage_fwd(x, weights))
+                log(f"stage fwd stage {stage} {name}: the same inputs twice, identical bits {same}")
+                if not same:
+                    raise AssertionError("the stage forward does not repeat bit for bit")
             del carries, weights, dy, x
             torch.cuda.empty_cache()
 
@@ -1879,16 +1885,16 @@ def main() -> int:
         "local_two_phase_grads_bits": ("local_attention_bwd.cuh", "1025",
                                        "local grads bits P=256 bf16"),
         "philox_bits": ("philox_dump.cu", "1744", "philox bits local P=256 uint8"),
-        "local_two_phase_rw": ("local_attention_rw.cu", "847", "local rw P=256 f32"),
+        "local_two_phase_rw": ("local_attention_fwd.cuh", "847", "local rw P=256 f32"),
         "head_major_attention": ("global_attention_fwd.cuh", "219", "head major S=250 f32"),
         "rope_attention": ("rope_attention.cu", "1229", "rope S=250 f32"),
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)
                for name, (source, line, case) in attention.items()} | sources
     # Where a kernel's products live apart from its entry: the tensor-core
-    # product of kernel 20 and of the fused layers, whose device code is in
-    # fused_layer_impl.cuh.
-    products = dict.fromkeys(("stage_bwd", "attention_block", "fused_local_sublayer",
+    # product of kernels 20 and 19 and of the fused layers, whose device code
+    # is in fused_layer_impl.cuh.
+    products = dict.fromkeys(("stage_bwd", "stage_fwd", "attention_block", "fused_local_sublayer",
                               "fused_global_sublayer", "transformer_pair"), "convnext_gemm.cuh")
     kernels = []
     for name, (source, replaces, case) in sources.items():

@@ -937,15 +937,33 @@ def test_variant_kernels_match_plain_on_card(cuda_device, dtype, tol, hd, heads,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 16])
 @pytest.mark.parametrize("p_len", [256, 64])
-def test_reduced_width_kernel_matches_the_two_phase_kernel_on_card(cuda_device, dtype, tol,
+def test_reduced_width_kernel_matches_the_two_phase_kernel_on_card(cuda_device, dtype, batch,
                                                                    p_len):
-    """Kernel 6 computes kernel 2's function; in bf16 both round their
-    softmax weights to the dtype before the product with v."""
-    ts = [_randn(16, p_len, 256, seed=70 + i, device=cuda_device, dtype=dtype) for i in range(5)]
-    out, ref = ak.local_two_phase_rw(*ts, 4, 16), ak.local_two_phase(*ts, 4, 16)
-    assert (out.float() - ref.float()).abs().max().item() <= tol
+    """Kernel 6 computes kernel 2's function, and on the card it runs kernel
+    2's body: the same bits, each wrapper counting its own launch."""
+    ts = [_randn(batch, p_len, 256, seed=70 + i, device=cuda_device, dtype=dtype)
+          for i in range(5)]
+    before = (ak.local_two_phase_rw.launches, ak.local_two_phase.launches)
+    out = ak.local_two_phase_rw(*ts, 4, 16)
+    assert (ak.local_two_phase_rw.launches, ak.local_two_phase.launches) == (before[0] + 1,
+                                                                             before[1])
+    assert torch.equal(out, ak.local_two_phase(*ts, 4, 16))
+    assert ak.local_two_phase.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_reduced_width_kernel_refuses_misaligned_buffers_on_card(cuda_device):
+    """Kernel 2's body copies rows 16 bytes at a time: an input off 16 bytes
+    is refused, nothing launched."""
+    ts = [torch.zeros(2, 64, 64, device=cuda_device) for _ in range(5)]
+    ts[2] = torch.zeros(1 + ts[2].numel(), device=cuda_device)[1:].view(2, 64, 64)
+    before = ak.local_two_phase_rw.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ak.local_two_phase_rw(*ts, 4, 16)
+    assert ak.local_two_phase_rw.launches == before
 
 
 @pytest.mark.cuda
@@ -1117,9 +1135,21 @@ def test_stage_bwd_kernel_matches_plain_on_card(cuda_device, dtype, depth, b, l,
     assert torch.equal(again_dx, dx) and all(torch.equal(a, g) for a, g in zip(again, grads))
 
 
+# The stage forward (kernel 19) also at the serving shapes of stages 4 and 5
+# (16 windows; stage 5's 21 blocks update the output in place), at H = 196,
+# whose bf16 rows (392 bytes) do not fill whole 16-byte pieces (the
+# products' element copies), at C = 192 (a width its row kernel does not
+# compile in) and at C = 3328 (tiles of 4 rows in f32, 8 in bf16: 16 rows do
+# not fit in shared memory).
+STAGE_FWD_GEOMETRIES = STAGE_GEOMETRIES + [(3, 2, 1000, 64, 128), (3, 16, 1000, 64, 128),
+                                           (21, 16, 500, 128, 256), (2, 3, 37, 128, 196),
+                                           (3, 2, 40, 64, 196), (2, 2, 40, 192, 384),
+                                           (1, 1, 16, 3328, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("depth,b,l,c,hidden", STAGE_GEOMETRIES + [(3, 2, 1000, 64, 128)])
+@pytest.mark.parametrize("depth,b,l,c,hidden", STAGE_FWD_GEOMETRIES)
 def test_stage_fwd_kernel_matches_plain_on_card(cuda_device, dtype, depth, b, l, c, hidden):
     carries, weights, _ = _stage(depth, b, l, c, hidden, dtype, cuda_device, seed=l + 1)
     x = carries[0].contiguous()
@@ -1131,6 +1161,19 @@ def test_stage_fwd_kernel_matches_plain_on_card(cuda_device, dtype, depth, b, l,
     assert out.dtype == dtype and out.shape == x.shape and torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= _stage_limit(ref, dtype, depth)
     assert torch.equal(ck.stage_fwd(x, weights), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_fwd_off_16_bytes_gives_the_aligned_bits_on_card(cuda_device, dtype):
+    """An x that does not start on 16 bytes takes the element copies, whose
+    sums run in the same order: the aligned call's bits."""
+    carries, weights, _ = _stage(2, 2, 40, 128, 256, dtype, cuda_device, seed=9)
+    x = carries[0].contiguous()
+    shifted = torch.empty(1 + x.numel(), dtype=dtype, device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert torch.equal(ck.stage_fwd(shifted, weights), ck.stage_fwd(x, weights))
 
 
 @pytest.mark.cuda

@@ -28,9 +28,10 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     backward; the dq and dk/dv kernels apart (device time per launch by
     torch.profiler, no mask and the seeded mask);
   * the local two-phase forward at 16, 32 and 128 windows, P = 256: kernel
-    2 (``local P=256``), 12 (``local dropout``, the seeded mask) and 5
-    (``local dropout bits``, random bits), and each one's device time per
-    launch by torch.profiler, one session per case;
+    2 (``local P=256``), 12 (``local dropout``, the seeded mask), 5
+    (``local dropout bits``, random bits) and 6 (``local rw``, on kernel 2's
+    tensors), and each one's device time per launch by torch.profiler, one
+    profile per case;
   * the local two-phase backward at the training shapes, 32 windows, P =
     256: kernel 7 (no mask), 13 (the seeded mask) and 8 (random bits), and
     each one's device time per launch by torch.profiler;
@@ -38,7 +39,10 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     windows, f32 and bf16, beside autograd through the plain block loop;
     the device time of each of the ten launches of one stage-5 block (the
     products against the row kernels, torch.profiler over 10 calls); kernel
-    19 (``stage_fwd``) at stage 5, 16 windows, beside the loop's forward;
+    19 (``stage_fwd``) at stages 4, 5 and 6, 16 windows, beside the loop's
+    forward, and the device time of each of the three launches of one
+    stage-5 block (``row kernel``, ``GELU product``, ``residual product``,
+    by the same names in either tree);
   * kernel 14 (``philox_bits``) at (32, 4, 250, 250) and (32, 8, 256, 256),
     beside torch.randint of the same shape;
   * the fused transformer-layer kernels at the default widths (D 256, 4
@@ -50,7 +54,8 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     core), torch.profiler over 10 calls, one session per case;
   * the serving forward of the default model (seeded weights) by
     attention_impl ("pallas", "pallas_block", "pallas_fused",
-    "pallas_pair") at 16 and 128 windows, bf16 and f32: the median and
+    "pallas_pair"), and "pallas" with cnn_impl "pallas_stage" (kernel 19 in
+    stages 4, 5, 6), at 16 and 128 windows, bf16 and f32: the median and
     quartiles of 20 forwards, each timed by CUDA events, then 3 forwards
     under torch.profiler: device busy time, the idle share against the
     median, the global and the local attention's and the fused layers'
@@ -59,19 +64,20 @@ Kernels by CUDA events over 50 back-to-back launches.  ``--cases`` keeps
 only the kernel cases whose names start with one of the prefixes (for
 example ``"local grads"``), and then skips the serving forward.  Each turn also hashes
 (SHA-256) the bytes of every kernel output; the tool compares the trees'
-hashes and exits 1 where a tree does not repeat its own bits, or where two
-builds of kernels whose outputs must not change give different bits:
-against the tree before the fused layers' products moved to the tensor
-cores, every kernel but 11, 17 and 18 (SAME_CODE).  From the two builds it
-reports, per instantiation of the global attention kernels, the local
-forward and backward, the tensor-core product (``mma_gemm_kernel``: kernel
-20's and the fused layers'), kernel 19's product (``gemm_kernel``) and the
-fused layers' global core and RoPE pass, the SASS counts of HMMA (tensor
-core products), LDGSTS (cp.async copies), LDSM (ldmatrix) and FFMA, and the
-registers and spill bytes ``-Xptxas -v`` wrote to the build log; and it
-exits 1 where the SASS of a global attention, RoPE, product (kernel 20's,
-kernel 19's) or local forward or backward kernel that both trees build
-differs (SAME_SASS).  Prints one line per case and writes
+hashes and exits 1 where a tree does not repeat its own bits, where two
+builds of kernels whose outputs must not change give different bits --
+against the tree before kernel 19's products moved to the tensor cores and
+kernel 6 onto kernel 2's body, every kernel but 19 and 6 (SAME_CODE) -- or
+where kernel 6 does not give kernel 2's bits in this tree.  From the two
+builds it reports, per instantiation of the global attention kernels, the
+local forward and backward, the tensor-core product (``mma_gemm_kernel``:
+kernel 20's, kernel 19's and the fused layers'), the stage kernels' row
+kernels and the fused layers' global core and RoPE pass, the SASS counts
+of HMMA (tensor core products), LDGSTS (cp.async copies), LDSM (ldmatrix)
+and FFMA, and the registers and spill bytes ``-Xptxas -v`` wrote to the
+build log; it exits 1 where the SASS of such a kernel that both trees build
+differs (SAME_SASS), and names the instantiations that only one tree builds
+(new, or gone).  Prints one line per case and writes
 ``attention_turns.json`` to --out.  Needs one CUDA device; imports no JAX.
 """
 
@@ -92,21 +98,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
 # The cases (by their first words) whose outputs must agree bit for bit with
-# the other tree's, against the tree before the fused layers' products moved
-# to the tensor cores: kernels 1 ("forward"), 3 ("head major"), 4 and 15
-# ("dropout"), 10 ("rope"), 9 and 16 ("grads"), 2, 12 and 5 ("local P=256",
-# "local dropout"), 7, 13 and 8 ("local grads"), 14 ("philox bits"), 19
-# ("stage fwd") and 20 ("stage bwd").  Kernels 11, 18 and 17 ("attention
-# block", "fused", "transformer pair") may differ from the other tree; they
-# must repeat themselves.
+# the other tree's, against the tree before kernel 19's products moved to
+# the tensor cores and kernel 6 onto kernel 2's body: kernels 1 ("forward"),
+# 3 ("head major"), 4 and 15 ("dropout"), 10 ("rope"), 9 and 16 ("grads"),
+# 2, 12 and 5 ("local P=256", "local dropout"), 7, 13 and 8 ("local
+# grads"), 14 ("philox bits"), 20 ("stage bwd") and 11, 18 and 17
+# ("attention block", "fused", "transformer pair").  Kernels 19 ("stage
+# fwd") and 6 ("local rw") may differ from the other tree; they must repeat
+# themselves, and kernel 6 must give kernel 2's bits (RW_AS_KERNEL_2).
 SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "local P=256", "local dropout",
-             "local grads", "philox bits", "stage fwd", "stage bwd")
+             "local grads", "philox bits", "stage bwd", "attention block", "fused",
+             "transformer pair")
+# Kernel 6's case and kernel 2's on the same tensors, whose bits this tree
+# must make equal.
+RW_AS_KERNEL_2 = ("local rw P=256", "local P=256")
 # Cases timed beside a kernel and never hashed: library calls and the paths
 # the kernels replace.
 NOT_HASHED = ("SDPA", "library")
-# (depth, L, C, H) of the ConvNeXt stages kernel 20 takes in the default
-# model; kernel 19 is timed at stage 5.
-STAGES = {5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
+# (depth, L, C, H) of the ConvNeXt stages of the default model that kernel
+# 19 takes (cnn_impl "pallas_stage"); kernel 20 takes 5 and 6.
+STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512)}
+BWD_STAGES = (5, 6)
 
 
 def worker(root: Path, only: list[str] | None) -> None:
@@ -242,6 +254,7 @@ def worker(root: Path, only: list[str] | None) -> None:
                                   dtype=torch.uint8).cuda()
             cases |= {
                 f"local P=256 B={n}": functools.partial(ak.local_two_phase, *fts, 4, 16),
+                f"local rw P=256 B={n}": functools.partial(ak.local_two_phase_rw, *fts, 4, 16),
                 f"local dropout P=256 B={n}": functools.partial(
                     ak.local_two_phase_dropout, *fts, seed, 4, 16, threshold=THRESHOLD),
                 f"local dropout bits P=256 B={n}": functools.partial(
@@ -259,7 +272,7 @@ def worker(root: Path, only: list[str] | None) -> None:
         # The local forward's device time per launch, one profiler session per
         # case: its three geometries launch the same kernel instantiation.
         for case, fn in cases.items():
-            if not case.startswith(("local P=256", "local dropout")):
+            if not case.startswith(("local P=256", "local dropout", "local rw")):
                 continue
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(10):
@@ -333,7 +346,8 @@ def worker(root: Path, only: list[str] | None) -> None:
         for n in (16, 128):
             x = windows[:n].to(device="cuda", dtype=dt)
             for impl in SERVING_ROUTES:
-                cfg = dataclasses.replace(base, attention_impl=impl)
+                cfg = (dataclasses.replace(base, cnn_impl=impl) if impl == "pallas_stage"
+                       else dataclasses.replace(base, attention_impl=impl))
                 serving[f"serving forward {impl} {n} windows {name}"] = serving_forward(
                     m, cfg, x, rope)
             del x
@@ -456,16 +470,18 @@ def stage_operands(depth, b, l, c, hidden, dtype, seed):
 
 def convnext_cases(name, dt, times, digests, time_ms, digest) -> None:
     """Kernel 20 at stages 5 and 6, 32 windows, beside autograd through the
-    plain block loop; kernel 19 at stage 5, 16 windows, beside the loop's
-    forward; and the device time of each of the ten launches of one stage-5
-    block of kernel 20 (torch.profiler, 10 calls), as ``<kernel> ms``."""
+    plain block loop; kernel 19 at stages 4, 5 and 6, 16 windows, beside the
+    loop's forward; and the device time of each of the ten launches of one
+    stage-5 block of kernel 20 and of the three of kernel 19 (torch.profiler,
+    10 calls), as ``<kernel> ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
 
     flat = lambda out: (out[0], *out[1])   # (dx, grads) -> the nine outputs
-    for stage, (depth, l, c, hidden) in STAGES.items():
+    for stage in BWD_STAGES:
+        depth, l, c, hidden = STAGES[stage]
         carries, weights, dy = stage_operands(depth, 32, l, c, hidden, dt, seed=60 + stage)
         kernel = functools.partial(lambda *a: flat(ck.stage_bwd(*a)), carries, weights, dy)
         digests[f"stage bwd stage {stage} B=32 {name}"] = digest(kernel())
@@ -476,28 +492,46 @@ def convnext_cases(name, dt, times, digests, time_ms, digest) -> None:
             lambda: torch.autograd.grad(looped, leaves, dy, retain_graph=True))
         del carries, weights, dy, leaves, looped
         torch.cuda.empty_cache()
-    depth, l, c, hidden = STAGES[5]
-    carries, weights, _ = stage_operands(depth, 16, l, c, hidden, dt, seed=65)
-    x = carries[0].contiguous()
-    digests[f"stage fwd stage 5 B=16 {name}"] = digest(ck.stage_fwd(x, weights))
-    times[f"stage fwd stage 5 B=16 {name}"] = time_ms(functools.partial(ck.stage_fwd, x, weights))
+    for stage, (depth, l, c, hidden) in STAGES.items():
+        carries, weights, _ = stage_operands(depth, 16, l, c, hidden, dt, seed=60 + stage)
+        x = carries[0].contiguous()
+        digests[f"stage fwd stage {stage} B=16 {name}"] = digest(ck.stage_fwd(x, weights))
+        times[f"stage fwd stage {stage} B=16 {name}"] = time_ms(
+            functools.partial(ck.stage_fwd, x, weights))
 
-    def loop_forward():
-        with torch.no_grad():
-            return ck.plain_stage(x, weights)
-    times[f"library block loop stage 5 B=16 {name}"] = time_ms(loop_forward)
-    del carries, weights, x
-    carries, weights, dy = stage_operands(1, 32, l, c, hidden, dt, seed=7)
-    ck.stage_bwd(carries, weights, dy)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            ck.stage_bwd(carries, weights, dy)
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if "a2m::cnx" in ev.key:   # the ten launches, and nothing of PyTorch's
-            us = ev.device_time_total
-            times[f"stage bwd one stage-5 block {name}, {short(ev.key)}"] = us / 10 / 1e3
+        def loop_forward():
+            with torch.no_grad():
+                return ck.plain_stage(x, weights)
+        times[f"library block loop stage {stage} B=16 {name}"] = time_ms(loop_forward)
+        del carries, weights, x
+    depth, l, c, hidden = STAGES[5]
+    for what, batch in (("bwd", 32), ("fwd", 16)):
+        carries, weights, dy = stage_operands(1, batch, l, c, hidden, dt, seed=7)
+        call = (functools.partial(ck.stage_bwd, carries, weights, dy) if what == "bwd"
+                else functools.partial(ck.stage_fwd, carries[0].contiguous(), weights))
+        call()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if "a2m::cnx" in ev.key:   # the block's launches, and nothing of PyTorch's
+                label = short(ev.key) if what == "bwd" else stage_fwd_launch(ev.key)
+                times[f"stage {what} one stage-5 block {name}, {label}"] = (
+                    ev.device_time_total / 10 / 1e3)
+        del carries, weights, dy
     torch.cuda.empty_cache()
+
+
+def stage_fwd_launch(kernel: str) -> str:
+    """The part of kernel 19's block a launch is, by the same name in a tree
+    of any design: the row kernel (conv + LayerNorm), the GELU product or
+    the residual product."""
+    if "Gelu" in kernel:
+        return "GELU product"
+    if "Residual" in kernel:
+        return "residual product"
+    return "row kernel" if "conv_ln" in kernel else short(kernel)
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -512,31 +546,44 @@ def demangle(names: list[str]) -> list[str]:
 
 def short(name: str) -> str:
     """``void (anonymous namespace)::global_attention_fwd_kernel<float, (int)64,
-    (int)0>(...)`` -> ``global_attention_fwd_kernel<float, 64, 0>``; the
-    casts cu++filt writes into template arguments go first."""
+    (int)0>(...)`` -> ``global_attention_fwd_kernel<float, 64, 0>``, ``void
+    a2m::cnx_bwd::reduce_kernel(...)`` -> ``reduce_kernel``; the casts
+    cu++filt writes into template arguments go first."""
     for cast, plain in (("(bool)0", "false"), ("(bool)1", "true"), ("(int)", "")):
         name = name.replace(cast, plain)
-    hit = re.search(r"[A-Za-z_]\w*<[^()]*>", name)
+    hit = re.search(r"[A-Za-z_]\w*<[^()]*>", name) or re.search(r"[A-Za-z_]\w*(?=\()", name)
     return hit.group(0) if hit else name
 
 
+# The stage kernels' row kernels: kernel 20's four (conv_ln_kernel<T, true>
+# among them), kernel 19's (conv_ln_tile_kernel; conv_ln_kernel<T, false>
+# before it).
+STAGE_ROW_KERNELS = ("conv_ln_kernel", "ln_bwd_kernel", "conv_bwd_kernel", "reduce_kernel",
+                     "conv_ln_tile_kernel")
 KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "gemm_kernel",
                        "local_two_phase_grads", "local_two_phase_fwd_kernel",
-                       "local_two_phase_kernel", "global_core_kernel", "rope_rows_kernel")
-# The kernels both trees build whose SASS must be the other tree's: those of
-# kernels 1, 3, 4, 15, 9, 16 and 10, the products of kernels 20
-# (mma_gemm_kernel) and 19 (gemm_kernel), and the local forward (2, 12, 5)
-# and backward (7, 13, 8), which share the tile primitives the fused layers'
-# global core reuses.  The fused layers' new instantiations have no
-# counterpart in a tree before them and are only reported.
-SAME_SASS = ("global_attention", "rope_attention", "gemm_kernel", "local_two_phase_grads",
-             "local_two_phase_fwd_kernel")
-# The local forward's kernel, in this tree and in a tree before its
-# redesign (the scalar body: local_two_phase_kernel).
-LOCAL_FORWARD_KERNEL = r"local_two_phase(_fwd)?_kernel<"
+                       "local_two_phase_kernel", "local_two_phase_rw_kernel",
+                       "global_core_kernel", "rope_rows_kernel", *STAGE_ROW_KERNELS)
+# The kernels (by the start of their demangled names) that both trees build
+# whose SASS must be the other tree's: those of kernels 1, 3, 4, 15, 9, 16
+# and 10, the tensor-core products of kernel 20 and of the fused layers
+# (mma_gemm_kernel), kernel 20's row kernels, the local forward (2, 12, 5)
+# and backward (7, 13, 8), and the fused layers' global core and RoPE pass.
+# An instantiation that only one tree builds (kernel 19's products and row
+# kernel, kernel 6's scalar body) has nothing to be compared with: it is
+# reported as new or gone.
+SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel", "local_two_phase_grads",
+             "local_two_phase_fwd_kernel", "global_core_kernel", "rope_rows_kernel",
+             *STAGE_ROW_KERNELS)
+# The local forward's kernel, in this tree and in trees before their
+# redesigns (the scalar bodies: local_two_phase_kernel, and kernel 6's
+# local_two_phase_rw_kernel).
+LOCAL_FORWARD_KERNEL = r"local_two_phase(_fwd|_rw)?_kernel<"
 # The fused layers' cases (kernels 11, 18, 17) and the serving routes.
 FUSED_CASES = ("attention block", "fused", "transformer pair")
-SERVING_ROUTES = ("pallas", "pallas_block", "pallas_fused", "pallas_pair")
+# The serving routes: attention_impl, and "pallas_stage" for attention_impl
+# "pallas" with cnn_impl "pallas_stage".
+SERVING_ROUTES = ("pallas", "pallas_block", "pallas_fused", "pallas_pair", "pallas_stage")
 # The cases whose kernels torch.profiler times launch by launch.
 PROFILED = ("grads S=250", "grads prng S=250", "local grads P=256", "local grads bits P=256",
             "local grads prng P=256")
@@ -639,12 +686,13 @@ def main() -> int:
         print(f"{kernel}: sass {sass.get(kernel)}; ptxas {usage.get(kernel)}")
     # The SASS of the kernels that share the product's primitives, tree by tree.
     failed = []
-    for kernel in sorted(k for k in set(sass) & set(other_sass)
-                         if any(s in k for s in SAME_SASS)):
+    for kernel in sorted(k for k in set(sass) & set(other_sass) if k.startswith(SAME_SASS)):
         same = sass[kernel]["sha256"] == other_sass[kernel]["sha256"]
         print(f"sass {kernel}: identical to the other tree {same} (must be)")
         if not same:
             failed.append(f"sass {kernel}")
+    for kernel in sorted(set(sass) ^ set(other_sass)):
+        print(f"sass {kernel}: {'new in this tree' if kernel in sass else 'gone from this tree'}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
@@ -692,6 +740,14 @@ def main() -> int:
         print(f"bits {case}: each tree repeats {repeat}; identical to the other tree {same}"
               + (" (same device code: must be)" if must else ""))
         if not repeat or (must and not same):
+            failed.append(case)
+    # Kernel 6 runs kernel 2's body in this tree: the same bits on the same tensors.
+    rw, local = RW_AS_KERNEL_2
+    for case in sorted(c for c in turns["this"][0]["digests"] if c.startswith(rw)):
+        same = all(t["digests"][case] == t["digests"].get(local + case[len(rw):])
+                   for t in turns["this"])
+        print(f"bits {case}: kernel 2's bits on the same tensors {same} (must be)")
+        if not same:
             failed.append(case)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "attention_turns.json").write_text(json.dumps(
