@@ -3,16 +3,21 @@
 Usage:
   python -m audio_to_midi_tpu_torch.cli.audio_to_midi <audio> <output.mid>
       --checkpoint FILE [--config JSON] [--overlap S] [--device cuda|cpu]
+      [--stream]
 
 ``--checkpoint`` is a port checkpoint (``.npz`` in the JAX parameter layout,
 or a ``.pt`` state_dict).  The model runs in f32, the checkpoint-parity
 mode.  ``--device`` defaults to ``cuda``; without a CUDA device the command
-fails unless ``--device cpu`` is given.
+fails unless ``--device cpu`` is given.  ``--stream`` transcribes in
+chunks of windows (``infer.transcribe_file_streaming``): bounded device
+memory for long audio, the copy of each chunk overlapped with the model,
+the same MIDI as the batch path.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 from pathlib import Path
 
 
@@ -31,16 +36,23 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="Device to run the model on (default: cuda)")
+    parser.add_argument(
+        "--stream", action="store_true",
+        help="Chunked (streaming) transcription: copy/infer/stitch in window chunks -- "
+        "bounded device memory for hour-long audio, the copy overlapped with the model, "
+        "the same MIDI as batch mode",
+    )
     return parser
 
 
 def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
 
     import torch
 
     from ..config import load_config
-    from ..infer import load_params, transcribe_file
+    from ..infer import load_params, transcribe_file, transcribe_file_streaming
     from ..ops.midi_io import write_midi_file
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -52,9 +64,8 @@ def main(argv=None) -> int:
     cfg = load_config(args.config)
     overlap = args.overlap if args.overlap is not None else cfg.infer.window_overlap
     model = load_params(args.checkpoint, cfg, torch.device(args.device), torch.float32)
-    stitched, duration_per_frame, events = transcribe_file(
-        model, cfg, audio_file, overlap=overlap
-    )
+    transcribe = transcribe_file_streaming if args.stream else transcribe_file
+    stitched, duration_per_frame, events = transcribe(model, cfg, audio_file, overlap=overlap)
     print(f"Stitched probs shape: {stitched.shape}")
     print(f"Extracted {len(events)} events")
     print(f"Writing MIDI file to {args.output}")

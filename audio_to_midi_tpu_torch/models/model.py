@@ -74,6 +74,26 @@ def forward(
     return decoder(h, model.decoder)
 
 
+def predict(model: Model, cfg: ModelConfig, samples: torch.Tensor,
+            rope: RopeFreqs) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-sample inference: samples (2, num_samples) -> (logits, probs),
+    each (frames, 90)."""
+    logits, probs = forward(model, cfg, samples[None], rope)
+    return logits[0], probs[0]
+
+
+def compute_model_output_frames(model: Model, cfg: ModelConfig, num_samples: int) -> int:
+    """The frame count read off the logits of one zero window through the
+    model (reference train.py:64-73).  ``ModelConfig.output_frames``
+    computes the same number statically; this exists to verify it."""
+    param = next(model.parameters())
+    rope = make_rope(cfg, param.device)
+    samples = torch.zeros((1, 2, num_samples), dtype=param.dtype, device=param.device)
+    with torch.no_grad():
+        logits, _ = forward(model, cfg, samples, rope)
+    return int(logits.shape[1])
+
+
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 

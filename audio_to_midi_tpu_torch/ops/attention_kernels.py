@@ -46,8 +46,9 @@ precomputed uint8 bits, or bytes drawn inside the kernel from a seed.
   the JAX package's reference formulations (:func:`head_major_attention_reference`,
   :func:`rope_attention_reference`), as its ``custom_vjp``s have it.
   CUDA sources: ``csrc/head_major_attention.cu`` (an entry into kernel 1's
-  body), ``csrc/rope_attention.cu`` (the scalar tile loop of
-  ``csrc/attention_tile.cuh``).
+  body), ``csrc/rope_attention.cu`` (the RoPE pass of the fused layers,
+  ``csrc/rope_rows.cuh``, into a workspace, then kernel 1's body: kernel
+  1's bits on q and k RoPE'd by the plain rotation).
 
 The mask: a weight is kept where its byte ``>= threshold`` and scaled by
 ``256 / (256 - threshold)``, with ``threshold = round(rate * 256)``, applied
@@ -85,10 +86,9 @@ the mask and its scale go on those weights before that rounding.  The local
 attention's forward (kernels 2, 5, 12, and 6, which is kernel 2 on the
 card) and backward (7, 8, 13) take the same products, one 16 x 16 window per
 warp; the forward rounds the normalized, masked weights to bf16, as the TPU
-kernel does.  Kernel 10 (RoPE inside) still runs scalar fp32 FMA loops over
-shared memory (``csrc/attention_tile.cuh``), paced by those shared-memory
-reads, bf16 at f32's speed; it moves onto the tensor-core body next, and the
-scalar loop goes with it.
+kernel does.  Kernel 10 (RoPE inside) is a RoPE pass over copies of q and
+k, then kernel 1's body on them, so it rounds its bf16 weights where kernel
+1 does.
 
 The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
@@ -1021,12 +1021,13 @@ def _rope_forward(q, k, v, cos, sin, num_heads: int, block: int):
     _check_global(s, block, None)
     tables = [t[:s].to(device=q.device, dtype=torch.float32).contiguous() for t in (cos, sin)]
     out = torch.empty_like(q)
+    workspace = torch.empty((2, *q.shape), dtype=dtype, device=q.device)  # RoPE'd q, k
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         code = lib.a2m_rope_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-            out.data_ptr(), g, s, num_heads, hd, block, float(_query_scale(hd, dtype)),
-            _DTYPE_CODES[dtype], _stream_handle(q.device))
+            workspace.data_ptr(), out.data_ptr(), g, s, num_heads, hd, block,
+            float(_query_scale(hd, dtype)), _DTYPE_CODES[dtype], _stream_handle(q.device))
     cuda_build.check(code, "rope_attention")
     rope_attention.launches += 1
     return out

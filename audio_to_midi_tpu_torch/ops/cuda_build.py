@@ -100,8 +100,8 @@ def library() -> ctypes.CDLL:
         "a2m_philox_dump": [ptr] * 2 + [i32] * 3 + [ptr],
         # q, k, v, out; G, H, S, hd, block.
         "a2m_head_major_attention": [ptr] * 4 + [i32] * 5 + [f32, i32, ptr],
-        # q, k, v, cos, sin, out; G, S, H, hd, block.
-        "a2m_rope_attention": [ptr] * 6 + [i32] * 5 + [f32, i32, ptr],
+        # q, k, v, cos, sin, workspace, out; G, S, H, hd, block.
+        "a2m_rope_attention": [ptr] * 7 + [i32] * 5 + [f32, i32, ptr],
         # carries, dy, 8 weights, dx, 8 gradients, workspace; depth, B, L, C, H, K, dtype.
         "a2m_convnext_stage_bwd": [ptr] * 20 + [i32] * 7 + [ptr],
         # x, 8 weights, out, workspace; depth, B, L, C, H, K, dtype.
@@ -116,6 +116,8 @@ def library() -> ctypes.CDLL:
         # x, the arrays of 22 weight and 6 table pointers, out, workspace;
         # B, P, D, H, hd, C, I, S, pad_l; scale, dtype, stream.
         "a2m_transformer_pair": [ptr] * 5 + [i32] * 9 + [f32, i32, ptr],
+        # p, fired, attack, duration, final_active, final_started, workspace; N, K; stream.
+        "a2m_eventize": [ptr] * 7 + [i32] * 2 + [ptr],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes
@@ -127,6 +129,7 @@ def library() -> ctypes.CDLL:
         "a2m_attention_block_workspace": 7,        # B, P, D, H, hd, C, dtype
         "a2m_fused_sublayer_workspace": 7,
         "a2m_transformer_pair_workspace": 8,       # B, P, D, H, hd, C, I, dtype
+        "a2m_eventize_workspace": 2,               # N, K
     }
     for name, count in workspaces.items():
         getattr(lib, name).argtypes = [i32] * count

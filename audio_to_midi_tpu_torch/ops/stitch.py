@@ -69,38 +69,85 @@ def stitch_probs_parallel(
 
     The sequential loop is pairwise: window w's blend region only reads
     window w-1's final rows, and every output row is finally owned by the
-    last window that writes it (rows [b_w, b_{w+1}) belong to w).  So all
-    blends compute at once from a shifted gather of the previous window, and
-    the owned rows concatenate.  Where windows advance by no more than the
-    blend width the precondition fails and the sequential stitcher runs.
+    last window that writes it (rows [b_w, b_{w+1}) belong to w).  So the
+    whole sequence is one chunk of :func:`stitch_chunk`, all blends at once,
+    and the rows past the last owned one are zero.  Where windows advance by
+    no more than the blend width the precondition fails and the sequential
+    stitcher runs.
     """
     num_windows, fpw, e = all_probs.shape
-    bases, output_frames, ov = stitch_plan(num_windows, fpw, overlap, duration_per_frame)
-    probs = all_probs.float()
-    if num_windows == 1:
-        return probs[0][:output_frames]
-    d = bases[1:] - bases[:-1]
-    if ov > 0 and int(np.min(d)) <= math.ceil(ov):
+    try:
+        d, own, output_frames, ov = stitch_chunk_plan(
+            num_windows, fpw, overlap, duration_per_frame)
+    except ValueError:
         return stitch_probs(all_probs, overlap, duration_per_frame)
-
-    if ov > 0:
-        blend, in_blend = _blend_weights(fpw, ov, probs.device)
-        r = torch.arange(fpw, device=probs.device)
-        # Window w (>0) blends row r with window w-1's row d_w + r; past
-        # w-1's last row the sequential loop reads zeros.
-        idx = torch.as_tensor(d, device=probs.device)[:, None] + r[None, :]
-        prev = torch.gather(
-            probs[:-1], 1, idx.clamp(max=fpw - 1)[:, :, None].expand(-1, -1, e)
-        )
-        cur = torch.where((idx >= fpw)[:, :, None], torch.zeros_like(prev), prev)
-        tail = torch.where(in_blend[None], (1.0 - blend) * cur + blend * probs[1:], probs[1:])
-        final = torch.cat([probs[:1], tail], dim=0)
-    else:
-        final = probs
-
-    own = np.concatenate([d, [fpw]])  # rows [0, own_w) of window w are final
-    owned = torch.cat([final[w, : int(own[w])] for w in range(num_windows)], dim=0)
-    out = torch.zeros((output_frames, e), dtype=torch.float32, device=probs.device)
+    owned = stitch_chunk(all_probs.new_zeros((fpw, e)), all_probs, d=d, own=own, ov=ov,
+                         first=True)
+    out = torch.zeros((output_frames, e), dtype=torch.float32, device=all_probs.device)
     n = min(output_frames, owned.shape[0])
     out[:n] = owned[:n]
     return out
+
+
+# --- streaming (chunked) stitching, bit for bit the batch stitcher's rows ---
+
+
+def stitch_chunk_plan(
+    num_windows: int, frames_per_window: int, overlap: float, duration_per_frame: float
+) -> tuple[np.ndarray, np.ndarray, int, float]:
+    """Per-window blend-read offsets ``d`` (d[0] unused) and owned-row counts
+    ``own`` for chunked stitching, with the output's frames and the overlap
+    in frames.
+
+    Derived from the same float-accumulated global bases as
+    :func:`stitch_plan`, so chunk boundaries never perturb the geometry
+    (with non-integral overlap frames the bases are non-uniform and must be
+    computed globally).  Raises ``ValueError`` where the pairwise-blend
+    precondition fails (window stride <= blend width): only the sequential
+    stitcher reproduces the chained blends there."""
+    bases, output_frames, ov = stitch_plan(
+        num_windows, frames_per_window, overlap, duration_per_frame
+    )
+    d = np.concatenate([[0], bases[1:] - bases[:-1]])
+    next_base = np.concatenate([bases[1:], [bases[-1] + frames_per_window]])
+    own = next_base - bases
+    if ov > 0 and num_windows > 1 and int(np.min(d[1:])) <= math.ceil(ov):
+        raise ValueError(
+            "chunked stitching needs the pairwise-blend precondition "
+            "(window stride > blend width); use the batch stitcher for "
+            f"overlap {overlap} at {duration_per_frame}s/frame"
+        )
+    return d, own, output_frames, ov
+
+
+def stitch_chunk(
+    prev_window: torch.Tensor, chunk_probs: torch.Tensor, *, d: list[int], own: list[int],
+    ov: float, first: bool,
+) -> torch.Tensor:
+    """The stitched rows owned by this chunk's windows: the same rows of
+    :func:`stitch_probs_parallel` over the whole sequence, bit for bit, on
+    the same device.
+
+    prev_window: (fpw, E) probabilities of the window just before the chunk
+    (ignored when ``first``); chunk_probs: (Wc, fpw, E); ``d`` / ``own``:
+    this chunk's entries of :func:`stitch_chunk_plan`.  Every output row
+    depends on at most two adjacent windows, so one context window per chunk
+    gives the batch rows, and a window's owned rows are the prefix [0,
+    own_w) of its blended rows."""
+    probs = chunk_probs.float()
+    wc, fpw, e = probs.shape
+    if ov > 0:
+        prevs = torch.cat([prev_window.float()[None], probs[:-1]], dim=0)
+        blend, in_blend = _blend_weights(fpw, ov, probs.device)
+        r = torch.arange(fpw, device=probs.device)
+        idx = torch.as_tensor(np.asarray(d, np.int64), device=probs.device)[:, None] + r[None, :]
+        prev_rows = torch.gather(
+            prevs, 1, idx.clamp(max=fpw - 1)[:, :, None].expand(-1, -1, e)
+        )
+        cur = torch.where((idx >= fpw)[:, :, None], torch.zeros_like(prev_rows), prev_rows)
+        final = torch.where(in_blend[None], (1.0 - blend) * cur + blend * probs, probs)
+        if first:  # window 0 of the whole sequence is never blended
+            final = torch.cat([probs[:1], final[1:]], dim=0)
+    else:
+        final = probs
+    return torch.cat([final[i, : int(own[i])] for i in range(wc)], dim=0)

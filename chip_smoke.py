@@ -41,8 +41,9 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      and 8 launches of each forward kernel per forward;
   4. end to end: ~30 s of synthetic stereo piano tones written as WAV, the
      seeded weights saved as a port checkpoint, then the CLI
-     (file -> MIDI, f32) with its launches counted; the MIDI is read back and
-     the stitched probabilities are held against the plain path's;
+     (file -> MIDI, f32, the eventizer on the card) with its launches
+     counted; the MIDI is read back and the stitched probabilities are held
+     against the plain path's;
   5. training: the same model, dropout-free and with cnn_bwd_kernel=False
      (autograd through the ConvNeXt blocks), bf16 compute over f32
      parameters, 4 optimizer steps on one seeded batch of 64 windows in 2
@@ -88,13 +89,28 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      dropout-free step, the CLI with a "pallas_rw" --config against phase
      4's MIDI; f16 serving with "pallas" (no kernel takes f16, as in the JAX
      package: no launch, equal to f16 "xla"); kernels 3 and 10 through their
-     functions, forward and backward, against the JAX reference formulations.
+     functions, forward and backward, against the JAX reference formulations;
+ 11. the serving paths of a file, f32, phase 4's weights: transcribe_file on
+     phase 4's 30 s WAV and on a 300 s one with its stage walls (decode,
+     transfer, window, model_stitch, eventize, fetch) and the card's events
+     equal to the numpy eventizer's on the fetched probabilities;
+     transcribe_file_streaming on the 300 s file against transcribe_file by
+     the correctness gate (stitched <= 1e-4, events identical unless a
+     probability lies within that of a threshold), with the time to the
+     first segment, the total and the peak device memory of each;
+     transcribe_samples_fused on the 30 s tones at 44.1 kHz in memory
+     against the decode path; the CLI with --stream on phase 4's WAV, whose
+     MIDI must be phase 4's.
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
-LayerNorm and products, kernels 1 and 2: many calls, not one), and kernels
-6, 3 and 10 at the serving shapes beside kernel 2 (whose bits kernel 6 must
-give: it runs kernel 2's body), F.scaled_dot_product_attention and rope +
-kernel 1, each with its gradient through autograd on the card.  Phase 6's
+LayerNorm and products, kernels 1 and 2: many calls, not one), kernels 6, 3
+and 10 at the serving shapes beside kernel 2 (whose bits kernel 6 must give:
+it runs kernel 2's body), F.scaled_dot_product_attention and rope + kernel 1
+(whose bits kernel 10 must give: it runs kernel 1's body on the roped rows),
+each with its gradient through autograd on the card, kernel 10 also at S =
+496 with block 16, and the eventizer's kernel (not a TPU kernel: it takes
+the place of the JAX package's lax.scan) on a seeded 15,000 x 90 array
+against the numpy eventizer, bit for bit, timed beside it.  Phase 6's
 plain comparator is "pallas" with the seeded dropout wrappers replaced, in
 this script only, by their plain versions on the plain Philox bytes of the
 same seed: "xla" drops at the exact rate, as the JAX einsum route does.
@@ -181,6 +197,16 @@ STAGES = {4: (3, 1000, 64, 128), 5: (21, 500, 128, 256), 6: (3, 250, 256, 512),
           "tail": (3, 173, 128, 384)}
 TRAIN_STEPS = 4
 SERVING_BATCH = 128  # windows per forward in batch transcription
+# The eventizer's phase-2 case: 300 s of audio at 50 frames per second.
+EVENT_FRAMES = 15_000
+# Phase 11's long file, and the limit of the fused path at 44.1 kHz in
+# memory against the decode path of the same tones written at 16 kHz: the
+# decode path samples them at 16 kHz, as 16-bit PCM, and ships them as f16
+# (a relative 2^-11 per sample); the fused path resamples the 44.1 kHz
+# samples with the Kaiser filter in f32.  The default model with seed-0
+# weights read 2.4e-3 on the CPU (12 s); the limit is 4x that.
+LONG_SECONDS = 300.0
+FUSED_44K_TOL = 1e-2
 TIMED_BATCHES = (BATCH, SERVING_BATCH)  # windows per forward in the serving timings
 DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
@@ -203,10 +229,11 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port, the attention ones first."""
-    from audio_to_midi_tpu_torch.ops import attention_kernels, convnext_kernels
+    from audio_to_midi_tpu_torch.ops import attention_kernels, convnext_kernels, eventize
     from audio_to_midi_tpu_torch.ops import fused_layer_kernels
 
-    return attention_kernels.KERNELS + convnext_kernels.KERNELS + fused_layer_kernels.KERNELS
+    return (attention_kernels.KERNELS + convnext_kernels.KERNELS + fused_layer_kernels.KERNELS
+            + eventize.KERNELS)
 
 
 def reset_launches() -> None:
@@ -439,15 +466,23 @@ def check_variant_kernels(ak, results: dict, name: str, dt, ts, qkv) -> None:
         bound(4, q.numel(), name, attn_flops(SEQ, SEQ), extra_bytes=2 * cos.numel() * 4))
     turns = in_turns({"kernel 10": lambda: ak.rope_attention(q, k, v, cos, sin, HEADS),
                       "rope + kernel 1": rope_then_kernel1})
-    apart = max_err(ak.rope_attention(q, k, v, cos, sin, HEADS), rope_then_kernel1())
+    same = torch.equal(ak.rope_attention(q, k, v, cos, sin, HEADS), rope_then_kernel1())
     results[f"rope S=250 {name}"]["beside"] = {
         "what": "the pallas global route: rope_with on q and k, then kernel 1",
         "ms": turns["rope + kernel 1"]}
     log(f"kernel rope S=250 {name} in turns with the pallas route (rope, then kernel 1): "
         + ", ".join(f"{k_} {' / '.join(f'{t:.4f}' for t in v_)} ms" for k_, v_ in turns.items())
-        + f"; outputs apart by {apart:.3e} (tol {KERNEL_TOL[name]:.0e})")
-    if apart > KERNEL_TOL[name]:
-        raise AssertionError("kernel 10 and rope + kernel 1 compute different functions")
+        + f"; identical bits {same}")
+    if not same:
+        raise AssertionError("kernel 10 does not give kernel 1's bits on the roped inputs")
+    # S = 496 with block 16 (31 blocks of 16 rows), the tables' first 496 rows.
+    long_freqs = precompute_frequencies(HEAD_DIM, 496, device="cuda")
+    lq, lk, lv = (randn(n, 496, width, seed=29 + i, dtype=dt) for i in range(3))
+    run("rope S=496 block=16", name,
+        lambda: ak.rope_attention(lq, lk, lv, *long_freqs, HEADS, 16),
+        lambda: ak.rope_attention_plain(lq, lk, lv, *long_freqs, HEADS, 16), kernel_tol,
+        bound(4, lq.numel(), name, attn_flops(496, 16),
+              extra_bytes=2 * long_freqs.cos.numel() * 4))
     cot = randn(n, SEQ, width, seed=28, dtype=dt)
     check_grads(f"rope S=250 {name}",
                 autograd_of(lambda *t: ak.rope_attention(*t, cos, sin, HEADS), qkv, cot),
@@ -821,7 +856,61 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
             f"{abs(keep - p_keep) / sigma:.2f} sigma (limit 4)")
         if abs(keep - p_keep) > 4 * sigma:
             raise AssertionError("the mask bytes do not keep at 230/256")
+    check_eventize(results)
     return results
+
+
+def walk_probs(frames: int, seed: int, keys: int = 90) -> np.ndarray:
+    """Seeded random-walk probabilities that cross every eventizer threshold."""
+    rng = np.random.default_rng(seed)
+    logits = np.cumsum(rng.standard_normal((frames, keys)) * 0.8, axis=0)
+    return (1 / (1 + np.exp(-(logits - logits.mean(0))))).astype(np.float32)
+
+
+def check_eventize(results: dict) -> None:
+    """Phase 2, the eventizer's kernel (csrc/eventize.cu: it takes the place
+    of the JAX package's lax.scan over frames, not of a Pallas kernel) on a
+    seeded 15,000 x 90 array -- 300 s of audio -- against its plain version,
+    the numpy eventizer: the five dense arrays bit for bit, and the event
+    lists.  Times: the kernel by CUDA events; the plain version, which runs
+    on the host, by the host's clock over 3 calls; extract_events on the
+    card (kernel, the fired cells gathered into a table, the table and the
+    final state fetched) by the host's clock.  Bound: p read and the dense
+    arrays written once over the memory rate -- the chain over frames sets
+    the kernel's floor, not a roof.  No one PyTorch call computes it."""
+    from audio_to_midi_tpu_torch.ops import eventize as ev
+
+    p = walk_probs(EVENT_FRAMES, seed=15)
+    pc = torch.from_numpy(p).cuda()
+    out, ref = ev.eventize(pc), ev.extract_events_dense_plain(p)
+    torch.cuda.synchronize()
+    same = all(torch.equal(o.cpu(), torch.from_numpy(r)) for o, r in zip(out, ref))
+    events, host_events = ev.extract_events(pc), ev.extract_events(p)
+    ms = time_ms(lambda: ev.eventize(pc))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ev.extract_events_dense_plain(p)
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.extract_events(pc)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    frames, keys = p.shape
+    moved = frames * keys * (4 + 1 + 4 + 4) + keys * (1 + 4)  # p; fired, attack, duration; final
+    bound_ = {"bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "p_only_ms": p.nbytes / PEAK_BYTES_PER_S * 1e3}
+    log(f"kernel eventize N={frames} x {keys} f32: dense arrays identical to the plain version's "
+        f"{same}, event lists identical {events == host_events} ({len(events)} events); kernel "
+        f"{ms:.4f} ms, plain (numpy, host clock) {plain_ms:.2f} ms, extract_events on the card "
+        f"(kernel, table, fetch) median {sorted(walls)[5]:.3f} ms of 10; bound "
+        f"{bound_['bound_ms']:.4f} ms by bytes (p alone {bound_['p_only_ms']:.4f} ms)")
+    if not same or events != host_events:
+        raise AssertionError("the eventize kernel disagrees with the numpy eventizer")
+    results[f"eventize N={frames} f32"] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                           "library_ms": None,
+                                           "extract_events_ms": sorted(walls)[5], **bound_}
 
 
 def check_fused_kernels(flk, model_lib, cfg) -> dict[str, dict]:
@@ -964,7 +1053,9 @@ def check_forward(model_lib, cfg, model) -> None:
 
 
 def synth_audio(seconds: float, rate: int, seed: int) -> np.ndarray:
-    """Stereo decaying sines at a few piano pitches, one note every 0.5 s."""
+    """Stereo decaying sines at a few piano pitches, one note every 0.5 s,
+    each summed over the 10 s after its start (its envelope exp(-3 t) is
+    then 1e-13, below what float32 keeps)."""
     rng = np.random.default_rng(seed)
     n = int(seconds * rate)
     t = np.arange(n) / rate
@@ -972,11 +1063,12 @@ def synth_audio(seconds: float, rate: int, seed: int) -> np.ndarray:
     for start in np.arange(0.0, seconds - 1.0, 0.5):
         key = int(rng.integers(30, 70))  # piano key index (MIDI key - 21)
         freq = 440.0 * 2 ** ((key + 21 - 69) / 12)
-        since = np.maximum(t - start, 0.0)
-        tone = np.where(t >= start, np.exp(-since * 3.0), 0.0) * np.sin(2 * np.pi * freq * since)
+        span = slice(int(np.searchsorted(t, start)), int(np.searchsorted(t, start + 10.0)))
+        since = t[span] - start
+        tone = np.exp(-since * 3.0) * np.sin(2 * np.pi * freq * since)
         pan = rng.uniform(0.3, 0.7)
-        out[0] += pan * tone
-        out[1] += (1 - pan) * tone
+        out[0, span] += pan * tone
+        out[1, span] += (1 - pan) * tone
     return (0.5 * out / np.abs(out).max()).astype(np.float32)
 
 
@@ -1772,6 +1864,117 @@ def check_rw_and_f16(ak, model_lib, cfg, model, card: str) -> dict[str, dict[str
     return totals
 
 
+def gate(stitched: np.ndarray, ref: np.ndarray, events, ref_events, what: str, tol: float):
+    """The correctness gate: stitched within ``tol`` of ``ref``, events
+    identical unless a probability lies within ``tol`` of a threshold."""
+    err = float(np.abs(stitched - ref).max()) if stitched.shape == ref.shape else math.inf
+    near = min(float(np.abs(ref - t).min()) for t in EVENT_THRESHOLDS)
+    same = events == ref_events
+    log(f"{what}: stitched {stitched.shape} max_abs_err {err:.3e} (tol {tol:.0e}), events "
+        f"identical {same} ({len(events)} vs {len(ref_events)}; closest prob to a threshold "
+        f"{near:.2e})")
+    if not np.isfinite(stitched).all() or err > tol or (near > tol and not same):
+        raise AssertionError(f"{what}: outside the correctness gate")
+
+
+def check_file_serving(cfg, card: str) -> dict[str, dict[str, int]]:
+    """Phase 11: the serving paths of a file, f32, with the seeded weights of
+    phase 4's checkpoint.  transcribe_file on phase 4's 30 s WAV and on a
+    300 s one, each after a warm call, with its stage walls (stage_times:
+    each stage ends by synchronizing the card) and the card's events against
+    the numpy eventizer's on the fetched stitched probabilities;
+    transcribe_file_streaming (32 windows a chunk) on the 300 s file against
+    transcribe_file by the correctness gate, with the first segment's time,
+    the total and the peak device memory of each; transcribe_samples_fused
+    on the 30 s tones synthesized at 44.1 kHz, in memory, against the decode
+    path of phase 4's WAV (FUSED_44K_TOL); the CLI with --stream on phase
+    4's WAV, whose MIDI events must be phase 4's.  Returns the launches of
+    each path, counted from 0 just before it."""
+    from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
+    from audio_to_midi_tpu_torch.data.audio_io import write_wav
+    from audio_to_midi_tpu_torch.infer import (load_params, transcribe_file,
+                                               transcribe_file_streaming,
+                                               transcribe_samples_fused)
+    from audio_to_midi_tpu_torch.models.model import make_rope
+    from audio_to_midi_tpu_torch.ops.eventize import extract_events
+    from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
+
+    m32 = load_params(WORK / "params.npz", cfg, "cuda", torch.float32)
+    wav30, wav300 = WORK / "synth.wav", WORK / "synth300.wav"
+    write_wav(wav300, synth_audio(LONG_SECONDS, cfg.data.sample_rate, seed=4),
+              cfg.data.sample_rate)
+    launches, batch = {}, {}
+    for label, wav, seconds in (("30 s", wav30, 30.0), ("300 s", wav300, LONG_SECONDS)):
+        transcribe_file(m32, cfg, wav)  # warm: cuDNN's choices at this batch
+        stages = {}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        stitched, _dpf, events = transcribe_file(m32, cfg, wav, stage_times=stages)
+        wall = time.perf_counter() - t0
+        launches[f"file {label}"] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        host_events = extract_events(stitched)  # a numpy array: the plain eventizer
+        batch[label] = (stitched, events, wall, peak)
+        log(f"transcribe_file {label}, f32: {wall * 1e3:.1f} ms ({seconds / wall:.0f}x realtime) = "
+            + " + ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items())
+            + f" ms; peak device memory {peak / 2**20:.1f} MiB; {len(events)} events, the numpy "
+            f"eventizer's on the fetched probabilities identical {events == host_events}; "
+            f"eventize launches {launches[f'file {label}']['eventize']}; on {card}")
+        if events != host_events or stitched.shape[1] != cfg.model.output_vocab:
+            raise AssertionError(f"transcribe_file {label}: the card's events are not numpy's")
+
+    stitched, events, wall, peak = batch["300 s"]
+    transcribe_file_streaming(m32, cfg, wav300)  # warm: cuDNN's choices at 32 windows
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    streamed, _dpf, stream_events = transcribe_file_streaming(m32, cfg, wav300,
+                                                              stage_times=stages)
+    launches["streaming 300 s"] = read_launches()
+    stream_peak = torch.cuda.max_memory_allocated()
+    log(f"transcribe_file_streaming 300 s, f32, 32 windows a chunk: first segment "
+        f"{stages['first_segment_s'] * 1e3:.1f} ms, first final event "
+        + (f"{stages['first_event_s'] * 1e3:.1f} ms" if stages["first_event_s"] else "none")
+        + f", total {stages['total_s'] * 1e3:.1f} ms (decode {stages['decode'] * 1e3:.1f}); "
+        f"peak device memory {stream_peak / 2**20:.1f} MiB; transcribe_file: total "
+        f"{wall * 1e3:.1f} ms, its first stitched rows with the last, peak {peak / 2**20:.1f} MiB")
+    gate(streamed, stitched, stream_events, events, "streaming vs batch, 300 s",
+         FORWARD_TOL["f32"])
+
+    audio44 = torch.from_numpy(synth_audio(30.0, 44_100, seed=2)).cuda()
+    fused_cfg = dataclasses.replace(cfg, precision=dataclasses.replace(cfg.precision,
+                                                                       compute_dtype="f32"))
+    rope = make_rope(cfg.model, "cuda")
+    fused = lambda: transcribe_samples_fused(m32, fused_cfg, audio44, rope, 44_100,
+                                             cfg.data.model_audio_length, 0.5)
+    fused()  # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_stitched = fused().cpu().numpy()
+    fused_wall = time.perf_counter() - t0
+    launches["fused 30 s"] = read_launches()
+    log(f"transcribe_samples_fused 30 s at 44.1 kHz in memory, f32: {fused_wall * 1e3:.1f} ms "
+        f"(resample, normalize, windows, model, stitch on the card; fetch included)")
+    gate(fused_stitched, batch["30 s"][0], extract_events(fused_stitched), batch["30 s"][1],
+         "fused 44.1 kHz vs the decode path, 30 s", FUSED_44K_TOL)
+
+    mid = WORK / "out_stream.mid"
+    reset_launches()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = cli_main([str(wav30), str(mid), "--checkpoint", str(WORK / "params.npz"), "--stream"])
+    torch.cuda.synchronize()
+    launches["cli --stream"] = read_launches()
+    same = rc == 0 and read_midi_file(mid) == read_midi_file(WORK / "out.mid")
+    log(f"cli --stream: {' | '.join(captured.getvalue().strip().splitlines())}; MIDI identical "
+        f"to phase 4's {same}")
+    if not same:
+        raise AssertionError("the --stream CLI's MIDI differs from phase 4's")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1824,9 +2027,13 @@ def main() -> int:
     rw_paths = check_rw_and_f16(ak, model_lib, cfg, model, card)
     log(f"pallas_rw and attention-function main-path launches: {rw_paths}; phase 10 took "
         f"{time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    file_serving = check_file_serving(cfg, card)
+    log(f"file serving main-path launches: {file_serving}; phase 11 took "
+        f"{time.perf_counter() - t11:.1f} s")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
-             **fused_serving, **rw_paths}
+             **fused_serving, **rw_paths, **file_serving}
     on_path = {
         "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
@@ -1842,6 +2049,7 @@ def main() -> int:
         "local_two_phase_rw": ("pallas_rw serving", "pallas_rw training"),
         "head_major_attention": ("attention functions",),
         "rope_attention": ("attention functions",),
+        "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream"),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")
@@ -1891,11 +2099,15 @@ def main() -> int:
     }
     sources = {name: (source, "pallas_attention.py:" + line, case)
                for name, (source, line, case) in attention.items()} | sources
+    # Not a Pallas kernel: the eventizer's lax.scan, which XLA compiles.
+    sources["eventize"] = ("eventize.cu", "eventize.py:43 extract_events_dense (lax.scan)",
+                           f"eventize N={EVENT_FRAMES} f32")
     # Where a kernel's products live apart from its entry: the tensor-core
     # product of kernels 20 and 19 and of the fused layers, whose device code
     # is in fused_layer_impl.cuh.
     products = dict.fromkeys(("stage_bwd", "stage_fwd", "attention_block", "fused_local_sublayer",
                               "fused_global_sublayer", "transformer_pair"), "convnext_gemm.cuh")
+    products["rope_attention"] = "global_attention_fwd.cuh"  # kernel 1's body, after rope_rows.cuh
     kernels = []
     for name, (source, replaces, case) in sources.items():
         r = kernel_results[case]

@@ -104,8 +104,7 @@ def cuda_device():
 # weights, as the TPU kernels round theirs, where the plain versions keep
 # them in fp32: a relative 2**-9 per weight, well inside one output ulp
 # (tests/test_torch_attention_fwd.py and tests/test_torch_local_attention_fwd.py
-# emulate it on the CPU); kernel 10's scalar loop keeps fp32 weights and sums
-# in another order.
+# emulate it on the CPU); kernel 10 is a RoPE pass, then kernel 1's body.
 CARD_CASES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
 
@@ -1435,3 +1434,168 @@ def test_model_paths_hand_the_fused_kernels_16_byte_operands_on_card(cuda_device
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all() and len(seen) > 0
     assert all(ptr % 16 == 0 and row_bytes % 16 == 0 for ptr, row_bytes in seen), seen
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10 on kernel 1's body: the same bits, the weights rounded as kernel
+# 1 (and the TPU kernel) rounds them.
+# ---------------------------------------------------------------------------
+
+
+def _roped(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, heads: int) -> torch.Tensor:
+    """The plain rotation (fp32 products and difference, cast back)."""
+    return ak._rope_rows(t, cos, sin, heads).reshape(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,heads", [(64, 4), (32, 4), (16, 2)])
+@pytest.mark.parametrize("s,block", [(250, 0), (496, 16), (37, 0)])
+def test_rope_kernel_gives_kernel_1_bits_on_roped_inputs_on_card(cuda_device, dtype, hd, heads,
+                                                                 s, block):
+    q, k, v = (_randn(16, s, heads * hd, seed=s + hd + i, device=cuda_device, dtype=dtype)
+               for i in range(3))
+    cos, sin = _rope_tables(s + 3, hd, cuda_device)
+    before = (ak.rope_attention.launches, ak.global_attention.launches)
+    out = ak.rope_attention(q, k, v, cos, sin, heads, block)
+    assert (ak.rope_attention.launches, ak.global_attention.launches) == (before[0] + 1, before[1])
+    ref = ak.global_attention(_roped(q, cos, sin, heads), _roped(k, cos, sin, heads), v, heads,
+                              block)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def _rounded_weights_attention(q, k, v, heads: int) -> torch.Tensor:
+    """Kernel 1's bf16 arithmetic on the CPU, without masks: q scaled in its
+    dtype, fp32 logits, an online softmax over 64-column tiles whose
+    unnormalised weights exp(s - m) are rounded to bf16 before their product
+    with v (the TPU kernels' weights.astype(v.dtype)), the fp32 row sum
+    unrounded, the division at the end."""
+    g, s, dm = q.shape
+    hd = dm // heads
+    split = lambda t: t.reshape(g, s, heads, hd).transpose(1, 2).float()
+    logits = split(q * torch.tensor(1 / math.sqrt(hd), dtype=q.dtype)) @ split(k).transpose(-1, -2)
+    vf = split(v)
+    m = torch.full((g, heads, s, 1), -torch.inf)
+    row_sum = torch.zeros(g, heads, s, 1)
+    acc = torch.zeros(g, heads, s, hd)
+    for k0 in range(0, s, 64):
+        tile = logits[..., k0:k0 + 64]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new)
+        row_sum = row_sum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vf[..., k0:k0 + 64, :]
+        m = m_new
+    return (acc / row_sum).transpose(1, 2).reshape(g, s, dm).to(q.dtype)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_rounds_bf16_weights_as_the_tpu_kernel_on_card(cuda_device):
+    """In bf16 kernel 10 rounds each tile's weights before their product
+    with v.  Its outputs equal the rounded-weight arithmetic's on >= 99 % of
+    the elements (sums in another order flip ~0.05 %, read on the CPU
+    between fp32 and fp64 accumulation); fp32 weights -- the plain version,
+    and kernel 10 before it moved onto kernel 1's body -- give another bf16
+    output on ~39 % of them, and fail the same check."""
+    q, k, v = (_randn(16, 250, 256, seed=300 + i, dtype=torch.bfloat16) for i in range(3))
+    cos, sin = _rope_tables(250, 64, "cpu")
+    out = ak.rope_attention(*(t.to(cuda_device) for t in (q, k, v)), cos.to(cuda_device),
+                            sin.to(cuda_device), 4).cpu()
+    rounded = _rounded_weights_attention(_roped(q, cos, sin, 4), _roped(k, cos, sin, 4), v, 4)
+    fp32_weights = ak.rope_attention_plain(q, k, v, cos, sin, 4)
+    share = lambda a: (a == rounded).float().mean().item()
+    assert share(out) >= 0.99
+    assert share(fp32_weights) < 0.9
+
+
+# ---------------------------------------------------------------------------
+# The eventizer's kernel (csrc/eventize.cu) against its plain version.
+# ---------------------------------------------------------------------------
+
+from audio_to_midi_tpu_torch.ops import eventize as ev  # noqa: E402
+
+
+def _event_probs(case: str, frames: int, keys: int = 90) -> "np.ndarray":
+    import numpy as np
+
+    rng = np.random.default_rng(frames * 7 + len(case))
+    if case == "walk":  # random-walk probabilities that cross every threshold
+        logits = np.cumsum(rng.standard_normal((frames, keys)) * 0.8, axis=0)
+        return (1 / (1 + np.exp(-(logits - logits.mean(0))))).astype(np.float32)
+    if case == "uniform":
+        return rng.random((frames, keys)).astype(np.float32)
+    if case in ("zeros", "ones"):
+        return np.full((frames, keys), float(case == "ones"), np.float32)
+    p = _event_probs("walk", frames, keys)
+    if case == "held to the end":
+        p[3:, 0] = 0.9
+        p[frames - 1, 1] = 0.51
+    elif case == "nan rows":
+        p[7] = np.nan
+        p[20:23, 2] = np.nan
+    elif case == "at the thresholds":
+        p[:, :4] = np.float32([0.5, 0.1, 0.4, 0.5])
+    return p
+
+
+EVENT_CASES = ([("walk", n, 90) for n in (1, 2, 3, 4, 5, 6, 7, 250, 3000, 15_000)]
+               + [("uniform", 250, 90), ("uniform", 3000, 90), ("walk", 300, 8),
+                  ("walk", 300, 33), ("zeros", 40, 8), ("ones", 40, 8),
+                  ("held to the end", 40, 8), ("nan rows", 40, 8),
+                  ("at the thresholds", 40, 8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,frames,keys", EVENT_CASES)
+def test_eventize_kernel_matches_plain_on_card(cuda_device, case, frames, keys):
+    """The five dense arrays, bit for bit (IEEE sums and divisions on both
+    sides), for any number of frames and keys (a block takes 32 keys)."""
+    p = _event_probs(case, frames, keys)
+    before = ev.eventize.launches
+    out = ev.eventize(torch.from_numpy(p).to(cuda_device))
+    torch.cuda.synchronize()
+    assert ev.eventize.launches == before + 1
+    for o, r in zip(out, ev.extract_events_dense_plain(p)):
+        r = torch.from_numpy(r)
+        assert o.device.type == "cuda" and o.dtype == r.dtype
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [250, 15_000])
+def test_event_lists_of_a_cuda_tensor_never_reach_numpy_on_card(cuda_device, monkeypatch,
+                                                               frames):
+    """A CUDA tensor is eventized by the kernel: with the plain version made
+    to raise, the event lists (both velocity modes) and the compact table
+    equal the plain ones, one launch each."""
+    p = _event_probs("walk", frames)
+    refs = (ev.extract_events(p), ev.extract_events(p, real_velocity=True),
+            ev.extract_events_compact(p, 2 * frames))
+
+    def refuse(_):
+        raise AssertionError("a CUDA tensor reached the plain eventizer")
+
+    monkeypatch.setattr(ev, "extract_events_dense_plain", refuse)
+    pc = torch.from_numpy(p).to(cuda_device)
+    before = ev.eventize.launches
+    events = ev.extract_events(pc)
+    assert events == refs[0] and len(events) > 0
+    assert ev.extract_events(pc, real_velocity=True) == refs[1]
+    table, count, active, started = ev.extract_events_compact(pc, 2 * frames)
+    assert table.device.type == "cuda" and count == refs[2][1]
+    for o, r in zip((table, active, started), (refs[2][0], *refs[2][2:])):
+        assert torch.equal(o.cpu(), r)
+    assert ev.eventize.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_eventize_refuses_what_it_does_not_take_on_card(cuda_device):
+    before = ev.eventize.launches
+    with pytest.raises(ValueError):
+        ev.eventize(torch.zeros(0, 90, device=cuda_device))
+    with pytest.raises(ValueError):
+        ev.eventize(torch.zeros(5, device=cuda_device))
+    with pytest.raises(ValueError):  # past 2^24 frames float(frame) is not exact
+        ev.eventize(torch.zeros(ev.MAX_FRAMES + 1, 1, device=cuda_device))
+    assert ev.eventize.launches == before

@@ -21,7 +21,8 @@ per turn (other, this, this, other) runs, on the same seeded inputs:
     (the seeded and the precomputed-bits dropout forms) at 32 windows, S =
     250 with and without valid_len 200, and at 16 windows of S = 496 with
     block 16, beside SDPA with dropout_p = 26/256; kernel 10
-    (``rope_attention``) at 16;
+    (``rope_attention``) at 16, beside the "pallas" route's rope on q and k
+    then kernel 1 (``forward after rope``), whose bits kernel 10 must give;
   * the backward kernels at the shapes of ``chip_smoke.py`` phase 2: 32
     windows, S = 250 (no mask, precomputed bits, valid_len 200, the seeded
     mask), S = 65, and 16 windows, S = 496, block 16, beside SDPA's
@@ -67,8 +68,10 @@ example ``"local grads"``), and then skips the serving forward.  Each turn also 
 hashes and exits 1 where a tree does not repeat its own bits, where two
 builds of kernels whose outputs must not change give different bits --
 against the tree before kernel 19's products moved to the tensor cores and
-kernel 6 onto kernel 2's body, every kernel but 19 and 6 (SAME_CODE) -- or
-where kernel 6 does not give kernel 2's bits in this tree.  From the two
+kernel 6 onto kernel 2's body, every kernel but 19 and 6; against the tree
+before kernel 10 moved onto kernel 1's body, every kernel but 10 (SAME_CODE)
+-- or where kernel 6 does not give kernel 2's bits, or kernel 10 kernel 1's
+on the same roped rows, in this tree.  From the two
 builds it reports, per instantiation of the global attention kernels, the
 local forward and backward, the tensor-core product (``mma_gemm_kernel``:
 kernel 20's, kernel 19's and the fused layers'), the stage kernels' row
@@ -98,20 +101,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 THRESHOLD = 26  # round(0.1 * 256)
 # The cases (by their first words) whose outputs must agree bit for bit with
-# the other tree's, against the tree before kernel 19's products moved to
-# the tensor cores and kernel 6 onto kernel 2's body: kernels 1 ("forward"),
-# 3 ("head major"), 4 and 15 ("dropout"), 10 ("rope"), 9 and 16 ("grads"),
-# 2, 12 and 5 ("local P=256", "local dropout"), 7, 13 and 8 ("local
-# grads"), 14 ("philox bits"), 20 ("stage bwd") and 11, 18 and 17
-# ("attention block", "fused", "transformer pair").  Kernels 19 ("stage
-# fwd") and 6 ("local rw") may differ from the other tree; they must repeat
-# themselves, and kernel 6 must give kernel 2's bits (RW_AS_KERNEL_2).
-SAME_CODE = ("forward", "head major", "dropout", "rope", "grads", "local P=256", "local dropout",
-             "local grads", "philox bits", "stage bwd", "attention block", "fused",
-             "transformer pair")
-# Kernel 6's case and kernel 2's on the same tensors, whose bits this tree
-# must make equal.
+# the other tree's, against the tree before kernel 10 moved onto kernel 1's
+# body: kernels 1 ("forward", and "forward after rope": kernel 1 on the rows
+# the "pallas" route ropes), 3 ("head major"), 4 and 15 ("dropout"), 9 and
+# 16 ("grads"), 2, 12 and 5 ("local P=256", "local dropout"), 6 ("local
+# rw"), 7, 13 and 8 ("local grads"), 14 ("philox bits"), 20 and 19 ("stage
+# bwd", "stage fwd") and 11, 18 and 17 ("attention block", "fused",
+# "transformer pair").  Kernel 10 ("rope") may differ from the other tree;
+# it must repeat itself and give kernel 1's bits on the roped rows
+# (ROPE_AS_KERNEL_1), as kernel 6 gives kernel 2's (RW_AS_KERNEL_2).
+SAME_CODE = ("forward", "head major", "dropout", "grads", "local P=256", "local dropout",
+             "local rw", "local grads", "philox bits", "stage bwd", "stage fwd",
+             "attention block", "fused", "transformer pair")
+# Kernel 6's case and kernel 2's on the same tensors, and kernel 10's and
+# kernel 1's on the rows rope_with gives, whose bits this tree must make equal.
 RW_AS_KERNEL_2 = ("local rw P=256", "local P=256")
+ROPE_AS_KERNEL_1 = ("rope S=250 B=16", "forward after rope S=250 B=16")
 # Cases timed beside a kernel and never hashed: library calls and the paths
 # the kernels replace.
 NOT_HASHED = ("SDPA", "library")
@@ -134,7 +139,7 @@ def worker(root: Path, only: list[str] | None) -> None:
 
     from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
     from audio_to_midi_tpu_torch.models import model as model_lib
-    from audio_to_midi_tpu_torch.models.rope import precompute_frequencies
+    from audio_to_midi_tpu_torch.models.rope import precompute_frequencies, rope_with
     from audio_to_midi_tpu_torch.ops import attention_kernels as ak
 
     def randn(*shape, seed, dtype):
@@ -212,6 +217,11 @@ def worker(root: Path, only: list[str] | None) -> None:
                 dropout_p=THRESHOLD / 256),
             "rope S=250 B=16": functools.partial(ak.rope_attention, sq, sk, sv, freqs.cos,
                                                  freqs.sin, 4),
+            # The "pallas" route: rope_with on q and k, then kernel 1.
+            "forward after rope S=250 B=16": functools.partial(
+                lambda q_, k_, v_: ak.global_attention(
+                    *(rope_with(t.reshape(16, 250, 4, 64), freqs.cos, freqs.sin).reshape(t.shape)
+                      for t in (q_, k_)), v_, 4), sq, sk, sv),
         }
         # --- the backward kernels ---
         q4, k4, v4 = (heads4(t).detach().requires_grad_() for t in (q, k, v))
@@ -563,15 +573,17 @@ STAGE_ROW_KERNELS = ("conv_ln_kernel", "ln_bwd_kernel", "conv_bwd_kernel", "redu
 KERNELS_OF_INTEREST = ("global_attention", "rope_attention", "gemm_kernel",
                        "local_two_phase_grads", "local_two_phase_fwd_kernel",
                        "local_two_phase_kernel", "local_two_phase_rw_kernel",
-                       "global_core_kernel", "rope_rows_kernel", *STAGE_ROW_KERNELS)
+                       "global_core_kernel", "rope_rows_kernel", "eventize_kernel",
+                       *STAGE_ROW_KERNELS)
 # The kernels (by the start of their demangled names) that both trees build
 # whose SASS must be the other tree's: those of kernels 1, 3, 4, 15, 9, 16
-# and 10, the tensor-core products of kernel 20 and of the fused layers
-# (mma_gemm_kernel), kernel 20's row kernels, the local forward (2, 12, 5)
-# and backward (7, 13, 8), and the fused layers' global core and RoPE pass.
-# An instantiation that only one tree builds (kernel 19's products and row
-# kernel, kernel 6's scalar body) has nothing to be compared with: it is
-# reported as new or gone.
+# (and 10, which runs kernel 1's body after the RoPE pass), the tensor-core
+# products of kernels 20 and 19 and of the fused layers (mma_gemm_kernel),
+# kernels 20's and 19's row kernels, the local forward (2, 12, 5) and
+# backward (7, 13, 8), and the fused layers' global core and RoPE pass
+# (rope_rows_kernel, which kernel 10 launches too).  An instantiation that
+# only one tree builds (kernel 10's scalar body, rope_attention_kernel) has
+# nothing to be compared with: it is reported as new or gone.
 SAME_SASS = ("global_attention", "rope_attention", "mma_gemm_kernel", "local_two_phase_grads",
              "local_two_phase_fwd_kernel", "global_core_kernel", "rope_rows_kernel",
              *STAGE_ROW_KERNELS)
@@ -593,7 +605,9 @@ def sass_counts(library: Path) -> dict[str, dict]:
     """Per kernel of interest in ``library``: its tensor-core products
     (HMMA), asynchronous copies (LDGSTS), ldmatrix loads (LDSM), fp32 FMAs
     (FFMA) and atomics (ATOM / RED), counted in the SASS that cuobjdump
-    prints, and the SHA-256 of that SASS (``sha256``)."""
+    prints, and the sorted SHA-256s of that SASS (``sha256``), one per
+    object that compiles the kernel (a template instantiated in two sources,
+    as rope_rows_kernel is since kernel 10 launches it too, has two)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
@@ -609,14 +623,15 @@ def sass_counts(library: Path) -> dict[str, dict]:
             name = name if any(k in name for k in KERNELS_OF_INTEREST) else None
             if name:
                 counts[name] = {op: 0 for op in (*ops, "ATOM/RED")}
-                texts[name] = hashlib.sha256()
+                texts.setdefault(name, []).append(hashlib.sha256())
         elif name:
-            texts[name].update(line.encode())
+            if ";" in line:  # an instruction: not the separators after an object's last function
+                texts[name][-1].update(line.encode())
             for op in ops:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
             counts[name]["ATOM/RED"] += any(f" {op}" in line for op in ("ATOM", "RED."))
     for key in counts:
-        counts[key]["sha256"] = texts[key].hexdigest()
+        counts[key]["sha256"] = sorted({h.hexdigest() for h in texts[key]})
     return dict(zip(map(short, demangle(list(counts))), counts.values()))
 
 
@@ -687,8 +702,12 @@ def main() -> int:
     # The SASS of the kernels that share the product's primitives, tree by tree.
     failed = []
     for kernel in sorted(k for k in set(sass) & set(other_sass) if k.startswith(SAME_SASS)):
-        same = sass[kernel]["sha256"] == other_sass[kernel]["sha256"]
-        print(f"sass {kernel}: identical to the other tree {same} (must be)")
+        # Every object's SASS of the other tree is still built; an object
+        # that only this tree has may compile it otherwise.
+        same = set(other_sass[kernel]["sha256"]) <= set(sass[kernel]["sha256"])
+        extra = len(set(sass[kernel]["sha256"]) - set(other_sass[kernel]["sha256"]))
+        print(f"sass {kernel}: identical to the other tree {same} (must be)"
+              + (f"; {extra} other compilation(s) in this tree" if extra else ""))
         if not same:
             failed.append(f"sass {kernel}")
     for kernel in sorted(set(sass) ^ set(other_sass)):
@@ -740,6 +759,14 @@ def main() -> int:
         print(f"bits {case}: each tree repeats {repeat}; identical to the other tree {same}"
               + (" (same device code: must be)" if must else ""))
         if not repeat or (must and not same):
+            failed.append(case)
+    # Kernel 10 runs kernel 1's body on the roped rows in this tree.
+    rope, after_rope = ROPE_AS_KERNEL_1
+    for case in sorted(c for c in turns["this"][0]["digests"] if c.startswith(rope)):
+        same = all(t["digests"][case] == t["digests"].get(after_rope + case[len(rope):])
+                   for t in turns["this"])
+        print(f"bits {case}: kernel 1's bits on the roped rows {same} (must be)")
+        if not same:
             failed.append(case)
     # Kernel 6 runs kernel 2's body in this tree: the same bits on the same tensors.
     rw, local = RW_AS_KERNEL_2
