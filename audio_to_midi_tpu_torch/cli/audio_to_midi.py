@@ -2,16 +2,17 @@
 
 Usage:
   python -m audio_to_midi_tpu_torch.cli.audio_to_midi <audio> <output.mid>
-      --checkpoint FILE [--config JSON] [--overlap S] [--device cuda|cpu]
+      --checkpoint DIR|FILE [--config JSON] [--overlap S] [--device cuda|cpu]
       [--stream]
 
-``--checkpoint`` is a port checkpoint (``.npz`` in the JAX parameter layout,
-or a ``.pt`` state_dict).  The model runs in f32, the checkpoint-parity
-mode.  ``--device`` defaults to ``cuda``; without a CUDA device the command
-fails unless ``--device cpu`` is given.  ``--stream`` transcribes in
-chunks of windows (``infer.transcribe_file_streaming``): bounded device
-memory for long audio, the copy of each chunk overlapped with the model,
-the same MIDI as the batch path.
+``--checkpoint`` is a training checkpoint directory (its latest step, as
+``cli/train_cli.py`` writes it) or a port checkpoint file (``.npz`` in the
+JAX parameter layout, or a ``.pt`` state_dict).  The model runs in f32, the
+checkpoint-parity mode.  ``--device`` defaults to ``cuda``; without a CUDA
+device the command fails unless ``--device cpu`` is given.  ``--stream``
+transcribes in chunks of windows (``infer.transcribe_file_streaming``):
+bounded device memory for long audio, the copy of each chunk overlapped with
+the model, the same MIDI as the batch path.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("path", help="Audio file (wav or aif)")
     parser.add_argument("output", help="The output MIDI file")
     parser.add_argument("--checkpoint", required=True,
-                        help="Port checkpoint file (.npz or .pt)")
+                        help="Training checkpoint directory, or a checkpoint file (.npz or .pt)")
     parser.add_argument("--config", default=None, help="Config JSON file")
     parser.add_argument(
         "--overlap", type=float, default=None,
@@ -52,7 +53,8 @@ def main(argv=None) -> int:
     import torch
 
     from ..config import load_config
-    from ..infer import load_params, transcribe_file, transcribe_file_streaming
+    from ..infer import (load_newest_checkpoint, load_params, transcribe_file,
+                         transcribe_file_streaming)
     from ..ops.midi_io import write_midi_file
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -63,7 +65,11 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config)
     overlap = args.overlap if args.overlap is not None else cfg.infer.window_overlap
-    model = load_params(args.checkpoint, cfg, torch.device(args.device), torch.float32)
+    device = torch.device(args.device)
+    if Path(args.checkpoint).is_dir():
+        model, _state = load_newest_checkpoint(args.checkpoint, cfg, device, torch.float32)
+    else:
+        model = load_params(args.checkpoint, cfg, device, torch.float32)
     transcribe = transcribe_file_streaming if args.stream else transcribe_file
     stitched, duration_per_frame, events = transcribe(model, cfg, audio_file, overlap=overlap)
     print(f"Stitched probs shape: {stitched.shape}")

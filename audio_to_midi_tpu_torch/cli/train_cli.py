@@ -1,0 +1,155 @@
+"""Training command line (reference train.py main(), train.py:732-892), through
+the PyTorch port.
+
+Usage:
+  python -m audio_to_midi_tpu_torch.cli.train_cli --dataset DIR
+      [--testset NAME=DIR ...] [--checkpoint DIR] [--steps N] [--batch-size N]
+      [--num-workers N] [--learning-rate LR] [--precision bf16|f32]
+      [--no-tensorboard] [--config JSON] [--device cuda|cpu]
+
+The JAX package's flags, with its defaults, and ``--device`` (default
+``cuda``; without a CUDA device the command fails unless ``--device cpu``
+is given).  Training resumes at the latest checkpoint + 1.  Waiting for
+later parts of the port: ``--ensemble-size`` above 1 (``train/ensemble.py``),
+``--precision f16`` training, ``TrainConfig.use_custom_init``
+(``train/init_surgery.py``) and the three multi-host flags (``parallel/``);
+each raises when asked for.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+from pathlib import Path
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train the audio-to-midi model (PyTorch).")
+    p.add_argument("--dataset", required=True, help="Training dataset directory")
+    p.add_argument("--testset", action="append", default=[],
+                   help="name=dir validation sets (repeatable)")
+    p.add_argument("--checkpoint", default="audio_to_midi_checkpoints")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--ensemble-size", type=int, default=None)
+    p.add_argument("--num-workers", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--precision", choices=["bf16", "f16", "f32"], default=None,
+                   help="Compute dtype (default bf16; overrides --config when given)")
+    p.add_argument("--no-tensorboard", action="store_true")
+    p.add_argument("--config", default=None, help="Config JSON file")
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="Device to train on (default: cuda)")
+    return p
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from ..config import PrecisionConfig, load_config
+    from ..data.loader import create_dataset_loader
+    from ..metrics import configure_tensorboard
+    from ..models import model as model_lib
+    from ..train import checkpoint as ckpt
+    from ..train import loop
+    from ..train.optim import schedule, setup_optimizers
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass --device cpu to train on the CPU")
+    if any(v is not None for v in (args.coordinator_address, args.num_processes,
+                                   args.process_id)):
+        raise NotImplementedError("multi-host training waits for the port's parallel/ package")
+
+    cfg = load_config(args.config)
+    overrides = {}
+    if args.steps is not None:
+        overrides["num_steps"] = args.steps
+    if args.batch_size is not None:
+        overrides["batch_size"] = args.batch_size
+    if args.ensemble_size is not None:
+        overrides["ensemble_size"] = args.ensemble_size
+    if args.num_workers is not None:
+        overrides["dataset_num_workers"] = args.num_workers
+    if args.learning_rate is not None:
+        overrides["base_learning_rate"] = args.learning_rate
+    train_cfg = dataclasses.replace(cfg.train, **overrides)
+    # --precision wins over --config when given; with neither, bf16.
+    if args.precision is not None or args.config is None:
+        cfg = dataclasses.replace(cfg, train=train_cfg,
+                                  precision=PrecisionConfig(compute_dtype=args.precision or "bf16"))
+    else:
+        cfg = dataclasses.replace(cfg, train=train_cfg)
+    if cfg.precision.compute_dtype == "f16":
+        raise NotImplementedError("f16 training (loss scaling from the CLI) is not ported yet")
+    if cfg.train.ensemble_size > 1:
+        raise NotImplementedError(
+            f"--ensemble-size {cfg.train.ensemble_size}: the port trains one member until "
+            "train/ensemble.py is ported")
+    if cfg.train.use_custom_init:
+        raise NotImplementedError("use_custom_init: train/init_surgery.py is not ported yet")
+
+    device = torch.device(args.device)
+    minibatch = min(cfg.train.minibatch_size_per_device, cfg.train.batch_size)
+    logging.info("Training on %s, batch %d, minibatch %d", device, cfg.train.batch_size,
+                 minibatch)
+
+    summary_writer = None if args.no_tensorboard else configure_tensorboard()
+    if summary_writer is not None:
+        hparams = dict(cfg.model.metadata())
+        hparams["train/batch_size"] = cfg.train.batch_size
+        hparams["train/total_steps"] = cfg.train.num_steps
+        hparams["train/warmup_steps"] = cfg.train.warmup_steps
+        hparams = {k: (str(v) if isinstance(v, (list, tuple)) else v) for k, v in hparams.items()}
+        summary_writer.add_hparams(hparams, {})
+
+    rope = model_lib.make_rope(cfg.model, device)
+    model, state = model_lib.init_ensemble(torch.Generator().manual_seed(1), cfg.model,
+                                           cfg.train.ensemble_size)
+
+    manager = ckpt.create_checkpoint_manager(
+        Path(args.checkpoint), cfg, max_to_keep=cfg.train.checkpoints_to_keep,
+        save_interval_steps=cfg.train.checkpoint_every)
+    ckpt.check_metadata(manager, cfg)
+    restored = ckpt.restore_checkpoint(manager, model, state)
+    if restored is not None:
+        model, state, restored_step = restored
+        logging.info("Restored checkpoint at step %d", restored_step)
+    model = model.to(device).train()
+    optimizer = setup_optimizers(model, cfg.model, cfg.train)
+
+    num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
+    data_loader = create_dataset_loader(
+        Path(args.dataset),
+        batch_size=cfg.train.batch_size,
+        num_workers=cfg.train.dataset_num_workers,
+        num_epochs=100_000,
+        sample_rate=cfg.data.sample_rate,
+        duration=cfg.data.model_audio_length,
+        output_divisions=num_frames,
+        # With augmentation on the device the loader feeds raw windows.
+        transform_settings=None if cfg.train.augment_on_device else cfg.transforms,
+    )
+    testset_dirs = {}
+    for spec in args.testset:
+        name, _, d = spec.partition("=")
+        testset_dirs[name] = Path(d)
+
+    try:
+        loop.train(cfg, model, state, optimizer, data_loader, manager, schedule(cfg.train), rope,
+                   num_frames, testset_dirs=testset_dirs, summary_writer=summary_writer)
+    finally:
+        data_loader.close()
+        if summary_writer is not None:
+            summary_writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,17 +1,17 @@
 """Typed configuration of the PyTorch port.
 
-Mirrors the sections of ``audio_to_midi_tpu.config`` that the port uses
-(``model``, ``data``, ``precision``, ``train``, ``infer``) with dtypes kept
-as the strings ``"f32"``/``"bf16"``/``"f16"``.  :func:`config_from_json`
-reads the JSON that the JAX package's ``config_to_json`` writes; the section
-the port does not use yet (``transforms``) is ignored.
+Mirrors the sections of ``audio_to_midi_tpu.config`` (``model``, ``data``,
+``precision``, ``train``, ``infer``, ``transforms``) with dtypes kept as the
+strings ``"f32"``/``"bf16"``/``"f16"``.  :func:`config_from_json` reads the
+JSON that the JAX package's ``config_to_json`` writes, and
+:func:`config_to_json` writes it.
 
 Scheduling knobs that only mean something to XLA on a TPU
 (``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``,
 ``fused_flat_optimizer``) are kept as no-op fields so that configs
 round-trip, and so are the training fields whose modules are not ported yet
-(``input_ring_*``, ``augment_on_device``, ``model_parallel_size``,
-``use_custom_init``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
+(``model_parallel_size``; ``use_custom_init`` raises in
+``cli/train_cli.py``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
 in the JAX package: which ConvNeXt stages go to the fused stage kernels
 (``models/convnext.stage_route``).
 """
@@ -49,6 +49,14 @@ class DataConfig:
     @property
     def samples_per_window(self) -> int:
         return int(self.sample_rate * self.model_audio_length)
+
+    def metadata(self) -> dict[str, Any]:
+        # The JAX package's key names, which follow the reference's.
+        return {
+            "midi_voccab_size": self.midi_vocab_size,
+            "max_event_timestamp": self.model_audio_length,
+            "num_velocity_categories": self.num_velocity_categories,
+        }
 
 
 @dataclass(frozen=True)
@@ -123,6 +131,22 @@ class ModelConfig:
     def output_frames(self, num_samples: int) -> int:
         return num_samples // self.total_downsample
 
+    def metadata(self) -> dict[str, Any]:
+        """The checkpoint metadata of the JAX package's ``ModelConfig``."""
+        return {
+            "dims": list(self.dims),
+            "depths": list(self.depths),
+            "cnn_hidden_expansion": self.cnn_hidden_expansion,
+            "num_transformer_layers": self.num_transformer_layers,
+            "num_transformer_heads": self.num_transformer_heads,
+            "attention_size": self.attention_size,
+            "compressed_attention_q_size": self.compressed_attention_q_size,
+            "compressed_attention_kv_size": self.compressed_attention_kv_size,
+            "transformer_dropout_rate": self.transformer_dropout_rate,
+            "transformer_hidden_expansion": self.transformer_hidden_expansion,
+            "sdd_rate": self.sdd_rate,
+        }
+
 
 @dataclass(frozen=True)
 class PrecisionConfig:
@@ -134,6 +158,44 @@ class PrecisionConfig:
     @property
     def needs_loss_scaling(self) -> bool:
         return self.compute_dtype == "f16"
+
+
+@dataclass(frozen=True)
+class TransformSettings:
+    """The train-time augmentations' probabilities (the JAX package's
+    ``TransformSettings``): each transform runs ``int(p * batch)`` times."""
+
+    pan_probability: float = 0.8
+    channel_switch_probability: float = 0.5
+    cut_probability: float = 0.4
+    rotate_probability: float = 0.9
+    random_erasing_probability: float = 0.3
+    mixup_probability: float = 0.6
+    gain_probability: float = 0.8
+    noise_probability: float = 0.8
+    label_smoothing_alpha: float = 0.005
+    # The reference passes channel_switch_probability to the pan transform;
+    # True reproduces that, False uses pan_probability.
+    parity_pan_uses_channel_switch_probability: bool = False
+    # The timbre extensions (device path only, off by default).
+    eq_probability: float = 0.0
+    eq_strength: float = 0.4
+    dynamics_warp_probability: float = 0.0
+    am_jitter_probability: float = 0.0
+
+    def as_tuple(self) -> tuple:
+        """The nine reference probabilities, in the native plane's order."""
+        return (
+            self.pan_probability,
+            self.channel_switch_probability,
+            self.cut_probability,
+            self.rotate_probability,
+            self.random_erasing_probability,
+            self.mixup_probability,
+            self.gain_probability,
+            self.noise_probability,
+            self.label_smoothing_alpha,
+        )
 
 
 @dataclass(frozen=True)
@@ -164,9 +226,13 @@ class TrainConfig:
     # No-op for good: a TPU launch-count knob.  The port's optimizer updates
     # every parameter with a few multi-tensor (torch._foreach_*) calls.
     fused_flat_optimizer: bool = False
-    use_custom_init: bool = False           # kept; init surgery is not ported yet
-    augment_on_device: bool = True          # kept; the augmentations are not ported yet
-    input_ring_capacity: int = 1024         # kept; the input ring is not ported yet
+    use_custom_init: bool = False           # raises: init surgery is not ported yet
+    # The transforms run on the model's device (data/augment_device.py) and
+    # the loader feeds raw windows.
+    augment_on_device: bool = True
+    # Windows in the device-resident pool (data/device_ring.py), rounded up
+    # to a multiple of batch_size; 0 feeds a host batch per step.
+    input_ring_capacity: int = 1024
     input_ring_refresh_period: int = 1
     input_ring_reuse_warn_factor: float = 64.0
 
@@ -184,6 +250,12 @@ class Config:
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+    # None: no augmentation at all.
+    transforms: TransformSettings | None = field(default_factory=TransformSettings)
+
+    def metadata(self) -> dict[str, Any]:
+        """Checkpoint metadata, the JAX package's layout."""
+        return {"model": self.model.metadata(), "data_prep": self.data.metadata()}
 
 
 DEFAULT_CONFIG = Config()
@@ -194,6 +266,7 @@ _SECTIONS = {
     "precision": PrecisionConfig,
     "train": TrainConfig,
     "infer": InferConfig,
+    "transforms": TransformSettings,
 }
 
 
@@ -210,6 +283,9 @@ def config_from_json(text: str) -> Config:
     sections: dict[str, Any] = {}
     for name, cls in _SECTIONS.items():
         data = raw.get(name, {})
+        if data is None and name == "transforms":
+            sections[name] = None
+            continue
         known = {f.name for f in dataclasses.fields(cls)}
         kwargs = {
             k: tuple(v) if isinstance(v, list) else v

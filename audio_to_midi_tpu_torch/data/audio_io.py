@@ -1,10 +1,18 @@
-"""Host audio decoding for serving, in numpy (and scipy for resampling).
+"""Host audio decoding, in numpy (and scipy for resampling) or through the
+C++ decode plane.
 
 Counterpart of ``audio_to_midi_tpu/data/audio_io.py`` and of
 ``data/loader.load_full_audio_f16``: WAV and AIFF/AIFC (PCM) decode, scipy
 polyphase resampling to the model rate, loudness normalization and the f16
-round trip of the reference's decode (python.rs:236-264).  Compressed
-formats (through ffmpeg) and the C++ decode plane are not ported yet.
+round trip of the reference's decode (python.rs:236-264).
+
+:func:`decode_audio` and :func:`load_full_audio_f16` take the native plane
+(``native.py``) under the JAX package's rule: when it is built, and for the
+suffixes it decodes (``NATIVE_SUFFIXES``).  At the model rate both paths
+give the same bits; a file at another rate is resampled by the plane's own
+filter, which differs from scipy's (at 44.1 kHz by up to 0.84 on
+unit-variance audio).  Compressed formats (through ffmpeg) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -14,7 +22,17 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import native
 from ..config import SAMPLE_RATE
+
+NATIVE_SUFFIXES = (".wav", ".wave", ".aif", ".aiff", ".aifc")
+NO_CACHE = 3  # bitmask into the native loader: skip the cache read and write
+
+
+def use_native(path: str | Path) -> bool:
+    """The native plane takes ``path``: it is built (and not turned off by
+    ``A2M_DISABLE_NATIVE``) and decodes the file's suffix."""
+    return Path(path).suffix.lower() in NATIVE_SUFFIXES and native.available()
 
 
 class AudioDecodeError(RuntimeError):
@@ -144,6 +162,8 @@ def _decode_aiff(data: bytes) -> tuple[np.ndarray, int]:
 
 def decode_audio(path: str | Path, sample_rate: int) -> np.ndarray:
     """Decode an audio file to stereo float32 at ``sample_rate``.  (2, N)."""
+    if use_native(path):
+        return native.decode_audio(path, sample_rate)
     path = str(path)
     suffix = Path(path).suffix.lower()
     if suffix in (".wav", ".wave"):
@@ -203,5 +223,8 @@ def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:
 
 def load_full_audio_f16(file: str | Path, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
     """Decode -> normalize -> float16, (2, N): the serving input.  Equal to
-    the JAX package's ``data.loader.load_full_audio_f16``."""
+    the JAX package's ``data.loader.load_full_audio_f16`` on the same path
+    (native or numpy)."""
+    if use_native(file):
+        return native.load_audio_sample_f16(str(file), sample_rate, NO_CACHE)
     return normalize_loudness_np(decode_audio(file, sample_rate)).astype(np.float16)

@@ -82,6 +82,27 @@ def load_params(
     return model.to(device=device, dtype=dtype).eval()
 
 
+def load_newest_checkpoint(
+    checkpoint_path: str | Path, cfg: Config, device: torch.device | str,
+    dtype: torch.dtype = torch.float32, step: int | None = None,
+) -> tuple[model_lib.Model, dict]:
+    """The latest checkpoint of a training directory (``train/checkpoint.py``)
+    -> (``Model`` on ``device`` in ``dtype``, state), as the JAX
+    package's ``load_newest_checkpoint`` with one member; warns when the
+    stored metadata differs from ``cfg``'s."""
+    from .train import checkpoint as ckpt
+
+    manager = ckpt.create_checkpoint_manager(checkpoint_path, cfg)
+    ckpt.check_metadata(manager, cfg)
+    model = model_lib.Model(cfg.model)
+    restored = ckpt.restore_checkpoint(manager, model, {}, step=step)
+    if restored is None:
+        raise FileNotFoundError(f"There is no checkpoint to load in {checkpoint_path}!")
+    model, state, restored_step = restored
+    log.info("Restored checkpoint at step %d", restored_step)
+    return model.to(device=device, dtype=dtype).eval(), state
+
+
 @torch.inference_mode()
 def _predict_windows(model, cfg: ModelConfig, windows: torch.Tensor,
                      rope: RopeFreqs) -> torch.Tensor:

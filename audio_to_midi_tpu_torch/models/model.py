@@ -40,6 +40,25 @@ class Model(nn.Module):
         self.decoder = Decoder(cfg, generator)
 
 
+def init(generator: torch.Generator, cfg: ModelConfig) -> tuple[Model, dict]:
+    """A model drawn from ``generator`` at the JAX package's scales (weights
+    and biases uniform in +-1/sqrt(fan_in), LayerNorm scales ones and biases
+    zeros), in the JAX parameter tree (``convert.py``), and its (empty)
+    state: JAX's ``init``."""
+    return Model(cfg, generator), {}
+
+
+def init_ensemble(generator: torch.Generator, cfg: ModelConfig,
+                  ensemble_size: int = 1) -> tuple[Model, dict]:
+    """JAX's ``init_ensemble`` for one member: the ensemble axis arrives
+    with the port's ``train/ensemble.py``."""
+    if ensemble_size != 1:
+        raise NotImplementedError(
+            f"ensemble_size={ensemble_size}: the port trains one member until "
+            "train/ensemble.py is ported")
+    return init(generator, cfg)
+
+
 def make_rope(cfg: ModelConfig, device: torch.device | str = "cpu") -> RopeFreqs:
     return precompute_frequencies(
         cfg.attention_size, cfg.rope_max_positions, cfg.rope_theta, device=device

@@ -1,6 +1,6 @@
-"""Training: loss, optimizer and the training step.
+"""Training: loss, optimizer, the step, the loop, evaluation and checkpoints.
 
 Counterpart of ``audio_to_midi_tpu/train/`` (``loss.py``, ``optim.py``,
-``step.py``).  The loop, the input ring, evaluation, checkpoints and the
-ensemble axis are not ported yet.
+``step.py``, ``loop.py``, ``evaluate.py``, ``checkpoint.py``).  The
+ensemble axis and init surgery are not ported yet.
 """

@@ -1,0 +1,135 @@
+"""Checkpoints with config metadata, without orbax.
+
+Counterpart of ``audio_to_midi_tpu/train/checkpoint.py``.  Reference
+semantics (train.py:799-831, infer.py:172-236): a manager that keeps
+``max_to_keep`` checkpoints and saves every ``save_interval_steps`` steps,
+the model and data-prep config stored as metadata for drift detection, a
+restore of the latest step with a warning on a metadata mismatch, and a
+resume at ``latest_step() + 1``.  As in the JAX package, a checkpoint holds
+the parameters and the model state, not the optimizer.
+
+Layout: ``<dir>/metadata.json`` and one directory per step,
+``<dir>/<step>/`` with ``params.npz`` (the flat JAX parameter layout that
+``convert.save_npz`` writes and ``infer.load_params`` reads), ``state.json``
+and ``metadata.json``.  A step is written under a temporary name and moved
+into place, so a reader never sees half a checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import warnings
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from ..config import Config
+from ..convert import jax_to_state_dict, load_npz, save_npz, state_dict_to_jax
+
+PARAMS_FILE = "params.npz"
+STATE_FILE = "state.json"
+METADATA_FILE = "metadata.json"
+
+
+class CheckpointManager:
+    """Steps under one directory, the newest ``max_to_keep`` kept."""
+
+    def __init__(self, directory: str | Path, metadata: Optional[dict] = None,
+                 max_to_keep: int = 3, save_interval_steps: int = 20):
+        self.directory = Path(directory).resolve()
+        self.max_to_keep = max_to_keep
+        self.save_interval_steps = save_interval_steps
+        self._metadata = metadata
+
+    def all_steps(self) -> list[int]:
+        if not self.directory.is_dir():
+            return []
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.is_dir() and p.name.isdigit() and (p / PARAMS_FILE).exists())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def should_save(self, step: int) -> bool:
+        latest = self.latest_step()
+        if latest is not None and latest >= step:
+            return False
+        return step % self.save_interval_steps == 0
+
+    def metadata(self) -> Optional[dict]:
+        """The stored metadata, or None."""
+        path = self.directory / METADATA_FILE
+        return json.loads(path.read_text()) if path.exists() else None
+
+    def save(self, step: int, flat_params: dict, state: dict) -> None:
+        self.directory.mkdir(parents=True, exist_ok=True)
+        if self._metadata is not None and not (self.directory / METADATA_FILE).exists():
+            _write_json(self.directory / METADATA_FILE, self._metadata)
+        tmp = self.directory / f".{step}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        save_npz(tmp / PARAMS_FILE, flat_params)
+        (tmp / STATE_FILE).write_text(json.dumps(state))
+        if self._metadata is not None:
+            _write_json(tmp / METADATA_FILE, self._metadata)
+        final = self.directory / str(step)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in self.all_steps()[: -self.max_to_keep]:
+            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+
+    def restore(self, step: int) -> tuple[dict, dict]:
+        d = self.directory / str(step)
+        return load_npz(d / PARAMS_FILE), json.loads((d / STATE_FILE).read_text())
+
+
+def _write_json(path: Path, value: Any) -> None:
+    tmp = path.with_name(f".{path.name}.tmp-{os.getpid()}")
+    tmp.write_text(json.dumps(value, indent=2))
+    os.replace(tmp, path)
+
+
+def create_checkpoint_manager(checkpoint_dir: str | Path, config: Optional[Config] = None,
+                              max_to_keep: int = 3,
+                              save_interval_steps: int = 20) -> CheckpointManager:
+    return CheckpointManager(checkpoint_dir,
+                             config.metadata() if config is not None else None,
+                             max_to_keep=max_to_keep, save_interval_steps=save_interval_steps)
+
+
+def save_checkpoint(manager: CheckpointManager, step: int, model: torch.nn.Module, state: dict,
+                    force: bool = False) -> bool:
+    """Save ``model``'s parameters and ``state`` at ``step`` when the manager
+    allows it (or ``force``); True when saved."""
+    if not force and not manager.should_save(step):
+        return False
+    manager.save(step, state_dict_to_jax(model.state_dict()), state or {})
+    return True
+
+
+def check_metadata(manager: CheckpointManager, config: Config) -> bool:
+    """Warn on config drift (reference train.py:816-819)."""
+    stored = manager.metadata()
+    current = json.loads(json.dumps(config.metadata()))
+    if stored and stored != current:
+        warnings.warn(f"Checkpoint metadata mismatch:\n  stored:  {stored}\n  current: {current}")
+        return False
+    return True
+
+
+def restore_checkpoint(manager: CheckpointManager, model: torch.nn.Module,
+                       state: Optional[dict] = None, step: Optional[int] = None):
+    """Load the parameters at ``step`` (or the latest) into ``model`` in
+    place.  Returns (model, state, step), or None when there is none."""
+    step = step if step is not None else manager.latest_step()
+    if step is None:
+        return None
+    flat, stored_state = manager.restore(step)
+    with torch.no_grad():
+        model.load_state_dict(jax_to_state_dict(flat), strict=True)
+    return model, stored_state if stored_state else (state or {}), step
+

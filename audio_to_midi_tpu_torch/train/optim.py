@@ -15,9 +15,13 @@ in an order ``torch.optim.AdamW`` cannot express:
   5. global-norm clip 1.0 on the UPDATES, last.
 
 The port's parameters are unstacked (``nn.ModuleList``), so a block's factor
-is one scalar per parameter.  The chain runs as a few multi-tensor
-(``torch._foreach_*``) calls over the whole parameter list; moments are f32
-on the parameters' device.
+is one scalar per parameter.  The chain runs on flat f32 buffers on the
+parameters' device -- the moments, the gradients and the updates, each
+parameter's moment a view into its buffer -- with the count on the device
+and the schedule, bias corrections included, computed there in f32.  The
+step's validity enters as a device tensor: an invalid step leaves
+parameters, moments and count as they were, and the host never reads the
+card.
 """
 
 from __future__ import annotations
@@ -81,41 +85,91 @@ class LayerwiseAdamW:
                                  "(the compute dtype is applied at use, not stored)")
         self.cfg = train_cfg
         self.factors = lr_decay_factors(self.names, model_cfg, train_cfg.layer_lr_decay)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        device = self.params[0].device
+        self._sizes = [p.numel() for p in self.params]
+        total = sum(self._sizes)
+        self._mu_flat = torch.zeros(total, dtype=torch.float32, device=device)
+        self._nu_flat = torch.zeros(total, dtype=torch.float32, device=device)
+        self.mu = self._views(self._mu_flat)
+        self.nu = self._views(self._nu_flat)
+        self._factors_flat = torch.cat([torch.full((n,), f, dtype=torch.float32)
+                                        for n, f in zip(self._sizes, self.factors)]).to(device)
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+
+    def _views(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        return [v.view_as(p) for v, p in zip(flat.split(self._sizes), self.params)]
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (reads the device)."""
+        return int(self._count)
 
     def learning_rate(self) -> float:
-        """The schedule at the current count (the next update's rate)."""
+        """The schedule at the current count (the next update's rate; reads
+        the device)."""
         c = self.cfg
         return learning_rate(self.count, c.base_learning_rate, c.warmup_steps, c.num_steps)
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Gradients (f32, in parameter order) -> updates; advances the
-        moments and the count."""
+    def update(self, grads: list[torch.Tensor],
+               valid: torch.Tensor | None = None) -> list[torch.Tensor]:
+        """Gradients (f32, in parameter order) -> updates, one view per
+        parameter; advances the moments and the count.  Where the 0-d bool
+        ``valid`` is False (default: True), the updates are zeros and the
+        moments and count stay as they were.  No value passes through the
+        host."""
         c = self.cfg
-        lr = self.learning_rate()
-        self.count += 1
-        torch._foreach_lerp_(self.mu, grads, 1.0 - c.adam_b1)
-        torch._foreach_mul_(self.nu, c.adam_b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - c.adam_b2)
-        denom = torch._foreach_div(self.nu, 1.0 - c.adam_b2 ** self.count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, c.adam_eps)
-        updates = torch._foreach_div(self.mu, 1.0 - c.adam_b1 ** self.count)
-        torch._foreach_div_(updates, denom)
-        torch._foreach_add_(updates, self.params, alpha=c.weight_decay)
-        torch._foreach_mul_(updates, [-lr * f for f in self.factors])
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(updates)))
-        clip = torch.where(norm < c.global_norm_clip, torch.ones_like(norm),
-                           c.global_norm_clip / norm)
-        torch._foreach_mul_(updates, clip)
-        return updates
+        if valid is None:
+            valid = torch.ones((), dtype=torch.bool, device=self._count.device)
+        g = torch.where(valid, torch.cat([t.reshape(-1) for t in grads]), 0.0)
+        before = self._count.to(torch.float32)
+        count = before + 1.0
+        mu = torch.lerp(self._mu_flat, g, 1.0 - c.adam_b1)
+        nu = self._nu_flat * c.adam_b2
+        nu.addcmul_(g, g, value=1.0 - c.adam_b2)
+        denom = (nu / (1.0 - c.adam_b2 ** count)).sqrt_().add_(c.adam_eps)
+        updates = mu / (1.0 - c.adam_b1 ** count)
+        updates.div_(denom)
+        updates.add_(torch.cat([p.reshape(-1) for p in self.params]), alpha=c.weight_decay)
+        updates.mul_(self._factors_flat * -self._schedule(before))
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            list(updates.split(self._sizes)))))
+        updates.mul_(torch.where(norm < c.global_norm_clip, torch.ones_like(norm),
+                                 c.global_norm_clip / norm))
+        self._mu_flat.copy_(torch.where(valid, mu, self._mu_flat))
+        self._nu_flat.copy_(torch.where(valid, nu, self._nu_flat))
+        self._count.add_(valid.to(torch.int64))
+        return self._views(torch.where(valid, updates, 0.0))
 
     @torch.no_grad()
     def apply(self, updates: list[torch.Tensor]) -> None:
         torch._foreach_add_(self.params, updates)
+
+    def snapshot(self) -> dict[str, torch.Tensor]:
+        """Host copies of the moments and the count."""
+        return {name: t.detach().to("cpu", copy=True) for name, t in
+                (("mu", self._mu_flat), ("nu", self._nu_flat), ("count", self._count))}
+
+    @torch.no_grad()
+    def restore(self, snap: dict[str, torch.Tensor]) -> None:
+        self._mu_flat.copy_(snap["mu"])
+        self._nu_flat.copy_(snap["nu"])
+        self._count.copy_(snap["count"])
+
+    def _schedule(self, count: torch.Tensor) -> torch.Tensor:
+        """:func:`learning_rate` on the device, f32."""
+        c = self.cfg
+        warm = c.base_learning_rate * count / max(c.warmup_steps, 1)
+        progress = torch.clamp(count - c.warmup_steps, max=c.num_steps) / c.num_steps
+        cosine = c.base_learning_rate * 0.5 * (1.0 + torch.cos(math.pi * progress))
+        return torch.where(count < c.warmup_steps, warm, cosine)
+
+
+def schedule(train_cfg: TrainConfig):
+    """The learning rate at a count: the optax schedule of the JAX
+    package's ``setup_optimizers``."""
+    return lambda count: learning_rate(count, train_cfg.base_learning_rate,
+                                       train_cfg.warmup_steps, train_cfg.num_steps)
 
 
 def setup_optimizers(model: Model, model_cfg: ModelConfig,

@@ -11,9 +11,12 @@ mean.
 Differences from the JAX step, which is one jitted pure function:
   * the model's parameters, their ``.grad`` buffers and the optimizer's
     moments are updated in place -- buffer reuse takes the place of donation;
-  * the guard reads ``grads_valid`` on the host (one synchronisation per
-    step, after the last backward) and skips the optimizer altogether on an
-    invalid step, which leaves parameters, moments and count as they were;
+  * the guard stays on the device: ``LayerwiseAdamW.update`` takes the
+    step's validity as a tensor, and an invalid step leaves parameters,
+    moments and count as they were.  ``grads_valid`` is a 0-d bool tensor
+    that the caller reads when it chooses (``bool(out.grads_valid)``): the
+    training loop reads it one step later, so that the step never waits
+    for the card;
   * activations are saved by autograd and not rematerialized;
   * dropout draws from ``torch.Generator``s instead of split keys: each
     minibatch gets a generator of its own on the model's device, seeded from
@@ -36,7 +39,9 @@ from .optim import LayerwiseAdamW
 
 class TrainStepOutput(NamedTuple):
     loss: torch.Tensor         # () unscaled mean loss
-    grads_valid: bool          # every gradient and the loss finite; else nothing was updated
+    # Every gradient and the loss finite; else nothing was updated.  A 0-d
+    # bool tensor on the model's device.
+    grads_valid: torch.Tensor
     scaled_loss: torch.Tensor  # () scaled loss (drives the loss-scale doubling)
 
 
@@ -86,9 +91,8 @@ def make_train_step(
         # cannot overflow, and a nan propagates): one multi-tensor call
         # instead of a check per leaf.
         largest = torch.stack(torch._foreach_norm(grads, float("inf")))
-        valid = bool(largest.isfinite().all() & scaled_loss.isfinite())
-        if valid:
-            optimizer.apply(optimizer.update(grads))
+        valid = largest.isfinite().all() & scaled_loss.isfinite()
+        optimizer.apply(optimizer.update(grads, valid))
         return TrainStepOutput(scaled_loss / grad_scale, valid, scaled_loss)
 
     return step

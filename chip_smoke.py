@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 checks them against their plain versions, runs the full-width model,
-transcribes a synthetic file to MIDI through the port's CLI, and takes a few
-training steps.
+transcribes a synthetic file to MIDI through the port's CLI, takes training
+steps, and trains through the training CLI on a synthetic dataset.
 
     python3 chip_smoke.py
 
@@ -100,7 +100,28 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      first segment, the total and the peak device memory of each;
      transcribe_samples_fused on the 30 s tones at 44.1 kHz in memory
      against the decode path; the CLI with --stream on phase 4's WAV, whose
-     MIDI must be phase 4's.
+     MIDI must be phase 4's;
+ 12. the native data plane: the port's binding builds cpp/ into build/native/
+     and loads it (there is no numpy fallback here); load_full_audio_f16 on
+     phase 4's and phase 11's WAVs through it against the numpy path, bit
+     for bit; transcribe_file on the 300 s WAV with its stage walls, native
+     beside numpy, the events identical;
+ 13. training through its entry point, cli/train_cli.py, at the default
+     ModelConfig and TrainConfig (batch 64 = 2 x 32, bf16, dropout 0.1,
+     cnn_bwd_kernel, the device input ring and the augmentation on the
+     card; a --config JSON sets only num_steps 6, print_every 1,
+     checkpoint_every 3 and testset_loss_every 6) on a synthetic train and
+     val set written under build/smoke/: per step 16 launches of each seeded
+     dropout kernel and 4 of the stage backward, none of the dropout-free
+     ones; finite losses, the val set's hit rate in [0, 1], checkpoints on
+     disk, a second invocation resuming at latest + 1, the serving CLI on
+     the checkpoint directory; the same with input_ring_capacity=0 (host
+     batches augmented on the card); ms per step, the ring's reuse factor,
+     the augmentation's ms and device events per batch (its waves against
+     its sequential plain version, bit for bit) and the peak device memory;
+     then one step in flight: the ring feed over 12 steps with the loss
+     read every step (print_every 1) and every third (print_every 3), in
+     turns, ms per step over steps 4-12.
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
 LayerNorm and products, kernels 1 and 2: many calls, not one), kernels 6, 3
@@ -127,6 +148,7 @@ import functools
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1229,9 +1251,9 @@ def check_training(model_lib, cfg, model, card: str) -> dict[str, int]:
     out = step(model, audio, bad, 1.0)
     same = all(torch.equal(a, b)
                for a, b in zip(before, optimizer.params + optimizer.mu + optimizer.nu))
-    log(f"train step on a nan label: grads_valid {out.grads_valid}, parameters, moments and "
-        f"count unchanged {same and optimizer.count == count}")
-    if out.grads_valid or not same or optimizer.count != count:
+    log(f"train step on a nan label: grads_valid {bool(out.grads_valid)}, parameters, moments "
+        f"and count unchanged {same and optimizer.count == count}")
+    if bool(out.grads_valid) or not same or optimizer.count != count:
         raise AssertionError("a step with a non-finite loss was applied")
     del before
 
@@ -1269,9 +1291,9 @@ def run_steps(label, step, model, optimizer, audio, labels, steps, expected,
         losses.append(out.loss.item())
         times.append(start.elapsed_time(end))
         launched = {n: c for n, c in launches.items() if c}
-        log(f"{label} {i}: loss {losses[-1]:.3f}, grads_valid {out.grads_valid}, "
+        log(f"{label} {i}: loss {losses[-1]:.3f}, grads_valid {bool(out.grads_valid)}, "
             f"lr {optimizer.learning_rate():.3e}, {times[-1]:.1f} ms, launches {launched}")
-        if not out.grads_valid or not np.isfinite(losses[-1]):
+        if not bool(out.grads_valid) or not np.isfinite(losses[-1]):
             raise AssertionError(f"{label} {i}: loss or gradients not finite")
         if launches != expected:
             raise AssertionError(f"{label} {i} launched {launches}, expected {expected}")
@@ -1975,6 +1997,295 @@ def check_file_serving(cfg, card: str) -> dict[str, dict[str, int]]:
     return launches
 
 
+@contextlib.contextmanager
+def numpy_decode():
+    """The numpy decode path, whatever the native plane: in this script only,
+    the routing rule of data/audio_io.py answers no."""
+    from audio_to_midi_tpu_torch.data import audio_io
+
+    rule = audio_io.use_native
+    audio_io.use_native = lambda path: False
+    try:
+        yield
+    finally:
+        audio_io.use_native = rule
+
+
+def check_native_plane(cfg, card: str) -> dict[str, dict[str, int]]:
+    """Phase 12: the port's binding builds the C++ data plane from cpp/ into
+    build/native/ and loads it (no numpy fallback here); load_full_audio_f16
+    on phase 4's 30 s WAV and phase 11's 300 s WAV through the plane against
+    the numpy path, bit for bit; transcribe_file on the 300 s WAV with its
+    stage walls, native beside numpy, events identical.  Returns the
+    launches of the native run."""
+    from audio_to_midi_tpu_torch import native
+    from audio_to_midi_tpu_torch.data.audio_io import load_full_audio_f16, use_native
+    from audio_to_midi_tpu_torch.infer import load_params, transcribe_file
+
+    t0 = time.perf_counter()
+    lib = native.build(force=True)  # from cpp/ again, timed (the decodes above built it)
+    if not native.available() or not use_native(WORK / "synth.wav"):
+        raise AssertionError("the native data plane did not build or load on this machine")
+    log(f"native plane: {lib.relative_to(ROOT)} built from cpp/ in "
+        f"{time.perf_counter() - t0:.1f} s and loaded")
+    for wav in (WORK / "synth.wav", WORK / "synth300.wav"):
+        ours = load_full_audio_f16(wav)
+        with numpy_decode():
+            ref = load_full_audio_f16(wav)
+        same = ours.dtype == ref.dtype and np.array_equal(ours.view(np.uint16), ref.view(np.uint16))
+        log(f"load_full_audio_f16 {wav.name}: native {ours.shape} {ours.dtype} = numpy bit for "
+            f"bit {same}")
+        if not same:
+            raise AssertionError(f"{wav.name}: the native decode differs from the numpy path")
+
+    m32 = load_params(WORK / "params.npz", cfg, "cuda", torch.float32)
+    wav300 = WORK / "synth300.wav"
+    runs = {}
+    for label in ("native", "numpy", "native again"):
+        stages = {}
+        reset_launches()
+        with numpy_decode() if label == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            _stitched, _dpf, events = transcribe_file(m32, cfg, wav300, stage_times=stages)
+            wall = time.perf_counter() - t0
+        runs[label] = (events, stages, wall, read_launches())
+        log(f"transcribe_file 300 s, f32, {label} decode: {wall * 1e3:.1f} ms = "
+            + " + ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items()) + f" ms; on {card}")
+    same = runs["native"][0] == runs["numpy"][0] == runs["native again"][0]
+    log(f"decode walls, 300 s: native {runs['native'][1]['decode'] * 1e3:.1f} / "
+        f"{runs['native again'][1]['decode'] * 1e3:.1f} ms, numpy "
+        f"{runs['numpy'][1]['decode'] * 1e3:.1f} ms; events identical {same}")
+    if not same:
+        raise AssertionError("the native and numpy decode paths gave different events")
+    return {"native file 300 s": runs["native"][3]}
+
+
+def _quartiles(values) -> str:
+    q1, med, q3 = np.percentile(np.asarray(values) * 1e3, [25, 50, 75])
+    return f"median {med:.1f} ms (quartiles {q1:.1f}, {q3:.1f})"
+
+
+def check_augmentation(cfg, card: str) -> dict:
+    """Phase 13's augmentation: one default batch (64 x (2, 80000)) on the
+    card, the waves against the sequential plain version on the same draws
+    (bit for bit), ms per batch (CUDA events) and the launches of one batch
+    (torch.profiler), draws included."""
+    from audio_to_midi_tpu_torch.data import augment_device as ad
+
+    b, n = cfg.train.batch_size, cfg.data.samples_per_window
+    frames = cfg.model.output_frames(n)
+    audio = torch.randn((b, 2, n), generator=torch.Generator().manual_seed(3)).cuda()
+    labels = torch.rand((b, frames, 90), generator=torch.Generator().manual_seed(4)).cuda()
+    gen = torch.Generator().manual_seed(5)
+    draws = ad.draw(cfg.transforms, b, n, frames, gen, "cuda")
+    a1, l1, a2, l2 = audio.clone(), labels.clone(), audio.clone(), labels.clone()
+    ad.augment_(a1, l1, draws)
+    ad.augment_sequential(a2, l2, draws)
+    same = torch.equal(a1, a2) and torch.equal(l1, l2)
+    apps = sum(st.n for st in draws.stages)
+    waves = sum(len(st.bounds) - 1 for st in draws.stages)
+
+    def batched():
+        return ad.transform_for_training_device(audio, labels, cfg.transforms, gen)
+
+    def plain():
+        x, y = audio.clone(), labels.clone()
+        ad.augment_sequential(x, y, ad.draw(cfg.transforms, b, n, frames, gen, "cuda"))
+        return x, y
+
+    ms, plain_ms = time_ms(batched, iters=20, warmup=3), time_ms(plain, iters=5, warmup=1)
+    counts = {}
+    for label, fn in (("batched", batched), ("plain", plain)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts[label] = sum(1 for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"augmentation, batch {b} x (2, {n}), default settings: {apps} applications in {waves} "
+        f"waves; waves = sequential on the same draws, bit for bit, {same}; {ms:.3f} ms and "
+        f"{counts['batched']} device events per batch (the sequential plain version "
+        f"{plain_ms:.3f} ms, {counts['plain']}); on {card}")
+    if not same:
+        raise AssertionError("the augmentation's waves differ from the sequential version")
+    return {"ms": ms, "plain_ms": plain_ms, "events": counts["batched"],
+            "plain_events": counts["plain"], "applications": apps, "waves": waves}
+
+
+def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train) -> dict:
+    """One invocation of cli/train_cli.main with a --config JSON that changes
+    only ``train``'s fields of ``cfg``; its checkpoints go to
+    WORK/train_ck_<name>, emptied first unless ``resume``.  Returns the step
+    hooks' (step, host clock, launches so far, info), the test-set
+    evaluations, the wall, the launches, the peak device memory and the
+    checkpoint directory."""
+    from audio_to_midi_tpu_torch.cli import train_cli
+    from audio_to_midi_tpu_torch.config import config_to_json
+    from audio_to_midi_tpu_torch.train import loop
+
+    run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train))
+    cfg_path = WORK / f"train_{name}.json"
+    cfg_path.write_text(config_to_json(run_cfg))
+    ck = WORK / f"train_ck_{name}"
+    if not resume:
+        shutil.rmtree(ck, ignore_errors=True)
+    argv = argv + ["--config", str(cfg_path), "--checkpoint", str(ck), "--no-tensorboard"]
+    hooks, evals = [], []
+    real_train, real_eval = loop.train, loop.compute_testset_loss
+
+    def traced_train(*args, **kwargs):
+        return real_train(*args, step_hook=lambda step, info: hooks.append(
+            (step, time.perf_counter(), read_launches(), info)), **kwargs)
+
+    def traced_eval(*args, **kwargs):
+        out = real_eval(*args, **kwargs)
+        evals.append(out)
+        return out
+
+    loop.train, loop.compute_testset_loss = traced_train, traced_eval
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        if train_cli.main(argv) != 0:
+            raise AssertionError(f"train_cli {name} returned non-zero")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        loop.train, loop.compute_testset_loss = real_train, real_eval
+    return {"hooks": hooks, "evals": evals, "wall": wall, "launches": read_launches(),
+            "peak": torch.cuda.max_memory_allocated(), "ck": ck}
+
+
+def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
+    """Phase 13: training through cli/train_cli.py on a synthetic dataset
+    written under build/smoke/, at the default ModelConfig and TrainConfig
+    (batch 64 = 2 x 32, bf16, dropout 0.1, cnn_bwd_kernel, the ring and the
+    augmentation on the card); a --config JSON changes only num_steps,
+    print_every, checkpoint_every and testset_loss_every.  Per step: 16
+    launches of each seeded dropout kernel (12, 13, 15, 16), 4 of the stage
+    backward (20), none of the dropout-free ones; finite losses; the test
+    set's hit rate in [0, 1]; checkpoints on disk; a second invocation
+    resumes at latest + 1; the serving CLI transcribes phase 4's WAV from
+    the checkpoint directory.  Then the same with input_ring_capacity=0
+    (host batches, augmented on the card).  Last, one step in flight: the
+    ring feed over 12 steps at print_every 1 (the host reads the loss every
+    step) and at print_every 3 (steps 4-5, 7-8, 10-11 leave theirs on the
+    card), in turns 1, 3, 3, 1, with the final checkpoint only and no
+    evaluation; the wall of steps 4-12 between the hooks of steps 3 and 12,
+    where the card has drained.  Returns each run's launches."""
+    from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
+    from audio_to_midi_tpu_torch.data import synthetic
+    from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
+    from audio_to_midi_tpu_torch.train import checkpoint as ckpt
+
+    started = time.perf_counter()
+    train_dir, val_dir = WORK / "train_set", WORK / "val_set"
+    for d in (train_dir, val_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    synthetic.make_synthetic_dataset(train_dir, num_samples=8, duration_s=10.0, seed=1)
+    synthetic.make_synthetic_dataset(val_dir, num_samples=2, duration_s=10.0, seed=2)
+    log(f"synthetic train set (8 x 10 s) and val set (2 x 10 s) written in "
+        f"{time.perf_counter() - started:.1f} s")
+    augmentation = check_augmentation(cfg, card)
+
+    per_step = {"global_attention_dropout": 16, "local_two_phase_dropout": 16,
+                "global_attention_grads_prng": 16, "local_two_phase_grads_prng": 16,
+                "stage_bwd": 4}
+    steps = 6
+    launches = {}
+    dataset = ["--dataset", str(train_dir)]
+    for label, ring_capacity in (("ring", cfg.train.input_ring_capacity), ("host feed", 0)):
+        argv = dataset + ["--testset", f"val={val_dir}"]
+        train = {"num_steps": steps, "print_every": 1, "checkpoint_every": 3,
+                 "testset_loss_every": steps, "input_ring_capacity": ring_capacity}
+        run = run_train_cli(cfg, label.replace(" ", "_"), argv, **train)
+        launches[f"train_cli {label}"] = run["launches"]
+        first, evals, ck = run["hooks"], run["evals"], run["ck"]
+        latest = ckpt.CheckpointManager(ck).latest_step()
+        resumed = [h[0] for h in run_train_cli(cfg, label.replace(" ", "_"),
+                                               argv + ["--steps", str(steps + 1)], resume=True,
+                                               **train)["hooks"]]
+
+        if [h[0] for h in first] != list(range(1, steps + 1)) or resumed != [latest + 1]:
+            raise AssertionError(f"{label}: steps {[h[0] for h in first]}, resumed at {resumed} "
+                                 f"after checkpoint {latest}")
+        deltas, previous = [], {name: 0 for name in first[0][2]}
+        for _step, _t, counts, _info in first:
+            deltas.append({k: counts[k] - previous[k] for k in counts})
+            previous = counts
+        for step, delta in enumerate(deltas, 1):
+            wrong = {k: v for k, v in delta.items() if v != per_step.get(k, 0)}
+            if wrong:
+                raise AssertionError(f"{label}, step {step}: launches {wrong}, expected {per_step}")
+        losses = [float(h[3]["loss"][0]) for h in first]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        test_loss, hit, eventized, _ = evals[0]
+        if not (0.0 <= float(hit[0]) <= 1.0 and math.isfinite(float(test_loss[0]))):
+            raise AssertionError(f"{label}: test loss {test_loss}, hit rate {hit}")
+        on_disk = ckpt.CheckpointManager(ck).all_steps()
+        if on_disk != [3, 6, 7] or not (ck / "7" / "params.npz").exists():
+            raise AssertionError(f"{label}: checkpoints on disk {on_disk}")
+        times = [b[1] - a[1] for a, b in zip(first, first[1:])]
+        reuse = [h[3]["ring"]["reuse_factor"] for h in first if h[3]["ring"] is not None]
+        log(f"train_cli {label}, default config (batch 64 = 2 x 32, bf16, dropout 0.1, "
+            f"cnn_bwd_kernel): {steps} steps in {run['wall']:.1f} s (build, fill and evaluation "
+            f"included); per step {_quartiles(times)} over steps 2-{steps}; losses "
+            + ", ".join(f"{x:.1f}" for x in losses)
+            + f"; launches per step {deltas[-1]}; ring reuse factor "
+            + (", ".join(f"{r:.2f}" for r in reuse) if reuse else "none (host feed)")
+            + f"; augmentation {augmentation['ms']:.3f} ms, {augmentation['events']} device "
+            f"events per batch; test set: loss {float(test_loss[0]):.1f}, hit rate "
+            f"{float(hit[0]):.4f}, eventized diff {float(eventized[0]):.1f}; checkpoints "
+            f"{on_disk}, resumed at {resumed[0]}; peak device memory "
+            f"{run['peak'] / 2**30:.2f} GiB; on {card}")
+
+    in_flight_steps = 12
+    walls = {1: [], 3: []}
+    for print_every in (1, 3, 3, 1):
+        name = f"ring_print_every_{print_every}"
+        run = run_train_cli(cfg, name, dataset, num_steps=in_flight_steps,
+                            print_every=print_every, checkpoint_every=1000,
+                            testset_loss_every=1000)
+        launches[f"train_cli {name} {len(walls[print_every])}"] = run["launches"]
+        at = {h[0]: h for h in run["hooks"]}
+        if sorted(at) != list(range(print_every, in_flight_steps + 1, print_every)):
+            raise AssertionError(f"{name}: step hooks at {sorted(at)}")
+        expected = {k: v * in_flight_steps for k, v in per_step.items()}
+        wrong = {k: v for k, v in run["launches"].items() if v != expected.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"{name}: launches {wrong}, expected {expected}")
+        losses = [float(h[3]["loss"][0]) for h in run["hooks"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        walls[print_every].append((at[in_flight_steps][1] - at[3][1]) / (in_flight_steps - 3))
+        log(f"train_cli ring, print_every {print_every}, {in_flight_steps} steps in "
+            f"{run['wall']:.1f} s: steps 4-{in_flight_steps} "
+            f"{walls[print_every][-1] * 1e3:.1f} ms per step (mean, host clock); reuse factor "
+            + ", ".join(f"{h[3]['ring']['reuse_factor']:.2f}" for h in run["hooks"])
+            + f"; peak device memory {run['peak'] / 2**30:.2f} GiB; on {card}")
+    log("one step in flight: steps 4-12 of the ring feed, in turns 1, 3, 3, 1: print_every 1 "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls[1]) + " ms per step, print_every 3 "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls[3]) + f" ms per step; on {card}")
+
+    mid = WORK / "out_trained.mid"
+    captured = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(captured):
+        rc = cli_main([str(WORK / "synth.wav"), str(mid), "--checkpoint",
+                       str(WORK / "train_ck_ring")])
+    torch.cuda.synchronize()
+    launches["cli from a training checkpoint"] = read_launches()
+    midi = read_midi_file(mid) if rc == 0 else None
+    log(f"cli from the checkpoint directory: {' | '.join(captured.getvalue().strip().splitlines())}"
+        f"; MIDI {len(midi) if midi is not None else 'missing'} events read back")
+    if rc != 0:
+        raise AssertionError("the serving CLI failed on the training checkpoint directory")
+    log(f"phase 13 took {time.perf_counter() - started:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2031,17 +2342,26 @@ def main() -> int:
     file_serving = check_file_serving(cfg, card)
     log(f"file serving main-path launches: {file_serving}; phase 11 took "
         f"{time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    native_serving = check_native_plane(cfg, card)
+    log(f"native-plane serving main-path launches: {native_serving}; phase 12 took "
+        f"{time.perf_counter() - t12:.1f} s")
+    training_entry = check_training_entry(cfg, card)
+    log(f"training entry main-path launches: {training_entry}")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
-             **fused_serving, **rw_paths, **file_serving}
+             **fused_serving, **rw_paths, **file_serving, **native_serving, **training_entry}
     on_path = {
         "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
-        "global_attention_dropout": ("dropout",), "local_two_phase_dropout": ("dropout",),
-        "global_attention_grads_prng": ("dropout",), "local_two_phase_grads_prng": ("dropout",),
+        "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed"),
+        "local_two_phase_dropout": ("dropout", "train_cli ring", "train_cli host feed"),
+        "global_attention_grads_prng": ("dropout", "train_cli ring", "train_cli host feed"),
+        "local_two_phase_grads_prng": ("dropout", "train_cli ring", "train_cli host feed"),
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
-        "stage_bwd": ("default-config training",), "stage_fwd": ("pallas_stage serving",),
+        "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed"),
+        "stage_fwd": ("pallas_stage serving",),
         "attention_block": ("pallas_block serving",),
         "fused_local_sublayer": ("pallas_fused serving",),
         "fused_global_sublayer": ("pallas_fused serving",),
@@ -2049,7 +2369,9 @@ def main() -> int:
         "local_two_phase_rw": ("pallas_rw serving", "pallas_rw training"),
         "head_major_attention": ("attention functions",),
         "rope_attention": ("attention functions",),
-        "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream"),
+        "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream",
+                     "native file 300 s", "train_cli ring", "train_cli host feed",
+                     "cli from a training checkpoint"),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")

@@ -211,7 +211,7 @@ def test_train_step_through_the_stage_backward_matches_jax(monkeypatch):
     monkeypatch.setattr(ck, "stage_bwd", lambda *a: (launched.append(1), real(*a))[1])
     out = step(model, torch.from_numpy(audio), torch.from_numpy(labels), 1.0)
     assert len(launched) == 2                      # one stage, two minibatches
-    assert out.grads_valid is True and bool(ref.grads_valid)
+    assert bool(out.grads_valid) and bool(ref.grads_valid)
     np.testing.assert_allclose(float(out.loss), float(ref.loss), rtol=1e-5)
     mine = convert.state_dict_to_jax(model.state_dict())
     for path, r in convert.flatten_tree(jax.device_get(ref.params)).items():

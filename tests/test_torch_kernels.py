@@ -1599,3 +1599,80 @@ def test_eventize_refuses_what_it_does_not_take_on_card(cuda_device):
     with pytest.raises(ValueError):  # past 2^24 frames float(frame) is not exact
         ev.eventize(torch.zeros(ev.MAX_FRAMES + 1, 1, device=cuda_device))
     assert ev.eventize.launches == before
+
+
+# --- the training feed on the card: device augmentation and input ring ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_augmentation_waves_equal_the_sequential_version_on_card(cuda_device, seed):
+    """The default transforms on a batch of 64 full windows: the waves give
+    the sequential plain version's bits on the card."""
+    from audio_to_midi_tpu_torch.config import TransformSettings
+    from audio_to_midi_tpu_torch.data import augment_device as ad
+
+    audio = _randn(64, 2, 80_000, seed=seed, device=cuda_device)
+    labels = torch.rand(64, 250, 90, generator=torch.Generator().manual_seed(seed)).to(cuda_device)
+    draws = ad.draw(TransformSettings(), 64, 80_000, 250, torch.Generator().manual_seed(seed),
+                    cuda_device)
+    a1, l1, a2, l2 = audio.clone(), labels.clone(), audio.clone(), labels.clone()
+    ad.augment_(a1, l1, draws)
+    ad.augment_sequential(a2, l2, draws)
+    assert not torch.equal(a1, audio)
+    assert torch.equal(a1, a2) and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+def test_ring_refresh_waits_for_the_pending_gather_on_card(cuda_device):
+    """A push into slots that a queued gather still reads lands after it; a
+    sample after the push sees the new chunk (its copy runs on a side
+    stream)."""
+    import numpy as np
+
+    from audio_to_midi_tpu_torch.data.device_ring import DeviceInputRing
+
+    def chunk(value):
+        audio = torch.full((4, 2, 4096), value, dtype=torch.float16).pin_memory()
+        labels = torch.full((4, 8, 90), value, dtype=torch.float16).pin_memory()
+        return audio, labels
+
+    ring = DeviceInputRing(capacity=4, chunk_windows=4, device=cuda_device)
+    ring.push(*chunk(1.0))
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda._sleep(200_000_000)  # hold the training stream: the gather stays queued
+    old_audio, old_labels = ring.sample(gen, batch=8, minibatch=4, settings=None)
+    ring.push(*chunk(2.0))  # the same slots
+    new_audio, new_labels = ring.sample(gen, batch=8, minibatch=4, settings=None)
+    torch.cuda.synchronize()
+    assert np.unique(old_audio.cpu().numpy()).tolist() == [1.0]
+    assert np.unique(old_labels.cpu().numpy()).tolist() == [1.0]
+    assert np.unique(new_audio.cpu().numpy()).tolist() == [2.0]
+    assert np.unique(new_labels.cpu().numpy()).tolist() == [2.0]
+
+
+@pytest.mark.cuda
+def test_ring_first_push_lands_after_the_pool_fill_on_card(cuda_device):
+    """The pool is allocated and zero-filled on the training stream inside
+    the first push; the side stream's copy of that push must land after
+    the fill, even while the training stream is held back."""
+    import numpy as np
+
+    from audio_to_midi_tpu_torch.data.device_ring import DeviceInputRing
+
+    audio = torch.full((4, 2, 4096), 3.0, dtype=torch.float16).pin_memory()
+    labels = torch.full((4, 8, 90), 3.0, dtype=torch.float16).pin_memory()
+    ring = DeviceInputRing(capacity=4, chunk_windows=4, device=cuda_device)
+    # The pool's fill once beforehand: its blocks then come from the
+    # allocator's cache and its kernel is loaded.  A fresh cudaMalloc or a
+    # kernel's first load may wait for the card and so hide the race.
+    for t in (audio, labels):
+        torch.zeros(t.shape, dtype=t.dtype, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # hold the training stream: the fill stays queued
+    ring.push(audio, labels)  # allocates the pool
+    got_audio, got_labels = ring.sample(torch.Generator().manual_seed(0), batch=8, minibatch=4,
+                                        settings=None)
+    torch.cuda.synchronize()
+    assert np.unique(got_audio.cpu().numpy()).tolist() == [3.0]
+    assert np.unique(got_labels.cpu().numpy()).tolist() == [3.0]

@@ -139,11 +139,15 @@ def test_wav_decode_matches_jax(tmp_path, monkeypatch, channels, rate):
     pt_audio_io.write_wav(path, x, rate)
     jax_audio_io.write_wav(tmp_path / "b.wav", x, rate)
     assert path.read_bytes() == (tmp_path / "b.wav").read_bytes()
+    # Each path against the JAX package's on the same path: the C++ decode
+    # plane resamples with its own filter, the numpy chain with scipy's.
     out = pt_audio_io.load_full_audio_f16(path, 16_000)
-    if rate != 16_000:
-        # The JAX package's C++ decode plane resamples with its own filter;
-        # the port carries over its numpy/scipy chain, so compare with that.
-        monkeypatch.setattr(jax_loader, "_use_native", lambda: False)
+    ref = jax_loader.load_full_audio_f16(path, 16_000)
+    assert out.dtype == ref.dtype == np.float16
+    np.testing.assert_array_equal(out, ref)
+    monkeypatch.setattr(pt_audio_io, "use_native", lambda path: False)
+    monkeypatch.setattr(jax_loader, "_use_native", lambda: False)
+    out = pt_audio_io.load_full_audio_f16(path, 16_000)
     ref = jax_loader.load_full_audio_f16(path, 16_000)
     assert out.dtype == ref.dtype == np.float16
     np.testing.assert_array_equal(out, ref)

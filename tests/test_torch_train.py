@@ -264,7 +264,7 @@ def test_two_train_steps_match_jax(tree):
                        jax.random.PRNGKey(i), jnp.float32(grad_scale))
         params, opt_state = ref.params, ref.opt_state
         out = step(model, torch.from_numpy(audio), torch.from_numpy(labels), grad_scale)
-        assert out.grads_valid is True and bool(ref.grads_valid)
+        assert bool(out.grads_valid) and bool(ref.grads_valid)
         close(out.loss, ref.loss, rtol=1e-5, atol=0)
         close(out.scaled_loss, ref.scaled_loss, rtol=1e-5, atol=0)
         assert_trees_close(convert.state_dict_to_jax(model.state_dict()), params,
@@ -284,7 +284,7 @@ def test_a_non_finite_step_leaves_parameters_and_optimizer_state_untouched(tree)
     mu, nu = [m.clone() for m in opt.mu], [n.clone() for n in opt.nu]
     labels[1, 0, 3, 5] = np.nan
     bad = step(model, torch.from_numpy(audio), torch.from_numpy(labels), 1.0)
-    assert bad.grads_valid is False and not torch.isfinite(bad.loss)
+    assert not bool(bad.grads_valid) and not torch.isfinite(bad.loss)
     assert opt.count == 1
     for n, p in model.named_parameters():
         assert torch.equal(p, before[n]), n

@@ -82,9 +82,9 @@ def profile_steps(card: str, dropout_rate: float, cnn_bwd_kernel: bool) -> dict 
     result["step_ms"] = [{"wall": w, "device_events": d} for w, d in walls]
     print("steps (wall ms, device ms): " + ", ".join(f"({w:.1f}, {d:.1f})" for w, d in walls))
 
-    # One minibatch taken apart.  The step reads grads_valid on the host, so
-    # within a step the card drains once; here each phase starts on an idle
-    # card and its host time is the time to enqueue it.
+    # One minibatch taken apart.  Here each phase starts on an idle card and
+    # its host time is the time to enqueue it.  The optimizer is the step's:
+    # the chain with its guard on the card.
     for p in optimizer.params:
         p.grad = None
     holder = {}
@@ -97,7 +97,8 @@ def profile_steps(card: str, dropout_rate: float, cnn_bwd_kernel: bool) -> dict 
 
     phases = {"forward": timed(forward), "backward": timed(lambda: holder["loss"].backward())}
     grads = [p.grad for p in optimizer.params]
-    phases["optimizer"] = timed(lambda: optimizer.apply(optimizer.update(grads)))
+    valid = torch.ones((), dtype=torch.bool, device=grads[0].device)
+    phases["optimizer"] = timed(lambda: optimizer.apply(optimizer.update(grads, valid)))
     result["minibatch_phases_ms"] = {k: {"host_enqueue": h, "device_events": d}
                                      for k, (h, d) in phases.items()}
     for k, (h, d) in phases.items():
