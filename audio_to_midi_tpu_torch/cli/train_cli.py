@@ -4,16 +4,18 @@ the PyTorch port.
 Usage:
   python -m audio_to_midi_tpu_torch.cli.train_cli --dataset DIR
       [--testset NAME=DIR ...] [--checkpoint DIR] [--steps N] [--batch-size N]
-      [--num-workers N] [--learning-rate LR] [--precision bf16|f32]
-      [--no-tensorboard] [--config JSON] [--device cuda|cpu]
+      [--ensemble-size E] [--num-workers N] [--learning-rate LR]
+      [--precision bf16|f16|f32] [--no-tensorboard] [--config JSON]
+      [--device cuda|cpu]
 
 The JAX package's flags, with its defaults, and ``--device`` (default
 ``cuda``; without a CUDA device the command fails unless ``--device cpu``
-is given).  Training resumes at the latest checkpoint + 1.  Waiting for
-later parts of the port: ``--ensemble-size`` above 1 (``train/ensemble.py``),
-``--precision f16`` training, ``TrainConfig.use_custom_init``
-(``train/init_surgery.py``) and the three multi-host flags (``parallel/``);
-each raises when asked for.
+is given).  Training resumes at the latest checkpoint + 1.
+``--ensemble-size`` above 1 trains a population, its members in turn, and
+evolves it after each evaluation when it has more than 2 members;
+``TrainConfig.use_custom_init`` applies the init surgery to each member;
+``--precision f16`` trains with loss scaling.  The three multi-host flags
+wait for the port's ``parallel/`` and raise when given.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ def main(argv=None) -> int:
     from ..models import model as model_lib
     from ..train import checkpoint as ckpt
     from ..train import loop
+    from ..train.init_surgery import apply_init_surgery_
     from ..train.optim import schedule, setup_optimizers
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -86,14 +89,6 @@ def main(argv=None) -> int:
                                   precision=PrecisionConfig(compute_dtype=args.precision or "bf16"))
     else:
         cfg = dataclasses.replace(cfg, train=train_cfg)
-    if cfg.precision.compute_dtype == "f16":
-        raise NotImplementedError("f16 training (loss scaling from the CLI) is not ported yet")
-    if cfg.train.ensemble_size > 1:
-        raise NotImplementedError(
-            f"--ensemble-size {cfg.train.ensemble_size}: the port trains one member until "
-            "train/ensemble.py is ported")
-    if cfg.train.use_custom_init:
-        raise NotImplementedError("use_custom_init: train/init_surgery.py is not ported yet")
 
     device = torch.device(args.device)
     minibatch = min(cfg.train.minibatch_size_per_device, cfg.train.batch_size)
@@ -112,6 +107,13 @@ def main(argv=None) -> int:
     rope = model_lib.make_rope(cfg.model, device)
     model, state = model_lib.init_ensemble(torch.Generator().manual_seed(1), cfg.model,
                                            cfg.train.ensemble_size)
+    if cfg.train.use_custom_init:
+        # Reference train.py:573-644 (its call disabled at :792).  JAX splits
+        # PRNGKey(2) over the members.
+        members = model if cfg.train.ensemble_size > 1 else [model]
+        generators = model_lib.member_generators(torch.Generator().manual_seed(2), len(members))
+        for member, generator in zip(members, generators):
+            apply_init_surgery_(member, cfg.model.num_transformer_heads, generator)
 
     manager = ckpt.create_checkpoint_manager(
         Path(args.checkpoint), cfg, max_to_keep=cfg.train.checkpoints_to_keep,

@@ -9,9 +9,8 @@ JSON that the JAX package's ``config_to_json`` writes, and
 Scheduling knobs that only mean something to XLA on a TPU
 (``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``,
 ``fused_flat_optimizer``) are kept as no-op fields so that configs
-round-trip, and so are the training fields whose modules are not ported yet
-(``model_parallel_size``; ``use_custom_init`` raises in
-``cli/train_cli.py``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
+round-trip, and so is ``model_parallel_size``, whose module
+(``parallel/``) is not ported yet.  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
 in the JAX package: which ConvNeXt stages go to the fused stage kernels
 (``models/convnext.stage_route``).
 """
@@ -213,7 +212,7 @@ class TrainConfig:
     adam_b2: float = 0.999
     adam_eps: float = 1e-3                  # the reference's value, intentional
     global_norm_clip: float = 1.0
-    ensemble_size: int = 1                  # > 1 is not ported yet
+    ensemble_size: int = 1                  # members of the population
     model_parallel_size: int = 1            # kept; parallel/ is not ported yet
     checkpoint_every: int = 20
     checkpoints_to_keep: int = 3
@@ -226,7 +225,7 @@ class TrainConfig:
     # No-op for good: a TPU launch-count knob.  The port's optimizer updates
     # every parameter with a few multi-tensor (torch._foreach_*) calls.
     fused_flat_optimizer: bool = False
-    use_custom_init: bool = False           # raises: init surgery is not ported yet
+    use_custom_init: bool = False           # train/init_surgery.py at init
     # The transforms run on the model's device (data/augment_device.py) and
     # the loader feeds raw windows.
     augment_on_device: bool = True

@@ -17,6 +17,13 @@ writes it from a checkpoint).  The mapping, leaf by leaf:
   columns already in RoPE-halves order.  Values are copied bit for bit.
 * Every other path maps ``/`` to ``.``.
 
+A population (``models/model.Ensemble``) is laid out as the JAX package
+keeps it: every leaf gains a leading ``(E,)`` axis (:func:`stack_members`,
+:func:`unstack_members`; :func:`params_to_jax` and :func:`load_params_` for
+a ``Model`` or an ``Ensemble``).  :func:`jax_leaf_order` gives the order in which
+``jax.tree.leaves`` walks such a tree: dict keys sorted, list indices in
+numeric order, one leaf per stacked array.
+
 For one stage on its own, :func:`stage_blocks_from_jax` turns the stacked
 ``blocks`` subtree into the port's ``Block`` modules, and
 :func:`stage_grads_to_jax` lays the gradients of the stage kernels' stacked
@@ -31,6 +38,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from .models.model import Ensemble
 
 _CNN_BLOCKS = re.compile(r"^cnn/stages/(\d+)/blocks/(.+)$")
 _TRANSFORMER = re.compile(r"^transformer/(local|global)/(.+)$")
@@ -50,6 +59,58 @@ def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     for key, sub in items:
         flat.update(flatten_tree(sub, f"{prefix}/{key}" if prefix else str(key)))
     return flat
+
+
+def _leaf_order_key(path: str) -> tuple:
+    # A list index sorts by its number; a dict key by its text.
+    return tuple((0, int(part), "") if part.isdigit() else (1, 0, part)
+                 for part in path.split("/"))
+
+
+def jax_leaf_order(flat: Mapping[str, Any]) -> list[str]:
+    """The paths of a flat JAX parameter dict in ``jax.tree.leaves`` order
+    (``stages/10`` after ``stages/9``, which a text sort would not give)."""
+    return sorted(flat, key=_leaf_order_key)
+
+
+def stack_members(flats: list[Mapping[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    """One flat dict per member -> one flat dict whose leaves lead with
+    ``(E,)``."""
+    return {path: np.stack([np.asarray(flat[path]) for flat in flats]) for path in flats[0]}
+
+
+def unstack_members(flat: Mapping[str, np.ndarray]) -> list[dict[str, np.ndarray]]:
+    """The inverse of :func:`stack_members`."""
+    sizes = {np.shape(v)[0] for v in flat.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"the leaves disagree on the population axis: {sorted(sizes)}")
+    return [{path: np.asarray(v[i]) for path, v in flat.items()} for i in range(sizes.pop())]
+
+
+def params_to_jax(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A ``Model``'s flat JAX parameter dict, or an ``Ensemble``'s with the
+    leading ``(E,)`` axis."""
+    if isinstance(model, Ensemble):
+        return stack_members([state_dict_to_jax(m.state_dict()) for m in model])
+    return state_dict_to_jax(model.state_dict())
+
+
+@torch.no_grad()
+def load_params_(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Copy a flat JAX parameter dict into ``model``'s parameters in place,
+    so that an optimizer bound to them stays bound.  For an ``Ensemble``
+    every leaf must lead with its population size."""
+    if not isinstance(model, Ensemble):
+        model.load_state_dict(jax_to_state_dict(flat), strict=True)
+        return
+    reference = state_dict_to_jax(model[0].state_dict())
+    for path, value in flat.items():
+        want = (len(model), *reference[path].shape) if path in reference else None
+        if want is not None and value.shape != want:
+            raise ValueError(f"{path}: the checkpoint's shape {value.shape} is not the "
+                             f"population's {want} (ensemble_size {len(model)})")
+    for member, member_flat in zip(model, unstack_members(flat), strict=True):
+        member.load_state_dict(jax_to_state_dict(member_flat), strict=True)
 
 
 def jax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:

@@ -84,22 +84,32 @@ def load_params(
 
 def load_newest_checkpoint(
     checkpoint_path: str | Path, cfg: Config, device: torch.device | str,
-    dtype: torch.dtype = torch.float32, step: int | None = None,
-) -> tuple[model_lib.Model, dict]:
+    dtype: torch.dtype = torch.float32, step: int | None = None, *,
+    ensemble_size: int = 1, ensemble_select: int | None = 0,
+) -> tuple[model_lib.Model | model_lib.Ensemble, dict]:
     """The latest checkpoint of a training directory (``train/checkpoint.py``)
-    -> (``Model`` on ``device`` in ``dtype``, state), as the JAX
-    package's ``load_newest_checkpoint`` with one member; warns when the
-    stored metadata differs from ``cfg``'s."""
+    -> (model on ``device`` in ``dtype``, state), as the JAX package's
+    ``load_newest_checkpoint``; warns when the stored metadata differs from
+    ``cfg``'s.  A checkpoint of a population needs its ``ensemble_size``;
+    ``ensemble_select`` picks one member's ``Model`` off it, and None keeps
+    the whole ``Ensemble``."""
     from .train import checkpoint as ckpt
 
     manager = ckpt.create_checkpoint_manager(checkpoint_path, cfg)
     ckpt.check_metadata(manager, cfg)
-    model = model_lib.Model(cfg.model)
+    if ensemble_size == 1:
+        if ensemble_select not in (0, None):
+            raise ValueError(f"ensemble_select={ensemble_select} of a single model")
+        model = model_lib.Model(cfg.model)
+    else:
+        model = model_lib.Ensemble(model_lib.Model(cfg.model) for _ in range(ensemble_size))
     restored = ckpt.restore_checkpoint(manager, model, {}, step=step)
     if restored is None:
         raise FileNotFoundError(f"There is no checkpoint to load in {checkpoint_path}!")
     model, state, restored_step = restored
     log.info("Restored checkpoint at step %d", restored_step)
+    if ensemble_size > 1 and ensemble_select is not None:
+        model = model[ensemble_select]
     return model.to(device=device, dtype=dtype).eval(), state
 
 

@@ -7,9 +7,13 @@ LayerNorm + Linear + sigmoid decoder.  With the default config,
 
 The parameters live in :class:`Model`; ``forward`` is a function of the
 model, the config, the audio and the RoPE tables, as in the JAX package.
+A population (the JAX package's leading ``(E,)`` axis on every leaf) is an
+:class:`Ensemble` of ``Model``s, each run in turn.
 """
 
 from __future__ import annotations
+
+from typing import Iterable, Iterator
 
 import torch
 from torch import nn
@@ -48,15 +52,39 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> tuple[Model, dict]:
     return Model(cfg, generator), {}
 
 
+class Ensemble(nn.Module):
+    """A population of ``Model``s: member i holds what the JAX package keeps
+    at index i of every leaf's leading ``(E,)`` axis."""
+
+    def __init__(self, members: Iterable[Model]):
+        super().__init__()
+        self.members = nn.ModuleList(members)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def __getitem__(self, index: int) -> Model:
+        return self.members[index]
+
+    def __iter__(self) -> Iterator[Model]:
+        return iter(self.members)
+
+
+def member_generators(generator: torch.Generator, count: int) -> list[torch.Generator]:
+    """``count`` generators on ``generator``'s device, each seeded with the
+    next draw of ``generator``: the port's ``jax.random.split(key, count)``."""
+    seeds = torch.randint(0, 2 ** 62, (count,), generator=generator, device=generator.device)
+    return [torch.Generator(device=generator.device).manual_seed(int(s)) for s in seeds.tolist()]
+
+
 def init_ensemble(generator: torch.Generator, cfg: ModelConfig,
-                  ensemble_size: int = 1) -> tuple[Model, dict]:
-    """JAX's ``init_ensemble`` for one member: the ensemble axis arrives
-    with the port's ``train/ensemble.py``."""
-    if ensemble_size != 1:
-        raise NotImplementedError(
-            f"ensemble_size={ensemble_size}: the port trains one member until "
-            "train/ensemble.py is ported")
-    return init(generator, cfg)
+                  ensemble_size: int = 1) -> tuple[Model | Ensemble, dict]:
+    """JAX's ``init_ensemble``: ``ensemble_size`` members, each drawn from a
+    generator of its own seeded from ``generator``.  One member is
+    :func:`init`'s ``Model`` itself, with no population around it."""
+    if ensemble_size == 1:
+        return init(generator, cfg)
+    return Ensemble(Model(cfg, g) for g in member_generators(generator, ensemble_size)), {}
 
 
 def make_rope(cfg: ModelConfig, device: torch.device | str = "cpu") -> RopeFreqs:

@@ -11,12 +11,23 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
 class RopeFreqs(NamedTuple):
     cos: torch.Tensor  # (max_pos, dim // 2) float32
     sin: torch.Tensor  # (max_pos, dim // 2) float32
+
+
+def rope_permutation(head_dim: int) -> np.ndarray:
+    """The per-head column permutation of the halves layout: the rotation
+    pairs (2j, 2j + 1) become (j, j + head_dim / 2)."""
+    half = head_dim // 2
+    perm = np.empty((head_dim,), np.int64)
+    perm[:half] = np.arange(half) * 2
+    perm[half:] = np.arange(half) * 2 + 1
+    return perm
 
 
 def precompute_frequencies(

@@ -11,8 +11,10 @@ the parameters and the model state, not the optimizer.
 Layout: ``<dir>/metadata.json`` and one directory per step,
 ``<dir>/<step>/`` with ``params.npz`` (the flat JAX parameter layout that
 ``convert.save_npz`` writes and ``infer.load_params`` reads), ``state.json``
-and ``metadata.json``.  A step is written under a temporary name and moved
-into place, so a reader never sees half a checkpoint.
+and ``metadata.json``.  An ``Ensemble``'s ``params.npz`` holds each leaf
+with its leading ``(E,)`` axis, as the JAX package stores a population; one
+member's holds it without that axis.  A step is written under a temporary
+name and moved into place, so a reader never sees half a checkpoint.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, Optional
 import torch
 
 from ..config import Config
-from ..convert import jax_to_state_dict, load_npz, save_npz, state_dict_to_jax
+from ..convert import load_npz, load_params_, params_to_jax, save_npz
 
 PARAMS_FILE = "params.npz"
 STATE_FILE = "state.json"
@@ -107,7 +109,7 @@ def save_checkpoint(manager: CheckpointManager, step: int, model: torch.nn.Modul
     allows it (or ``force``); True when saved."""
     if not force and not manager.should_save(step):
         return False
-    manager.save(step, state_dict_to_jax(model.state_dict()), state or {})
+    manager.save(step, params_to_jax(model), state or {})
     return True
 
 
@@ -123,13 +125,24 @@ def check_metadata(manager: CheckpointManager, config: Config) -> bool:
 
 def restore_checkpoint(manager: CheckpointManager, model: torch.nn.Module,
                        state: Optional[dict] = None, step: Optional[int] = None):
-    """Load the parameters at ``step`` (or the latest) into ``model`` in
+    """Load the parameters at ``step`` (or the latest) into ``model`` (a
+    ``Model`` or an ``Ensemble``, whose size the checkpoint must have) in
     place.  Returns (model, state, step), or None when there is none."""
     step = step if step is not None else manager.latest_step()
     if step is None:
         return None
     flat, stored_state = manager.restore(step)
-    with torch.no_grad():
-        model.load_state_dict(jax_to_state_dict(flat), strict=True)
+    load_params_(model, flat)
     return model, stored_state if stored_state else (state or {}), step
+
+
+def restore_raw(checkpoint_dir: str | Path, step: Optional[int] = None) -> tuple[dict, int]:
+    """A checkpoint's flat parameter dict at ``step`` (or the latest),
+    without a model to hold it: for the weight tools, where the stored
+    layout is not known in advance."""
+    manager = CheckpointManager(checkpoint_dir)
+    step = step if step is not None else manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+    return manager.restore(step)[0], step
 

@@ -1,16 +1,21 @@
 """The training loop: the input feed, loss scaling with rollback,
-checkpoints, metrics and test-set evaluation.
+checkpoints, metrics, test-set evaluation and the population's evolution.
 
-Counterpart of ``audio_to_midi_tpu/train/loop.py`` for one member on one
-device.  Reference semantics (train.py:211-452):
+Counterpart of ``audio_to_midi_tpu/train/loop.py`` on one device.
+Reference semantics (train.py:211-452):
   * with loss scaling (f16 compute), a host snapshot of the parameters and
     the optimizer state every ``recovery_snapshot_every`` steps; on a
     non-finite step, halve the grad scale and roll back; double the scale
     whenever the scaled loss drops below ``loss_scale_increase_threshold``;
   * a checkpoint on every step the manager allows, and a forced final one;
-  * train/loss, the learning rate and steps/s every ``print_every`` steps
-    (and the input ring's reuse telemetry); per-test-set loss, hit rate and
-    eventized diff every ``testset_loss_every``.
+  * train/loss (the least over the members), the learning rate and steps/s
+    every ``print_every`` steps (and the input ring's reuse telemetry);
+    per-test-set loss, hit rate and eventized diff every
+    ``testset_loss_every``;
+  * with a population of more than 2 (``ensemble_size``), genetic evolution
+    after each evaluation (``train/ensemble.py``), scored by the mean test
+    loss over the test sets; the children are written into the members'
+    parameters in place, and the optimizer keeps its moments, as in JAX.
 
 The feed, as in JAX: by default the device-resident input ring
 (``data/device_ring.py``) with the augmentations on the device; with
@@ -25,10 +30,9 @@ card and the host reads a step's ``grads_valid`` one step later, so that
 one step can stay in flight (the loss is read every ``print_every``
 steps, and a checkpoint reads the parameters).  With loss
 scaling the rollback needs the current step's verdict, and the loop reads
-it at once, as JAX does.
-
-``ensemble_size > 1`` and with it the ensemble evolution wait for the
-port's ``train/ensemble.py`` (``make_train_step`` raises).
+it at once, as JAX does: a step where any member went non-finite rolls
+every member back.  The numpy generator of each evolution is seeded from
+the same CPU generator.
 """
 
 from __future__ import annotations
@@ -45,26 +49,36 @@ import torch
 from ..config import Config
 from ..data.augment_device import transform_for_training_device
 from ..data.device_ring import DeviceInputRing, _Feeder
-from ..models.model import Model
+from ..models.model import Ensemble, Model
 from ..models.rope import RopeFreqs
 from . import checkpoint as ckpt
+from .ensemble import evolve_ensemble_
 from .evaluate import compute_testset_loss
-from .optim import LayerwiseAdamW
+from .optim import EnsembleOptimizer, LayerwiseAdamW
 from .step import make_train_step, reshape_to_minibatches
 
 log = logging.getLogger(__name__)
 
 
-def _snapshot(model: Model, optimizer: LayerwiseAdamW) -> tuple[dict, dict]:
+def _snapshot(model: Model | Ensemble,
+              optimizer: LayerwiseAdamW | EnsembleOptimizer) -> tuple[dict, Any]:
     params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     return params, optimizer.snapshot()
 
 
+def _warn_skipped(step: int, valid: torch.Tensor) -> None:
+    """Report a step whose update the guard skipped, for one member or for
+    some members of a population (reads the card)."""
+    if not bool(valid.all()):
+        log.warning("Non-finite grads/loss at step %d%s; the update was skipped", step,
+                    f" (members valid={valid.cpu().numpy()})" if valid.dim() else "")
+
+
 def train(
     cfg: Config,
-    model: Model,
+    model: Model | Ensemble,
     state: dict,
-    optimizer: LayerwiseAdamW,
+    optimizer: LayerwiseAdamW | EnsembleOptimizer,
     data_loader: Iterable,
     checkpoint_manager: Optional[ckpt.CheckpointManager],
     learning_rate_schedule: Callable[[int], float],
@@ -76,10 +90,14 @@ def train(
     generator: Optional[torch.Generator] = None,
     step_hook: Optional[Callable[[int, dict[str, Any]], None]] = None,
 ):
-    """Run the training loop on ``model``'s device; ``optimizer`` must be
-    the model's.  ``data_loader`` yields (events, audio) host batches.
+    """Run the training loop on ``model``'s device: a ``Model``, or an
+    ``Ensemble`` of ``cfg.train.ensemble_size`` members; ``optimizer`` must
+    be the model's.  ``data_loader`` yields (events, audio) host batches.
     Returns (model, state, optimizer), trained in place."""
     testset_dirs = testset_dirs or {}
+    if testset_dirs and cfg.train.ensemble_size == 3:
+        raise ValueError("ensemble_size 3 cannot evolve (one winner, and a child needs two "
+                         "parents): train 2 members or at least 4 with test sets")
     num_steps = num_steps or cfg.train.num_steps
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
@@ -114,7 +132,7 @@ def train(
     grad_scale = 1.0
     use_loss_scaling = cfg.precision.needs_loss_scaling
     recovery = _snapshot(model, optimizer) if use_loss_scaling else None
-    loss_sum = torch.zeros((1,), dtype=torch.float32, device=device)
+    loss_sum = torch.zeros((cfg.train.ensemble_size,), dtype=torch.float32, device=device)
     loss_count = 0
     prev_valid = None
     t_start = time.time()
@@ -153,14 +171,14 @@ def train(
         out = train_step(model, audio_mb, events_mb, grad_scale, generator)
         loss = out.loss
 
-        if prev_valid is not None and not bool(prev_valid):
+        if prev_valid is not None:
             # The guard in the step already skipped the update on the card;
             # read one step late so that one step stays in flight.
-            log.warning("Non-finite grads/loss at step %d; the update was skipped", step - 1)
+            _warn_skipped(step - 1, prev_valid)
         prev_valid = out.grads_valid
 
         if use_loss_scaling:
-            if not bool(out.grads_valid) or not bool(torch.isfinite(loss)):
+            if not bool(out.grads_valid.all()) or not bool(torch.isfinite(loss).all()):
                 new_scale = grad_scale / 2
                 log.warning("Non-finite grads/loss at step %d; rolling back, grad scale %s -> %s",
                             step, grad_scale, new_scale)
@@ -170,7 +188,7 @@ def train(
                 optimizer.restore(recovery[1])
                 prev_valid = None  # rolled back, not merely skipped
                 continue
-            if bool(out.scaled_loss < cfg.train.loss_scale_increase_threshold):
+            if bool((out.scaled_loss < cfg.train.loss_scale_increase_threshold).all()):
                 grad_scale = grad_scale * 2
 
         if checkpoint_manager is not None:
@@ -207,11 +225,13 @@ def train(
             t_start = time.time()
 
         if testset_dirs and step % cfg.train.testset_loss_every == 0:
+            testset_losses = []
             for name, testset_dir in testset_dirs.items():
                 test_loss, hit_rate, eventized_diff, _figs = compute_testset_loss(
                     model, cfg, testset_dir, num_model_output_frames, rope)
                 log.info("testset %s: loss=%s hit_rate=%s eventized_diff=%s", name, test_loss,
                          hit_rate, eventized_diff)
+                testset_losses.append(test_loss)
                 if summary_writer is not None:
                     summary_writer.add_scalar(f"train/test-loss-{name}", float(test_loss[0]), step)
                     summary_writer.add_scalar(f"train/test-hit-rate-{name}", float(hit_rate[0]),
@@ -221,8 +241,17 @@ def train(
             if summary_writer is not None:
                 summary_writer.flush()
 
-    if prev_valid is not None and not bool(prev_valid):
-        log.warning("Non-finite grads/loss at step %d; the update was skipped", step)
+            if cfg.train.ensemble_size > 2:
+                scores = np.mean(np.stack(testset_losses), axis=0)
+                seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+                t0 = time.perf_counter()
+                regenerated = evolve_ensemble_(model, scores, np.random.default_rng(seed))
+                log.info("step %d: evolved the population on scores %s; regenerated members %s "
+                         "in %.1f ms", step, scores, regenerated,
+                         (time.perf_counter() - t0) * 1e3)
+
+    if prev_valid is not None:
+        _warn_skipped(step, prev_valid)
     # A final save, so that short runs still leave a checkpoint; skipped if
     # the last step saved already or no step ran.
     if checkpoint_manager is not None and step >= start_step:

@@ -15,7 +15,8 @@ in an order ``torch.optim.AdamW`` cannot express:
   5. global-norm clip 1.0 on the UPDATES, last.
 
 The port's parameters are unstacked (``nn.ModuleList``), so a block's factor
-is one scalar per parameter.  The chain runs on flat f32 buffers on the
+is one scalar per parameter.  A population gets one chain per member
+(:class:`EnsembleOptimizer`).  The chain runs on flat f32 buffers on the
 parameters' device -- the moments, the gradients and the updates, each
 parameter's moment a view into its buffer -- with the count on the device
 and the schedule, bias corrections included, computed there in f32.  The
@@ -32,7 +33,7 @@ import re
 import torch
 
 from ..config import ModelConfig, TrainConfig
-from ..models.model import Model
+from ..models.model import Ensemble, Model
 
 _CNN_STAGE = re.compile(r"^cnn\.stages\.(\d+)\.(down|blocks\.(\d+))\.")
 
@@ -172,12 +173,42 @@ def schedule(train_cfg: TrainConfig):
                                        train_cfg.warmup_steps, train_cfg.num_steps)
 
 
-def setup_optimizers(model: Model, model_cfg: ModelConfig,
-                     train_cfg: TrainConfig) -> LayerwiseAdamW:
-    """The optimizer of ``model``'s parameters.  ``fused_flat_optimizer`` is a
-    no-op: the chain already runs as multi-tensor calls."""
-    if train_cfg.ensemble_size > 1:
-        raise NotImplementedError(
-            f"ensemble_size={train_cfg.ensemble_size}: the ensemble axis arrives with the "
-            "port's parallel/ package (slice 3); train one member until then")
+class EnsembleOptimizer:
+    """One :class:`LayerwiseAdamW` per member of an ``Ensemble``: the JAX
+    package's ``vmap(tx.init)`` over the population axis.  ``members[i]``
+    updates member i's parameters; each keeps its own moments and count."""
+
+    def __init__(self, ensemble: Ensemble, model_cfg: ModelConfig, train_cfg: TrainConfig):
+        self.members = [LayerwiseAdamW(m, model_cfg, train_cfg) for m in ensemble]
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        return [p for opt in self.members for p in opt.params]
+
+    @property
+    def counts(self) -> list[int]:
+        """Updates applied so far, per member (reads the device)."""
+        return [opt.count for opt in self.members]
+
+    def snapshot(self) -> list[dict[str, torch.Tensor]]:
+        return [opt.snapshot() for opt in self.members]
+
+    def restore(self, snaps: list[dict[str, torch.Tensor]]) -> None:
+        for opt, snap in zip(self.members, snaps, strict=True):
+            opt.restore(snap)
+
+
+def setup_optimizers(model: Model | Ensemble, model_cfg: ModelConfig,
+                     train_cfg: TrainConfig) -> LayerwiseAdamW | EnsembleOptimizer:
+    """The optimizer of ``model``'s parameters: a :class:`LayerwiseAdamW` for
+    one member, an :class:`EnsembleOptimizer` for an ``Ensemble`` of
+    ``train_cfg.ensemble_size``.  ``fused_flat_optimizer`` is a no-op: the
+    chain already runs as multi-tensor calls."""
+    size = train_cfg.ensemble_size
+    if isinstance(model, Ensemble) != (size > 1) or (size > 1 and len(model) != size):
+        raise ValueError(f"ensemble_size={size} needs "
+                         + (f"an Ensemble of {size} members" if size > 1 else "one Model")
+                         + " (models/model.init_ensemble)")
+    if size > 1:
+        return EnsembleOptimizer(model, model_cfg, train_cfg)
     return LayerwiseAdamW(model, model_cfg, train_cfg)

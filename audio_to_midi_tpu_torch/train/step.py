@@ -1,8 +1,8 @@
 """The training step: gradient accumulation over minibatches, mixed precision
 with loss scaling, and the non-finite guard.
 
-Counterpart of ``audio_to_midi_tpu/train/step.py`` for one member on one
-device.  Reference semantics: a loop over minibatches accumulates f32
+Counterpart of ``audio_to_midi_tpu/train/step.py`` on one device.
+Reference semantics: a loop over minibatches accumulates f32
 gradients from a backward pass in the compute dtype; the gradients are
 unscaled by ``grad_scale * num_minibatches``, checked for finiteness, and
 applied with the layer-wise AdamW chain.  The loss returned is the unscaled
@@ -21,7 +21,14 @@ Differences from the JAX step, which is one jitted pure function:
   * dropout draws from ``torch.Generator``s instead of split keys: each
     minibatch gets a generator of its own on the model's device, seeded from
     the step's generator, as the JAX step splits its key per minibatch.  The
-    same state of the step's generator gives the same step, bit for bit.
+    same state of the step's generator gives the same step, bit for bit;
+  * a population (``ensemble_size > 1``) takes its members in turn where
+    JAX vmaps them: every member sees the same batch, and member i's
+    generator is seeded with the i-th of E draws taken from the step's
+    generator up front (JAX's ``jax.random.split(key, e)``).  Member i's
+    part of the step is the one-member step on its weights and generator,
+    bit for bit; an invalid member keeps its parameters and moments while
+    the others update.
 """
 
 from __future__ import annotations
@@ -31,22 +38,22 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import DTYPES, Config
-from ..models.model import Model
+from ..models.model import Ensemble, Model, member_generators
 from ..models.rope import RopeFreqs
 from .loss import batch_loss
-from .optim import LayerwiseAdamW
+from .optim import EnsembleOptimizer, LayerwiseAdamW
 
 
 class TrainStepOutput(NamedTuple):
-    loss: torch.Tensor         # () unscaled mean loss
-    # Every gradient and the loss finite; else nothing was updated.  A 0-d
-    # bool tensor on the model's device.
+    # Each () for one member, (E,) for a population, on the model's device.
+    loss: torch.Tensor         # unscaled mean loss
+    # Every gradient and the loss finite; else nothing was updated (bool).
     grads_valid: torch.Tensor
-    scaled_loss: torch.Tensor  # () scaled loss (drives the loss-scale doubling)
+    scaled_loss: torch.Tensor  # scaled loss (drives the loss-scale doubling)
 
 
 def make_train_step(
-    cfg: Config, optimizer: LayerwiseAdamW, rope: RopeFreqs
+    cfg: Config, optimizer: LayerwiseAdamW | EnsembleOptimizer, rope: RopeFreqs
 ) -> Callable[..., TrainStepOutput]:
     """Build the training step.
 
@@ -54,14 +61,36 @@ def make_train_step(
       step(model, audio, labels, grad_scale, generator=None) -> TrainStepOutput
     with audio (num_minibatches, minibatch, 2, N) and labels
     (num_minibatches, minibatch, F, K) on the model's device.  ``model`` must
-    be the one ``optimizer`` was set up for.  ``generator`` seeds the
+    be the one ``optimizer`` was set up for: a ``Model``, or for
+    ``ensemble_size > 1`` an ``Ensemble``.  ``generator`` seeds the
     dropout of every minibatch and is needed when the configuration drops
     anything; a CPU generator keeps the host from waiting for the card.
     """
-    if cfg.train.ensemble_size > 1:
-        raise NotImplementedError(
-            f"ensemble_size={cfg.train.ensemble_size}: the ensemble axis arrives with the "
-            "port's parallel/ package (slice 3); train one member until then")
+    size = cfg.train.ensemble_size
+    if isinstance(optimizer, EnsembleOptimizer) != (size > 1) or (
+            size > 1 and len(optimizer.members) != size):
+        raise ValueError(f"ensemble_size={size} needs the optimizer of "
+                         + (f"an Ensemble of {size} members" if size > 1 else "one Model"))
+    if size == 1:
+        return _member_step(cfg, optimizer, rope)
+    member_steps = [_member_step(cfg, opt, rope) for opt in optimizer.members]
+
+    def step(ensemble: Ensemble, audio: torch.Tensor, labels: torch.Tensor,
+             grad_scale: float | torch.Tensor,
+             generator: torch.Generator | None = None) -> TrainStepOutput:
+        generators = ([None] * size if generator is None
+                      else member_generators(generator, size))
+        outs = [member_step(member, audio, labels, grad_scale, g)
+                for member_step, member, g in zip(member_steps, ensemble, generators,
+                                                   strict=True)]
+        return TrainStepOutput(*(torch.stack(values) for values in zip(*outs)))
+
+    return step
+
+
+def _member_step(cfg: Config, optimizer: LayerwiseAdamW,
+                 rope: RopeFreqs) -> Callable[..., TrainStepOutput]:
+    """The step of one member, whose parameters ``optimizer`` updates."""
     compute_dtype = DTYPES[cfg.precision.compute_dtype]
     model_cfg = cfg.model
 

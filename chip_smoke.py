@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 checks them against their plain versions, runs the full-width model,
 transcribes a synthetic file to MIDI through the port's CLI, takes training
-steps, and trains through the training CLI on a synthetic dataset.
+steps, and trains through the training CLI on a synthetic dataset, one
+member and a population of 4.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,20 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      its sequential plain version, bit for bit) and the peak device memory;
      then one step in flight: the ring feed over 12 steps with the loss
      read every step (print_every 1) and every third (print_every 3), in
-     turns, ms per step over steps 4-12.
+     turns, ms per step over steps 4-12;
+ 14. the ensemble axis at the default configuration, a population of 4:
+     cli/train_cli.py --ensemble-size 4 with use_custom_init (per step 64
+     launches of each seeded dropout kernel and 16 of the stage backward,
+     four finite member losses, the evolution after the evaluations of
+     steps 2 and 4, checkpoints whose leaves lead with (4,), a resume at
+     latest + 1); one ensemble step in-process, each member the bits of a
+     one-member step on its weights and seed; the evolution of that
+     population (winners' bits kept, in place, the optimizer still bound);
+     members 0 and 3 served from the CLI's checkpoint; infer_cli,
+     audio_to_midi --validation [--individual], copy_weights and
+     inspect_model on phase 13's checkpoint; f16 training from the CLI,
+     which launches no kernel; ms per step at E = 4 beside phase 13's one
+     member, the peak device memory and the evolution's host ms.
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
 LayerNorm and products, kernels 1 and 2: many calls, not one), kernels 6, 3
@@ -2118,7 +2132,9 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
     WORK/train_ck_<name>, emptied first unless ``resume``.  Returns the step
     hooks' (step, host clock, launches so far, info), the test-set
     evaluations, the wall, the launches, the peak device memory and the
-    checkpoint directory."""
+    checkpoint directory; and the spans of the evaluations (host clock,
+    launches before and after) and of the evolutions (host clock), with
+    each evolution's step, regenerated members and wall."""
     from audio_to_midi_tpu_torch.cli import train_cli
     from audio_to_midi_tpu_torch.config import config_to_json
     from audio_to_midi_tpu_torch.train import loop
@@ -2130,19 +2146,31 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
     if not resume:
         shutil.rmtree(ck, ignore_errors=True)
     argv = argv + ["--config", str(cfg_path), "--checkpoint", str(ck), "--no-tensorboard"]
-    hooks, evals = [], []
+    hooks, evals, spans, evolutions = [], [], [], []
     real_train, real_eval = loop.train, loop.compute_testset_loss
+    real_evolve = loop.evolve_ensemble_
 
     def traced_train(*args, **kwargs):
         return real_train(*args, step_hook=lambda step, info: hooks.append(
             (step, time.perf_counter(), read_launches(), info)), **kwargs)
 
     def traced_eval(*args, **kwargs):
+        before, t0 = read_launches(), time.perf_counter()
         out = real_eval(*args, **kwargs)
+        spans.append((t0, time.perf_counter(), before, read_launches()))
         evals.append(out)
         return out
 
+    def traced_evolve(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_evolve(*args, **kwargs)
+        t1 = time.perf_counter()
+        spans.append((t0, t1, None, None))
+        evolutions.append((hooks[-1][0], out, t1 - t0))
+        return out
+
     loop.train, loop.compute_testset_loss = traced_train, traced_eval
+    loop.evolve_ensemble_ = traced_evolve
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2153,7 +2181,9 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
         torch.cuda.synchronize()
     finally:
         loop.train, loop.compute_testset_loss = real_train, real_eval
-    return {"hooks": hooks, "evals": evals, "wall": wall, "launches": read_launches(),
+        loop.evolve_ensemble_ = real_evolve
+    return {"hooks": hooks, "evals": evals, "spans": spans, "evolutions": evolutions,
+            "wall": wall, "launches": read_launches(),
             "peak": torch.cuda.max_memory_allocated(), "ck": ck}
 
 
@@ -2173,7 +2203,8 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
     step) and at print_every 3 (steps 4-5, 7-8, 10-11 leave theirs on the
     card), in turns 1, 3, 3, 1, with the final checkpoint only and no
     evaluation; the wall of steps 4-12 between the hooks of steps 3 and 12,
-    where the card has drained.  Returns each run's launches."""
+    where the card has drained.  Returns each run's launches and the ring
+    run's step times (s, steps 2-6)."""
     from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
     from audio_to_midi_tpu_torch.data import synthetic
     from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
@@ -2193,7 +2224,7 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
                 "global_attention_grads_prng": 16, "local_two_phase_grads_prng": 16,
                 "stage_bwd": 4}
     steps = 6
-    launches = {}
+    launches, step_times = {}, {}
     dataset = ["--dataset", str(train_dir)]
     for label, ring_capacity in (("ring", cfg.train.input_ring_capacity), ("host feed", 0)):
         argv = dataset + ["--testset", f"val={val_dir}"]
@@ -2228,6 +2259,7 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
         if on_disk != [3, 6, 7] or not (ck / "7" / "params.npz").exists():
             raise AssertionError(f"{label}: checkpoints on disk {on_disk}")
         times = [b[1] - a[1] for a, b in zip(first, first[1:])]
+        step_times[label] = times
         reuse = [h[3]["ring"]["reuse_factor"] for h in first if h[3]["ring"] is not None]
         log(f"train_cli {label}, default config (batch 64 = 2 x 32, bf16, dropout 0.1, "
             f"cnn_bwd_kernel): {steps} steps in {run['wall']:.1f} s (build, fill and evaluation "
@@ -2283,6 +2315,278 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
     if rc != 0:
         raise AssertionError("the serving CLI failed on the training checkpoint directory")
     log(f"phase 13 took {time.perf_counter() - started:.1f} s")
+    return launches, step_times["ring"]
+
+
+def _interval_without(spans, t0: float, t1: float) -> tuple[float, dict[str, int]]:
+    """The host wall between t0 and t1 less the evaluations and evolutions
+    that ran inside it, and the launches of those evaluations."""
+    wall, launched = t1 - t0, {}
+    for a, b, before, after in spans:
+        if t0 <= a and b <= t1:
+            wall -= b - a
+            if before is not None:
+                for k in after:
+                    launched[k] = launched.get(k, 0) + after[k] - before[k]
+    return wall, launched
+
+
+def check_population(cfg, card: str, one_member_times: list[float]) -> dict[str, dict[str, int]]:
+    """Phase 14: the ensemble axis at the default ModelConfig and TrainConfig
+    (the full width, dropout 0.1, cnn_bwd_kernel, bf16), a population of 4.
+
+    1. cli/train_cli.py --ensemble-size 4 on phase 13's synthetic sets, a
+       --config that sets only num_steps 4, print_every 1, checkpoint_every
+       2, testset_loss_every 2 and use_custom_init: per step 64 launches of
+       each seeded dropout kernel (12, 13, 15, 16) and 16 of the stage
+       backward (20), none of the others once the evaluations' own are
+       taken out; four finite member losses a step; the evolution after the
+       evaluations of steps 2 and 4; checkpoints whose leaves lead with
+       (4,); a second invocation resuming at latest + 1.
+    2. In-process, one ensemble step at E = 4 on the card: every member's
+       loss and updated parameters are the bits of a one-member step from
+       its weights with its generator seed.
+    3. The evolution of that population: the winners keep their bits, the
+       losers change, in place; the optimizer keeps its parameters and
+       moments.
+    4. Serving members 0 and 3 of the CLI's checkpoint
+       (load_newest_checkpoint with ensemble_size 4, ensemble_select i):
+       transcribe_file on phase 4's WAV.
+    5. The CLIs on phase 13's one-member checkpoint: infer_cli (its MIDI
+       phase 13's serving CLI's), audio_to_midi --validation (its loss the
+       in-process compute_testset_loss within 1e-5 relative) and
+       --individual, copy_weights (every leaf copied) and inspect_model on
+       the copy (exit 0).
+    6. f16: train_cli --precision f16, 3 steps: no kernel launches (the f16
+       gates take autograd and the einsum routes), the grad scale, every
+       step finite or rolled back.
+    Prints ms per step at E = 4 (steps 2-4, the evaluations and evolutions
+    taken out) beside phase 13's E = 1, the peak device memory and the
+    evolution's host ms.  Returns each path's launches."""
+    from audio_to_midi_tpu_torch import convert
+    from audio_to_midi_tpu_torch.cli import audio_to_midi as serving_cli
+    from audio_to_midi_tpu_torch.cli import copy_weights, infer_cli, inspect_model
+    from audio_to_midi_tpu_torch.infer import load_newest_checkpoint, transcribe_file
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.train import checkpoint as ckpt
+    from audio_to_midi_tpu_torch.train import ensemble as ensemble_lib
+    from audio_to_midi_tpu_torch.train import optim, step as step_lib
+    from audio_to_midi_tpu_torch.train.evaluate import compute_testset_loss
+
+    started = time.perf_counter()
+    size = 4
+    train_dir, val_dir = WORK / "train_set", WORK / "val_set"
+    per_member = {"global_attention_dropout": 16, "local_two_phase_dropout": 16,
+                  "global_attention_grads_prng": 16, "local_two_phase_grads_prng": 16,
+                  "stage_bwd": 4}
+    per_step = {k: v * size for k, v in per_member.items()}
+    launches = {}
+
+    # 1. The CLI run, then the resume.
+    argv = ["--dataset", str(train_dir), "--testset", f"val={val_dir}", "--ensemble-size",
+            str(size)]
+    train = {"num_steps": 4, "print_every": 1, "checkpoint_every": 2, "testset_loss_every": 2,
+             "use_custom_init": True}
+    run = run_train_cli(cfg, "ensemble", argv, **train)
+    launches["train_cli ensemble"] = run["launches"]
+    hooks, ck = run["hooks"], run["ck"]
+    if [h[0] for h in hooks] != [1, 2, 3, 4]:
+        raise AssertionError(f"ensemble: step hooks at {[h[0] for h in hooks]}")
+    previous, start = dict.fromkeys(hooks[0][2], 0), None
+    step_ms, losses = [], []
+    for step, t, counts, info in hooks:
+        wall, evaluated = _interval_without(run["spans"], start, t) if start else (None, {})
+        delta = {k: counts[k] - previous[k] - evaluated.get(k, 0) for k in counts}
+        wrong = {k: v for k, v in delta.items() if v != per_step.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"ensemble, step {step}: launches {wrong}, expected {per_step}")
+        loss = np.asarray(info["loss"])
+        if loss.shape != (size,) or not np.isfinite(loss).all():
+            raise AssertionError(f"ensemble, step {step}: member losses {loss}")
+        losses.append(loss)
+        if wall is not None:
+            step_ms.append(wall)
+        previous, start = counts, t
+    evolved_at = [e[0] for e in run["evolutions"]]
+    if evolved_at != [2, 4] or any(len(e[1]) != size // 2 for e in run["evolutions"]):
+        raise AssertionError(f"ensemble: evolutions {run['evolutions']}")
+    evaluated = _interval_without(run["spans"], 0.0, float("inf"))[1]
+    on_disk = ckpt.CheckpointManager(ck).all_steps()
+    shapes = {v.shape[0] for v in convert.load_npz(ck / "4" / "params.npz").values()}
+    resumed = [h[0] for h in run_train_cli(cfg, "ensemble", argv + ["--steps", "5"], resume=True,
+                                           **train)["hooks"]]
+    if on_disk != [2, 4] or shapes != {size} or resumed != [5]:
+        raise AssertionError(f"ensemble: checkpoints {on_disk}, leading axes {shapes}, resumed "
+                             f"at {resumed}")
+    log(f"train_cli --ensemble-size {size}, default config, use_custom_init: steps 2-4 "
+        f"{_quartiles(step_ms)} per step (evaluations and evolutions taken out) against "
+        f"phase 13's one member {_quartiles(one_member_times)} (steps 2-6); member losses "
+        + "; ".join(", ".join(f"{x:.1f}" for x in loss) for loss in losses)
+        + f"; launches per step {delta}; the evaluations' launches {evaluated}; evolved at "
+        f"steps {evolved_at}, regenerated {[e[1] for e in run['evolutions']]} in "
+        + ", ".join(f"{e[2] * 1e3:.1f}" for e in run["evolutions"])
+        + f" ms (host); checkpoints {on_disk} with leading axis {sorted(shapes)}, resumed at "
+        f"{resumed[0]}; peak device memory {run['peak'] / 2**30:.2f} GiB; {run['wall']:.1f} s; "
+        f"on {card}")
+
+    # 2. Member = one-member step, in-process on the card.
+    ensemble, _ = model_lib.init_ensemble(torch.Generator().manual_seed(14), cfg.model, size)
+    ensemble = ensemble.cuda().train()
+    singles = [copy.deepcopy(member) for member in ensemble]
+    train_cfg, rope, _opt, single_step, audio, labels = training_setup(
+        model_lib, cfg, singles[0], cfg.model.transformer_dropout_rate, cfg.model.cnn_bwd_kernel)
+    if train_cfg.model != cfg.model:
+        raise AssertionError("phase 14 must train the default model configuration, untouched")
+    single_steps = [single_step] + [
+        step_lib.make_train_step(train_cfg, optim.setup_optimizers(
+            s, train_cfg.model, train_cfg.train), rope) for s in singles[1:]]
+    pop_cfg = dataclasses.replace(train_cfg, train=dataclasses.replace(train_cfg.train,
+                                                                       ensemble_size=size))
+    pop_opt = optim.setup_optimizers(ensemble, pop_cfg.model, pop_cfg.train)
+    pop_step = step_lib.make_train_step(pop_cfg, pop_opt, rope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    out = pop_step(ensemble, audio, labels, 1.0, torch.Generator().manual_seed(15))
+    end_ev.record()
+    torch.cuda.synchronize()
+    launches["ensemble step"] = read_launches()
+    pop_ms, pop_peak = start_ev.elapsed_time(end_ev), torch.cuda.max_memory_allocated()
+    wrong = {k: v for k, v in launches["ensemble step"].items() if v != per_step.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"ensemble step: launches {wrong}, expected {per_step}")
+    seeds = torch.randint(0, 2 ** 62, (size,),
+                          generator=torch.Generator().manual_seed(15)).tolist()
+    same_loss, same_params = [], []
+    for i, (single, step_fn, seed) in enumerate(zip(singles, single_steps, seeds)):
+        ref = step_fn(single, audio, labels, 1.0, torch.Generator().manual_seed(seed))
+        same_loss.append(torch.equal(out.loss[i], ref.loss) and bool(ref.grads_valid))
+        same_params.append(all(torch.equal(a, b) for a, b in zip(ensemble[i].parameters(),
+                                                                 single.parameters())))
+    log(f"ensemble step, E = {size}, default config, batch {audio.shape[0]} x {audio.shape[1]}: "
+        f"losses {', '.join(f'{x:.3f}' for x in out.loss.tolist())}, grads_valid "
+        f"{out.grads_valid.tolist()}, {pop_ms:.1f} ms (CUDA events), peak device memory "
+        f"{pop_peak / 2**30:.2f} GiB; each member = the one-member step on its weights and "
+        f"seed: losses {same_loss}, parameters {same_params}; on {card}")
+    if not (all(same_loss) and all(same_params) and bool(out.grads_valid.all())):
+        raise AssertionError("a member of the ensemble step differs from its one-member step")
+    del singles, single_steps
+
+    # 3. The evolution of the card's population.
+    scores = np.array([3.0, 1.0, 4.0, 2.0])  # winners 1, 3; losers 2, 0
+    before = convert.params_to_jax(ensemble)
+    bound = list(ensemble.parameters())
+    moments = [t.clone() for chain in pop_opt.members for t in (chain._mu_flat, chain._nu_flat)]
+    t0 = time.perf_counter()
+    regenerated = ensemble_lib.evolve_ensemble_(ensemble, scores, np.random.default_rng(14))
+    evolve_ms = (time.perf_counter() - t0) * 1e3
+    after = convert.params_to_jax(ensemble)
+    winners_kept = all(np.array_equal(after[k][w], before[k][w]) for k in before for w in (1, 3))
+    losers_changed = all(any(not np.array_equal(after[k][m], before[k][m]) for k in before)
+                         for m in (0, 2))
+    still_bound = (all(a is b for a, b in zip(bound, ensemble.parameters()))
+                   and all(a is b for a, b in zip(bound, pop_opt.params)))
+    kept_moments = all(torch.equal(a, b) for a, b in zip(
+        moments, [t for chain in pop_opt.members for t in (chain._mu_flat, chain._nu_flat)]))
+    log(f"evolution on the card's population, scores {scores.tolist()}: regenerated "
+        f"{regenerated} in {evolve_ms:.1f} ms (host, {sum(v.size for v in before.values()):,} "
+        f"parameters); winners' bits kept {winners_kept}, losers changed {losers_changed}, "
+        f"the optimizer bound to the members' parameters {still_bound}, its moments kept "
+        f"{kept_moments}")
+    if sorted(regenerated) != [0, 2] or not (winners_kept and losers_changed and still_bound
+                                             and kept_moments):
+        raise AssertionError("the evolution of the card's population went wrong")
+    del ensemble, pop_opt, pop_step, before, after, moments, bound
+
+    # 4. Serving members of the CLI's checkpoint.
+    latest = ckpt.CheckpointManager(ck).latest_step()
+    stored = convert.load_npz(ck / str(latest) / "params.npz")
+    reset_launches()
+    served = {}
+    for i in (0, size - 1):
+        member, _ = load_newest_checkpoint(ck, cfg, "cuda", ensemble_size=size,
+                                           ensemble_select=i)
+        ours = convert.state_dict_to_jax(member.state_dict())
+        if not all(np.array_equal(ours[k], stored[k][i]) for k in stored):
+            raise AssertionError(f"member {i} served is not the checkpoint's")
+        _stitched, _dpf, events = transcribe_file(member, cfg, WORK / "synth.wav")
+        served[i] = len(events)
+    torch.cuda.synchronize()
+    launches["serving a member"] = read_launches()
+    log(f"serving members 0 and {size - 1} of the step-{latest} checkpoint on phase 4's WAV: "
+        f"events {served}; launches {launches['serving a member']}")
+
+    # 5. The CLIs on phase 13's one-member checkpoint.
+    ck13, wav = WORK / "train_ck_ring", WORK / "synth.wav"
+    reset_launches()
+    mid = WORK / "out_infer_cli.mid"
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = infer_cli.main([str(wav), "--midi", str(mid), "--checkpoint", str(ck13),
+                             "--overlap", str(cfg.infer.window_overlap)])
+    same_midi = rc == 0 and mid.read_bytes() == (WORK / "out_trained.mid").read_bytes()
+    frames = captured.getvalue().splitlines()[0]
+    log(f"infer_cli on phase 13's checkpoint: {frames}; MIDI identical to phase 13's serving "
+        f"CLI's {same_midi}")
+    if not same_midi:
+        raise AssertionError("infer_cli's MIDI differs from the serving CLI's")
+    outputs = {}
+    for extra in ([], ["--individual"]):
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            rc = serving_cli.main([str(val_dir), "--validation", "--checkpoint", str(ck13)]
+                                  + extra)
+        if rc != 0:
+            raise AssertionError(f"audio_to_midi --validation {extra} returned {rc}")
+        outputs[bool(extra)] = captured.getvalue().strip().splitlines()
+    model13, _ = load_newest_checkpoint(ck13, cfg, "cuda")
+    num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
+    in_process = float(compute_testset_loss(model13, cfg, val_dir, num_frames,
+                                            model_lib.make_rope(cfg.model, "cuda"),
+                                            ensemble=False)[0][0])
+    printed = float(outputs[False][0].split(":")[1])
+    rel = abs(printed - in_process) / abs(in_process)
+    log(f"audio_to_midi --validation: {' | '.join(outputs[False])}; in-process "
+        f"compute_testset_loss {in_process}: relative {rel:.2e} (tol 1e-05); --individual: "
+        + " | ".join(outputs[True]))
+    if rel > 1e-5 or len(outputs[True]) != 2:
+        raise AssertionError("audio_to_midi --validation disagrees with compute_testset_loss")
+    copied = WORK / "copied_ck"
+    shutil.rmtree(copied, ignore_errors=True)
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc_copy = copy_weights.main([str(ck13), str(copied)])
+        rc_inspect = inspect_model.main([str(copied)])
+    lines = captured.getvalue().splitlines()
+    leaves = len(convert.load_npz(ck13 / str(ckpt.CheckpointManager(ck13).latest_step())
+                                  / "params.npz"))
+    all_copied = f"Copied {leaves} leaves, kept 0 freshly-initialized leaves" in lines
+    log(f"copy_weights: {' | '.join(lines[:3])}; inspect_model on the copy: exit {rc_inspect}, "
+        f"{len(lines) - 3} lines, {lines[4] if len(lines) > 4 else ''}")
+    if rc_copy != 0 or not all_copied or rc_inspect != 0:
+        raise AssertionError("copy_weights or inspect_model failed on phase 13's checkpoint")
+    torch.cuda.synchronize()
+    launches["phase 14 clis"] = read_launches()
+
+    # 6. f16 training from the CLI: no kernel launches.
+    run = run_train_cli(cfg, "f16", ["--dataset", str(train_dir), "--precision", "f16"],
+                        num_steps=3, print_every=1, checkpoint_every=1000,
+                        testset_loss_every=1000)
+    launches["train_cli f16"] = run["launches"]
+    hooked = {h[0]: h[3] for h in run["hooks"]}
+    rolled_back = [s for s in (1, 2, 3) if s not in hooked]
+    finite = all(np.isfinite(info["loss"]).all() for info in hooked.values())
+    log(f"train_cli --precision f16, 3 steps: grad scale "
+        + ", ".join(f"step {s} {info['grad_scale']}" for s, info in hooked.items())
+        + f"; losses {[float(info['loss'][0]) for info in hooked.values()]}; rolled back "
+        f"{rolled_back}; launches {dict((k, v) for k, v in run['launches'].items() if v)} "
+        f"(none expected); {run['wall']:.1f} s; on {card}")
+    if any(run["launches"].values()) or not finite:
+        raise AssertionError("f16 training launched a kernel, or a step that was not rolled "
+                             "back is not finite")
+    log(f"phase 14 took {time.perf_counter() - started:.1f} s")
     return launches
 
 
@@ -2346,21 +2650,30 @@ def main() -> int:
     native_serving = check_native_plane(cfg, card)
     log(f"native-plane serving main-path launches: {native_serving}; phase 12 took "
         f"{time.perf_counter() - t12:.1f} s")
-    training_entry = check_training_entry(cfg, card)
+    training_entry, one_member_times = check_training_entry(cfg, card)
     log(f"training entry main-path launches: {training_entry}")
+    population = check_population(cfg, card, one_member_times)
+    log(f"population main-path launches: {population}")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
-             **fused_serving, **rw_paths, **file_serving, **native_serving, **training_entry}
+             **fused_serving, **rw_paths, **file_serving, **native_serving, **training_entry,
+             **population}
     on_path = {
-        "global_attention": ("serving", "training"), "local_two_phase": ("serving", "training"),
+        "global_attention": ("serving", "training", "serving a member", "phase 14 clis"),
+        "local_two_phase": ("serving", "training", "serving a member", "phase 14 clis"),
         "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
-        "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed"),
-        "local_two_phase_dropout": ("dropout", "train_cli ring", "train_cli host feed"),
-        "global_attention_grads_prng": ("dropout", "train_cli ring", "train_cli host feed"),
-        "local_two_phase_grads_prng": ("dropout", "train_cli ring", "train_cli host feed"),
+        "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed",
+                                     "train_cli ensemble", "ensemble step"),
+        "local_two_phase_dropout": ("dropout", "train_cli ring", "train_cli host feed",
+                                    "train_cli ensemble", "ensemble step"),
+        "global_attention_grads_prng": ("dropout", "train_cli ring", "train_cli host feed",
+                                        "train_cli ensemble", "ensemble step"),
+        "local_two_phase_grads_prng": ("dropout", "train_cli ring", "train_cli host feed",
+                                       "train_cli ensemble", "ensemble step"),
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
-        "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed"),
+        "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed",
+                      "train_cli ensemble", "ensemble step"),
         "stage_fwd": ("pallas_stage serving",),
         "attention_block": ("pallas_block serving",),
         "fused_local_sublayer": ("pallas_fused serving",),
@@ -2371,7 +2684,8 @@ def main() -> int:
         "rope_attention": ("attention functions",),
         "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream",
                      "native file 300 s", "train_cli ring", "train_cli host feed",
-                     "cli from a training checkpoint"),
+                     "cli from a training checkpoint", "train_cli ensemble",
+                     "serving a member", "phase 14 clis"),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")

@@ -257,7 +257,9 @@ def test_port_imports_no_jax():
         assert "audio_to_midi_tpu_torch.ops.fused_layer_kernels" in names
         assert {"audio_to_midi_tpu_torch." + m for m in (
             "native", "data.loader", "data.device_ring", "data.augment_device", "train.loop",
-            "train.checkpoint", "train.evaluate", "cli.train_cli")} <= set(names)
+            "train.checkpoint", "train.evaluate", "cli.train_cli", "train.ensemble",
+            "train.init_surgery", "cli.infer_cli", "cli.copy_weights",
+            "cli.inspect_model")} <= set(names)
         leaked = sorted(m for m in sys.modules
                         if m in ("jax", "optax", "audio_to_midi_tpu")
                         or m.startswith(("jax.", "optax.", "audio_to_midi_tpu.")))

@@ -19,7 +19,8 @@ from audio_to_midi_tpu.train import evaluate as jax_evaluate
 from audio_to_midi_tpu_torch import config as pt_config
 from audio_to_midi_tpu_torch import infer as pt_infer
 from audio_to_midi_tpu_torch import metrics as pt_metrics
-from audio_to_midi_tpu_torch.convert import flatten_tree, jax_to_state_dict, state_dict_to_jax
+from audio_to_midi_tpu_torch.convert import (flatten_tree, jax_to_state_dict, params_to_jax,
+                                             state_dict_to_jax)
 from audio_to_midi_tpu_torch.data import loader as pt_loader
 from audio_to_midi_tpu_torch.data import synthetic
 from audio_to_midi_tpu_torch.models import model as pt_model
@@ -103,8 +104,15 @@ def test_init_has_jaxs_tree_shapes_and_bounds():
             assert abs(value.std() / (bound / math.sqrt(3)) - 1) < 0.05, path
     again, _ = pt_model.init_ensemble(torch.Generator().manual_seed(0), cfg.model, 1)
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        pt_model.init_ensemble(torch.Generator(), cfg.model, 2)
+    # A population: JAX's init_ensemble layout, a leading (E,) axis per leaf.
+    pair, _ = pt_model.init_ensemble(torch.Generator().manual_seed(0), cfg.model, 2)
+    assert isinstance(pair, pt_model.Ensemble) and len(pair) == 2
+    shapes = jax.eval_shape(lambda k: jax_model.init_ensemble(k, jax_model_cfg, 2)[0],
+                            jax.random.PRNGKey(0))
+    stacked = params_to_jax(pair)
+    assert {k: v.shape for k, v in stacked.items()} == {
+        jax.tree_util.keystr(path, simple=True, separator="/"): tuple(v.shape)
+        for path, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
 
 
 # --- checkpoints -------------------------------------------------------------
@@ -235,15 +243,12 @@ def test_train_cli_checkpoints_resumes_and_serves(dataset, tmp_path, caplog):
                                str(cfg_path), "--device", "cpu", "--overlap", "0.1"]) == 0
     read_midi_file(out)
 
-    with pytest.raises(NotImplementedError, match="ensemble"):
-        train_cli.main(base + ["--ensemble-size", "2"])
-    with pytest.raises(NotImplementedError, match="f16"):
-        train_cli.main(base + ["--precision", "f16"])
-    surgery = tmp_path / "surgery.json"
-    surgery.write_text(pt_config.config_to_json(dataclasses.replace(
-        cfg, train=dataclasses.replace(cfg.train, use_custom_init=True))))
-    with pytest.raises(NotImplementedError, match="init_surgery"):
-        train_cli.main(base[:5] + [str(surgery)] + base[6:])
+    # Only the multi-host flags still raise (tests/test_torch_cli_tools.py
+    # trains a population, f16 and the init surgery through the CLI).
+    for flag, value in (("--coordinator-address", "localhost:1"), ("--num-processes", "2"),
+                        ("--process-id", "0")):
+        with pytest.raises(NotImplementedError, match="parallel/"):
+            train_cli.main(base + [flag, value])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_cli.main(base[:-2])
