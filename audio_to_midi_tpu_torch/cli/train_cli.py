@@ -6,7 +6,8 @@ Usage:
       [--testset NAME=DIR ...] [--checkpoint DIR] [--steps N] [--batch-size N]
       [--ensemble-size E] [--num-workers N] [--learning-rate LR]
       [--precision bf16|f16|f32] [--no-tensorboard] [--config JSON]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--coordinator-address HOST:PORT --num-processes N
+      --process-id I [--dist-backend nccl|gloo]]
 
 The JAX package's flags, with its defaults, and ``--device`` (default
 ``cuda``; without a CUDA device the command fails unless ``--device cpu``
@@ -14,8 +15,18 @@ is given).  Training resumes at the latest checkpoint + 1.
 ``--ensemble-size`` above 1 trains a population, its members in turn, and
 evolves it after each evaluation when it has more than 2 members;
 ``TrainConfig.use_custom_init`` applies the init surgery to each member;
-``--precision f16`` trains with loss scaling.  The three multi-host flags
-wait for the port's ``parallel/`` and raise when given.
+``--precision f16`` trains with loss scaling.
+
+Several processes (the three multi-host flags, one process per rank, each
+started with its ``--process-id``) join one process group
+(``parallel.initialize_multihost``) over ``--dist-backend``: the port's
+counterpart of the transport XLA picks itself, ``nccl`` by default with
+``--device cuda`` and ``gloo`` with ``--device cpu`` (gloo also runs ranks
+that share one card).  Rank r trains on ``cuda:{r % device_count}``.  The
+ranks form the mesh of ``ensemble_size`` and ``model_parallel_size``
+(``parallel.make_mesh``), each rank's loader yields ``batch_size // world``
+windows with a seed of its own, rank 0 builds the CUDA kernels while the
+others wait, writes the checkpoints and the TensorBoard summaries.
 """
 
 from __future__ import annotations
@@ -44,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="Collectives' backend of a multi-process run (default: nccl with "
+                        "--device cuda, gloo with --device cpu)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="Device to train on (default: cuda)")
     return p
@@ -59,6 +73,8 @@ def main(argv=None) -> int:
     from ..data.loader import create_dataset_loader
     from ..metrics import configure_tensorboard
     from ..models import model as model_lib
+    from ..parallel.mesh import (DATA_AXIS, initialize_multihost, make_mesh, place_model,
+                                 rank_device, world)
     from ..train import checkpoint as ckpt
     from ..train import loop
     from ..train.init_surgery import apply_init_surgery_
@@ -66,9 +82,10 @@ def main(argv=None) -> int:
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass --device cpu to train on the CPU")
-    if any(v is not None for v in (args.coordinator_address, args.num_processes,
-                                   args.process_id)):
-        raise NotImplementedError("multi-host training waits for the port's parallel/ package")
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    initialize_multihost(args.coordinator_address, args.num_processes, args.process_id,
+                         backend=backend)
+    rank, world_size = world()
 
     cfg = load_config(args.config)
     overrides = {}
@@ -91,11 +108,20 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, train=train_cfg)
 
     device = torch.device(args.device)
-    minibatch = min(cfg.train.minibatch_size_per_device, cfg.train.batch_size)
-    logging.info("Training on %s, batch %d, minibatch %d", device, cfg.train.batch_size,
-                 minibatch)
+    mesh = None
+    if world_size > 1:
+        device = rank_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh = make_mesh(cfg.train.ensemble_size, model_size=cfg.train.model_parallel_size)
+        if device.type == "cuda":
+            _build_kernels_once(mesh)
+    data_extent = mesh.extent(DATA_AXIS) if mesh is not None else 1
+    minibatch = min(cfg.train.minibatch_size_per_device * data_extent, cfg.train.batch_size)
+    logging.info("Training on %d device(s), batch %d, minibatch %d", world_size,
+                 cfg.train.batch_size, minibatch)
 
-    summary_writer = None if args.no_tensorboard else configure_tensorboard()
+    summary_writer = None if args.no_tensorboard or rank > 0 else configure_tensorboard()
     if summary_writer is not None:
         hparams = dict(cfg.model.metadata())
         hparams["train/batch_size"] = cfg.train.batch_size
@@ -123,13 +149,21 @@ def main(argv=None) -> int:
     if restored is not None:
         model, state, restored_step = restored
         logging.info("Restored checkpoint at step %d", restored_step)
+    if mesh is not None:
+        # This rank's member on an ensemble axis, its shards under TP.
+        model = place_model(model, mesh, cfg.model.num_transformer_heads)
+        logging.info("rank %d of %d on %s: mesh %s", rank, world_size, device, mesh.shape)
     model = model.to(device).train()
-    optimizer = setup_optimizers(model, cfg.model, cfg.train)
+    optimizer = setup_optimizers(model, cfg.model, cfg.train, mesh)
 
     num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
+    if cfg.train.batch_size % world_size:
+        raise ValueError(f"batch_size {cfg.train.batch_size} does not divide over "
+                         f"{world_size} processes")
     data_loader = create_dataset_loader(
         Path(args.dataset),
-        batch_size=cfg.train.batch_size,
+        # Each rank's local shard, from a stream of its own.
+        batch_size=cfg.train.batch_size // world_size,
         num_workers=cfg.train.dataset_num_workers,
         num_epochs=100_000,
         sample_rate=cfg.data.sample_rate,
@@ -137,6 +171,7 @@ def main(argv=None) -> int:
         output_divisions=num_frames,
         # With augmentation on the device the loader feeds raw windows.
         transform_settings=None if cfg.train.augment_on_device else cfg.transforms,
+        threaded_seed=0xBEEF + 7919 * rank,
     )
     testset_dirs = {}
     for spec in args.testset:
@@ -145,12 +180,26 @@ def main(argv=None) -> int:
 
     try:
         loop.train(cfg, model, state, optimizer, data_loader, manager, schedule(cfg.train), rope,
-                   num_frames, testset_dirs=testset_dirs, summary_writer=summary_writer)
+                   num_frames, testset_dirs=testset_dirs, summary_writer=summary_writer,
+                   mesh=mesh)
     finally:
         data_loader.close()
         if summary_writer is not None:
             summary_writer.close()
+        if world_size > 1:
+            torch.distributed.destroy_process_group()
     return 0
+
+
+def _build_kernels_once(mesh) -> None:
+    """Rank 0 builds the CUDA kernels while the others wait at a barrier,
+    so that N ranks do not each start the compilers; then every rank loads
+    the library."""
+    from ..ops import cuda_build
+
+    if mesh.rank == 0:
+        cuda_build.build()
+    mesh.barrier()
 
 
 if __name__ == "__main__":

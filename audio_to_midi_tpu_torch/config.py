@@ -9,8 +9,8 @@ JSON that the JAX package's ``config_to_json`` writes, and
 Scheduling knobs that only mean something to XLA on a TPU
 (``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``,
 ``fused_flat_optimizer``) are kept as no-op fields so that configs
-round-trip, and so is ``model_parallel_size``, whose module
-(``parallel/``) is not ported yet.  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
+round-trip.  ``model_parallel_size`` is the tensor-parallel degree of a
+multi-process run (``parallel/``).  ``cnn_impl`` and ``cnn_bwd_kernel`` select code, as
 in the JAX package: which ConvNeXt stages go to the fused stage kernels
 (``models/convnext.stage_route``).
 """
@@ -213,7 +213,7 @@ class TrainConfig:
     adam_eps: float = 1e-3                  # the reference's value, intentional
     global_norm_clip: float = 1.0
     ensemble_size: int = 1                  # members of the population
-    model_parallel_size: int = 1            # kept; parallel/ is not ported yet
+    model_parallel_size: int = 1            # tensor-parallel ranks ("model" axis)
     checkpoint_every: int = 20
     checkpoints_to_keep: int = 3
     testset_loss_every: int = 20

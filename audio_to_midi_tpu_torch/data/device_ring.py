@@ -1,8 +1,8 @@
 """Device-resident training input ring.
 
-Counterpart of ``audio_to_midi_tpu/data/device_ring.py`` in single-process
-mode.  The pool of training windows lives on the model's device in f16 --
-at the default 1024 windows of (2, 80 000) samples, ~328 MB of audio and
+Counterpart of ``audio_to_midi_tpu/data/device_ring.py``.  The pool of
+training windows lives on the model's device in f16 -- at the default 1024
+windows of (2, 80 000) samples, ~328 MB of audio and
 ~46 MB of labels on the card -- and each step's batch is sampled, augmented
 (``data/augment_device.py``) and minibatched there.  The host refreshes
 ring slots asynchronously; a slot is reused, with fresh augmentation, until
@@ -29,8 +29,17 @@ The ring's own tensors live for the ring's lifetime and are recorded on the
 side stream (``record_stream``), so the caching allocator never hands their
 memory out while a copy is pending.
 
-The multi-process lockstep refresh (JAX ``pull_lockstep``) and the mesh
-sampler wait for the port's ``parallel/`` package.
+Mesh mode (``mesh=``, several processes), as JAX's multi-host mode: the
+pool is replicated on every rank; each rank's feed yields its local
+``chunk / world`` windows, and :meth:`DeviceInputRing.push` gathers the
+whole chunk over the world (in rank order, in host memory) and copies it
+into the same slot on every rank, on the side stream as above.  The refresh must then run in lockstep
+(:meth:`DeviceInputRing.pull_lockstep`, JAX's discipline and error texts:
+block for ``min_fill``, then exactly ``refresh_chunks`` chunks per call),
+and :meth:`DeviceInputRing.sample` draws the same global batch on every
+rank -- the same generator state, the same augmentation, which sees what
+JAX's global program sees -- and returns this rank's ``"data"`` slice of
+each minibatch.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from ..config import TransformSettings
+from ..parallel.mesh import Mesh, local_minibatches
 from .augment_device import augment_, draw
 
 
@@ -122,7 +132,8 @@ class DeviceInputRing:
     """Device-resident window pool with an asynchronous host refresh.
 
     ``capacity`` is rounded up to a multiple of the feed chunk size so a
-    refresh never wraps."""
+    refresh never wraps.  ``mesh`` (more than one rank) switches on mesh
+    mode (see the module docstring)."""
 
     def __init__(
         self,
@@ -132,7 +143,15 @@ class DeviceInputRing:
         label_shape: Optional[tuple[int, ...]] = None,
         dtype: torch.dtype = torch.float16,
         device: torch.device | str = "cpu",
+        mesh: Optional[Mesh] = None,
     ):
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._world = 1 if self._mesh is None else self._mesh.size
+        if chunk_windows % self._world:
+            raise ValueError(
+                f"chunk of {chunk_windows} windows does not divide over "
+                f"{self._world} processes"
+            )
         self.chunk = chunk_windows
         self.capacity = -(-capacity // chunk_windows) * chunk_windows
         self.dtype = dtype
@@ -166,12 +185,22 @@ class DeviceInputRing:
 
     def push(self, audio, labels) -> None:
         """Copy one feed chunk (host arrays or tensors, ``chunk`` windows)
-        into the next ring slots, asynchronously on the card."""
-        w = audio.shape[0]
+        into the next ring slots, asynchronously on the card.  In mesh mode
+        ``audio`` and ``labels`` are this rank's ``chunk / world`` windows,
+        and every rank must push in lockstep."""
+        w = audio.shape[0] * self._world
         if w != self.chunk:
             raise ValueError(f"a push takes {self.chunk} windows, got {w}")
         audio = torch.as_tensor(audio)
         labels = torch.as_tensor(labels)
+        if self._mesh is not None:
+            # Gathered in host memory (gloo's own; NCCL's backend stages it
+            # through the card), off the training stream; then copied as
+            # one rank's chunk is.
+            audio, labels = (self._mesh.all_gather(t.cpu(), None).flatten(0, 1)
+                             for t in (audio, labels))
+            if self._cuda:
+                audio, labels = audio.pin_memory(), labels.pin_memory()
         if self._audio is None:
             self._alloc(audio.shape[1:], labels.shape[1:])
         lo, hi = self._write, self._write + w
@@ -241,12 +270,49 @@ class DeviceInputRing:
             for lo in range(0, audio.shape[0] - self.chunk + 1, self.chunk):
                 self.push(audio[lo: lo + self.chunk], labels[lo: lo + self.chunk])
 
+    def pull_lockstep(self, feeder: _Feeder, *, min_fill: int, refresh_chunks: int) -> None:
+        """The refresh of mesh mode: every rank takes exactly the same
+        number of chunks per call, blocking, so that the pool and the
+        gathers stay in lockstep across ranks.  Block until ``min_fill``
+        during the initial fill, then for ``refresh_chunks`` whole chunks
+        per call.  Every rank's feed must yield the same number of chunks:
+        exhaustion must be simultaneous."""
+        local_chunk = self.chunk // self._world
+        target = refresh_chunks
+        while self.filled < min_fill or target > 0:
+            item = feeder.get(block=True)
+            if item is None:
+                if feeder.exhausted:
+                    if self.filled == 0:
+                        raise RuntimeError("data source exhausted before any batch")
+                    return
+                raise RuntimeError(
+                    "multi-host training input feed produced nothing for "
+                    f"~600 s ({self.filled}/{min_fill} windows) — stuck "
+                    "loader/decoder?"
+                )
+            audio, labels = item
+            if audio.shape[0] < local_chunk:
+                raise ValueError(
+                    f"feed chunks carry {audio.shape[0]} local windows but "
+                    f"the multi-host ring updates in local chunks of "
+                    f"{local_chunk}: the per-process loader batch must be >= "
+                    "batch_size // process_count"
+                )
+            pushed = False
+            for lo in range(0, audio.shape[0] - local_chunk + 1, local_chunk):
+                self.push(audio[lo: lo + local_chunk], labels[lo: lo + local_chunk])
+                pushed = True
+            if pushed:
+                target -= 1
+
     def sample(self, generator: torch.Generator, batch: int, minibatch: int,
                settings: TransformSettings | None):
         """A batch drawn uniformly with replacement from the filled slots,
         as float32, augmented with ``settings`` (None: not augmented) and
         reshaped to (batch // minibatch, minibatch, ...).  Every draw comes
-        from the CPU ``generator``."""
+        from the CPU ``generator``.  In mesh mode: this rank's ``"data"``
+        slice of each minibatch of the global batch."""
         self.sampled_windows += batch
         self._interval_sampled += batch
         idx = torch.randint(0, max(self.filled, 1), (batch,), generator=generator)
@@ -258,6 +324,8 @@ class DeviceInputRing:
             idx = idx.pin_memory().to(self.device, non_blocking=True)
             if self._written is not None:
                 torch.cuda.current_stream(self.device).wait_event(self._written)
+        else:
+            idx = idx.to(self.device)
         audio = self._audio.index_select(0, idx).float()
         labels = self._labels.index_select(0, idx).float()
         if self._cuda:
@@ -265,8 +333,12 @@ class DeviceInputRing:
             self._sampled.record(torch.cuda.current_stream(self.device))
         if draws is not None:
             augment_(audio, labels, draws)
-        return (audio.reshape(batch // minibatch, minibatch, *audio.shape[1:]),
-                labels.reshape(batch // minibatch, minibatch, *labels.shape[1:]))
+        audio = audio.reshape(batch // minibatch, minibatch, *audio.shape[1:])
+        labels = labels.reshape(batch // minibatch, minibatch, *labels.shape[1:])
+        if self._mesh is not None:
+            return (local_minibatches(audio, self._mesh).contiguous(),
+                    local_minibatches(labels, self._mesh).contiguous())
+        return audio, labels
 
     def take_stats(self, reuse_warn_factor: Optional[float] = None) -> dict:
         """Reuse and refresh telemetry since the previous call (and over the
@@ -307,6 +379,8 @@ def ring_feed(
     audio_shape: tuple[int, ...],
     label_shape: tuple[int, ...],
     device: torch.device | str = "cpu",
+    mesh: Optional[Mesh] = None,
 ) -> tuple[DeviceInputRing, _Feeder]:
-    ring = DeviceInputRing(capacity, chunk_windows, audio_shape, label_shape, device=device)
+    ring = DeviceInputRing(capacity, chunk_windows, audio_shape, label_shape, device=device,
+                           mesh=mesh)
     return ring, _Feeder(data_loader, pin_memory=ring.device.type == "cuda")

@@ -500,11 +500,15 @@ def create_dataset_loader(
     transform_settings: Optional[TransformSettings] = None,
     seed: int = 42,
     use_grain: bool = True,
+    *,
+    threaded_seed: int = 0xBEEF,
 ):
     """The JAX package's signature.  Builds the threaded loader (which the
     JAX function returns as an iterator; here the loader itself, which
     iterates and has ``close``): the grain pipeline, whose arguments
-    ``seed`` and ``use_grain`` are, is not ported."""
+    ``seed`` and ``use_grain`` are, is not ported.  ``threaded_seed`` seeds
+    the threaded loader's order and workers (a rank of a multi-process run
+    takes its own)."""
     del seed, use_grain
     return ThreadedBatchLoader(
         dataset_dir,
@@ -513,6 +517,7 @@ def create_dataset_loader(
         transform_settings,
         num_workers=max(1, num_workers),
         epochs=num_epochs,
+        seed=threaded_seed,
         sample_rate=sample_rate,
         audio_duration=duration,
     )

@@ -11,9 +11,11 @@ cuDNN, since the depthwise convolution runs through cuDNN;
 
 Everything after the decode runs on the model's device: windowing, the
 model, the crossfade stitch and the eventizer, so a model on the card
-eventizes on the card and only the event table comes back.  The JAX
-package's ``mesh`` argument (the window batches sharded over several
-chips) is not ported.
+eventizes on the card and only the event table comes back.  With a
+``mesh`` of several data ranks (``parallel.make_mesh``) one file is
+transcribed across them: the window batches are split over ``"data"``, the
+probabilities gathered, and every rank stitches and eventizes the same
+array.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .models.rope import RopeFreqs
 from .ops.eventize import extract_events
 from .ops.frontend import make_windows, prepare_windows
 from .ops.stitch import stitch_chunk, stitch_chunk_plan, stitch_probs_parallel
+from .parallel.mesh import DATA_AXIS, Mesh
 
 log = logging.getLogger(__name__)
 
@@ -177,6 +180,18 @@ def transcribe_samples_fused(
                                     window_duration, overlap)
 
 
+def _predict_sharded(model, cfg: ModelConfig, windows: torch.Tensor, rope: RopeFreqs,
+                     mesh: Mesh) -> torch.Tensor:
+    """This rank's ``"data"`` share of the windows (a whole multiple of the
+    data extent) through the model, the f32 probabilities gathered over
+    ``"data"`` in window order."""
+    n = mesh.extent(DATA_AXIS)
+    per = windows.shape[0] // n
+    lo = mesh.index(DATA_AXIS) * per
+    local = _predict_windows(model, cfg, windows[lo: lo + per], rope).float()
+    return mesh.all_gather(local, DATA_AXIS).flatten(0, 1)
+
+
 class _Stages:
     """Seconds per named stage into ``times`` (when given), each stage ended
     by a device synchronization so that it holds its own work; without
@@ -205,6 +220,7 @@ def transcribe_file(
     max_windows_per_batch: int = 128,
     stage_times: dict | None = None,
     fetch_stitched: bool = True,
+    mesh: Mesh | None = None,
 ):
     """File -> (stitched probs (frames, 90) float32 numpy, duration_per_frame,
     events).
@@ -221,6 +237,11 @@ def transcribe_file(
     (decode, transfer, window, model_stitch, eventize, fetch).  Each stage
     then ends by synchronizing the device, so the stages do not overlap;
     without it nothing synchronizes but the fetches.
+
+    ``mesh``: with more than one rank along ``"data"`` (every rank calls,
+    with the same model), the chunk size is rounded to the data extent,
+    each chunk is zero-padded to whole shards, and each rank runs its share
+    of every chunk; every rank returns the same stitched array and events.
     """
     param = _param(model)
     device, dtype = param.device, param.dtype
@@ -236,8 +257,26 @@ def transcribe_file(
     stages.end("window")
     rope = rope if rope is not None else model_lib.make_rope(cfg.model, device)
     num_windows = windows.shape[0]
+    data = 1 if mesh is None else mesh.extent(DATA_AXIS)
 
-    if num_windows <= max_windows_per_batch:
+    if data > 1:
+        # Chunks split over "data": the chunk size rounded to the mesh, each
+        # chunk padded to whole shards.
+        max_windows_per_batch = max(data, max_windows_per_batch // data * data)
+        chunks = []
+        with _parity_precision(dtype):
+            for lo in range(0, num_windows, max_windows_per_batch):
+                chunk = windows[lo: lo + max_windows_per_batch]
+                take = chunk.shape[0]
+                pad = (-take) % data if num_windows <= max_windows_per_batch else (
+                    max_windows_per_batch - take)
+                if pad:
+                    chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
+                chunks.append(_predict_sharded(model, cfg.model, chunk, rope, mesh)[:take])
+        all_probs = torch.cat(chunks)
+        stitched = stitch_probs_parallel(all_probs, overlap,
+                                         window_duration / all_probs.shape[1])
+    elif num_windows <= max_windows_per_batch:
         stitched = predict_and_stitch_fused(model, cfg.model, windows, rope, window_duration,
                                             overlap, valid_windows=num_windows)
     else:

@@ -61,12 +61,17 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import attention_kernels as ak
 from ..ops import fused_layer_kernels as flk
+from ..parallel.tp import TensorParallel, copy_to_model, reduce_from_model
 from . import nn as a2m_nn
 from .rope import RopeFreqs, apply_rope_halves, rope_with
 
 
 class SelfAttention(nn.Module):
-    """Bias-free projections; q_up/k_up columns in RoPE-halves order."""
+    """Bias-free projections; q_up/k_up columns in RoPE-halves order.
+    ``tp``: set by ``parallel.tp.shard_params_tp`` when the heads are sharded
+    over the model ranks."""
+
+    tp: TensorParallel | None = None
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator | None = None):
         super().__init__()
@@ -112,20 +117,41 @@ def _dropout_on(cfg: ModelConfig, enable_dropout: bool,
     return on
 
 
-def new_dropout_seed(generator: torch.Generator, device: torch.device) -> torch.Tensor:
+def new_dropout_seed(generator: torch.Generator, device: torch.device,
+                     tp: TensorParallel | None = None) -> torch.Tensor:
     """A fresh (2,) int32 seed for one attention call, drawn on ``device``
-    (the generator's): no value passes through the host."""
-    return torch.randint(0, 2 ** 31 - 1, (2,), dtype=torch.int32, device=device,
+    (the generator's): no value passes through the host.  Under TP every
+    model rank draws the same and folds in its index."""
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), dtype=torch.int32, device=device,
                          generator=generator)
+    return seed if tp is None else tp.fold_seed(seed)
+
+
+def _local_heads(cfg: ModelConfig, p: SelfAttention) -> int:
+    """The heads this rank computes: all, or its share under TP."""
+    return cfg.num_transformer_heads // (1 if p.tp is None else p.tp.size)
+
+
+def _kv_down(x: torch.Tensor, p: SelfAttention) -> torch.Tensor:
+    """The compressed kv.  Under TP both it and the input of the sharded
+    ``q_up`` pass ``copy_to_model``, so that the gradients of x and of
+    ``kv_down`` come out whole on every model rank."""
+    return copy_to_model(a2m_nn.linear(x, p.kv_down.w), p.tp)
+
+
+def _out(attn: torch.Tensor, p: SelfAttention) -> torch.Tensor:
+    """The bias-free out-projection; under TP the partial products summed
+    over the model ranks."""
+    return reduce_from_model(a2m_nn.linear(attn, p.out.w), p.tp)
 
 
 def _qkv(x: torch.Tensor, p: SelfAttention, num_heads: int, rope: RopeFreqs):
     """x: (..., S, D) -> rope'd q, k and v, each (..., S, H, hd).  RoPE
     positions run over the S axis and restart at 0."""
     *lead, s, _ = x.shape
-    q = a2m_nn.linear(x, p.q_up.w).reshape(*lead, s, num_heads, -1)
+    q = a2m_nn.linear(copy_to_model(x, p.tp), p.q_up.w).reshape(*lead, s, num_heads, -1)
     q = apply_rope_halves(q, rope)
-    ckv = a2m_nn.linear(x, p.kv_down.w)
+    ckv = _kv_down(x, p)
     k = a2m_nn.linear(ckv, p.k_up.w).reshape(*lead, s, num_heads, -1)
     k = apply_rope_halves(k, rope)
     v = a2m_nn.linear(ckv, p.v_up.w).reshape(*lead, s, num_heads, -1)
@@ -133,23 +159,31 @@ def _qkv(x: torch.Tensor, p: SelfAttention, num_heads: int, rope: RopeFreqs):
 
 
 def _attend_einsum(q, k, v, rate: float = 0.0,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None,
+                   tp: TensorParallel | None = None, num_heads: int = 0) -> torch.Tensor:
     """Plain attention as the JAX package's einsum route: q scaled in its
     dtype, logits in the dtype, fp32 softmax cast back, with a generator
     ``nn.dropout`` on the weights at the exact rate, weights . v in the
     dtype.  q, k, v: (..., S, H, hd); no mask (the routes that come here
-    have none)."""
+    have none).  Under TP (``num_heads`` the model's) the mask of all heads
+    is drawn and this rank's are taken: the single-rank mask."""
     *lead, s, h, hd = q.shape
     q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
     logits = torch.einsum("...shd,...Shd->...hsS", q, k)
     weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
-    if generator is not None:
+    if generator is not None and tp is not None and 0.0 < rate < 1.0:
+        full = (*weights.shape[:-3], num_heads, *weights.shape[-2:])
+        keep = a2m_nn.dropout_mask(full, 1.0 - rate, generator, weights.device)
+        mask = keep[..., tp.head_slice(num_heads), :, :]
+        weights = torch.where(mask, weights / (1.0 - rate), torch.zeros_like(weights))
+    elif generator is not None:
         weights = a2m_nn.dropout(weights, rate, generator, True)
     return torch.einsum("...hsS,...Shd->...shd", weights, v).reshape(*lead, s, h * hd)
 
 
 def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
-            generator: torch.Generator | None = None, dropout: bool = False) -> torch.Tensor:
+            generator: torch.Generator | None = None, dropout: bool = False,
+            tp: TensorParallel | None = None) -> torch.Tensor:
     """q, k, v: (..., S, H, hd) -> (..., S, H*hd).  The (..., S, H, hd) ->
     (G, S, H*hd) reshape is free: no transposes around the core."""
     *lead, s, h, hd = q.shape
@@ -164,13 +198,14 @@ def _attend(q, k, v, cfg: ModelConfig, *, block: int = 0,
     # flattened route's block mask never comes here: f16 and dropout take
     # the windowed route instead.
     if f16 or (dropout and (plain or not (s >= 128 and 0 < threshold < 256))):
-        return _attend_einsum(q, k, v, rate, generator if dropout else None)
+        return _attend_einsum(q, k, v, rate, generator if dropout else None, tp,
+                              cfg.num_transformer_heads)
     fq, fk, fv = (t.reshape(-1, s, h * hd) for t in (q, k, v))
     if not dropout:
         core = ak.global_attention_plain if plain else ak.global_attention
         out = core(fq, fk, fv, h, block)
     else:
-        seed = new_dropout_seed(generator, q.device)
+        seed = new_dropout_seed(generator, q.device, tp)
         if ak.prng_dropout_available():
             out = ak.global_attention_dropout(fq, fk, fv, seed, h, block,
                                               threshold=threshold)
@@ -231,11 +266,11 @@ def self_attention(
 ) -> torch.Tensor:
     """Global compressed-KV attention.  x: (..., S, D) -> same shape."""
     dropout = _dropout_on(cfg, enable_dropout, generator)
-    if _block_kernel_applicable(cfg, x, dropout):
+    if p.tp is None and _block_kernel_applicable(cfg, x, dropout):
         return _attention_block(x, p, rope, cfg, valid_len=x.shape[1], window=0)
-    q, k, v = _qkv(x, p, cfg.num_transformer_heads, rope)
-    attn = _attend(q, k, v, cfg, generator=generator, dropout=dropout)
-    return a2m_nn.linear(attn, p.out.w)
+    q, k, v = _qkv(x, p, _local_heads(cfg, p), rope)
+    attn = _attend(q, k, v, cfg, generator=generator, dropout=dropout, tp=p.tp)
+    return _out(attn, p)
 
 
 def _local_padding(seq_len: int, window: int) -> tuple[int, int]:
@@ -273,9 +308,9 @@ def local_self_attention(
             f"got seq_len={seq_len} with local_context_window={window}"
         )
     num_blocks = padded // stride
-    heads, hd = cfg.num_transformer_heads, cfg.attention_size
+    heads, hd = _local_heads(cfg, p), cfg.attention_size
 
-    if _block_kernel_applicable(cfg, x, dropout):
+    if p.tp is None and _block_kernel_applicable(cfg, x, dropout):
         # Kernel 11 on the padded rows; the crop reproduces the reference's
         # padded-coordinate quirk.
         return _attention_block(xp, p, rope, cfg, valid_len=padded, window=window)[:, :seq_len, :]
@@ -288,8 +323,8 @@ def local_self_attention(
         # and the overlap average.  With dropout (the kernels only) each
         # original window lies in exactly one phase, so per-window weights
         # are dropped independently.
-        q = a2m_nn.linear(xp, p.q_up.w).reshape(b, padded, heads, hd)
-        ckv = a2m_nn.linear(xp, p.kv_down.w)
+        q = a2m_nn.linear(copy_to_model(xp, p.tp), p.q_up.w).reshape(b, padded, heads, hd)
+        ckv = _kv_down(xp, p)
         k = a2m_nn.linear(ckv, p.k_up.w).reshape(b, padded, heads, hd)
         v = a2m_nn.linear(ckv, p.v_up.w)
         reps = padded // window
@@ -310,7 +345,7 @@ def local_self_attention(
                 core = ak.local_two_phase
             out = core(*inputs, heads, window)
         else:
-            seed = new_dropout_seed(generator, x.device)
+            seed = new_dropout_seed(generator, x.device, p.tp)
             if ak.prng_dropout_available():
                 out = ak.local_two_phase_dropout(*inputs, seed, heads, window,
                                                  threshold=threshold)
@@ -320,7 +355,7 @@ def local_self_attention(
                                                       threshold=threshold)
         # Crop the padded-coordinate average to the first seq_len rows (the
         # reference quirk); the bias-free out-proj commutes with the crop.
-        return a2m_nn.linear(out[:, :seq_len, :], p.out.w)
+        return _out(out[:, :seq_len, :], p)
 
     # Windowed routes: (B, W, window, D), window w covering padded rows
     # [w*stride, w*stride + window), built from two interleaved
@@ -332,14 +367,14 @@ def local_self_attention(
         # (B, W, 16, 16) weights per head in plain PyTorch (dropped at the
         # exact rate), as the JAX einsum route: with dropout on, or in f16,
         # the flattened route is not taken.
-        out_w = _attend(q, k, v, cfg, generator=generator, dropout=dropout)
+        out_w = _attend(q, k, v, cfg, generator=generator, dropout=dropout, tp=p.tp)
     else:
         # Flattened: the (windows, window) axes become one sequence and a
         # block-diagonal mask realizes the per-window softmax.
         flat = lambda t: t.reshape(b, num_windows * window, heads, hd)
         out_w = _attend(flat(q), flat(k), flat(v), cfg, block=window)
         out_w = out_w.reshape(b, num_windows, window, heads * hd)
-    out_w = a2m_nn.linear(out_w, p.out.w)
+    out_w = _out(out_w, p)
 
     # Overlap-average in padded coordinates, then crop to seq_len rows.
     first = out_w[:, :, :stride, :]   # window k's contribution to block k

@@ -31,12 +31,20 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops import fused_layer_kernels as flk
+from ..parallel.tp import TensorParallel, copy_to_model, reduce_from_model
 from . import nn as a2m_nn
 from .attention import SelfAttention, _local_padding, local_self_attention, self_attention
 from .rope import RopeFreqs
 
 
 class FeedForward(nn.Module):
+    """GLU feed-forward.  ``tp``: set by ``parallel.tp.shard_params_tp`` when
+    the hidden units are sharded over the model ranks (``in_proj`` holds
+    the gate and value columns of this rank's units, ``out_proj`` their
+    rows)."""
+
+    tp: TensorParallel | None = None
+
     def __init__(self, hidden_dim: int, intermediate_dim: int,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -76,7 +84,16 @@ def feed_forward(
     x: torch.Tensor, p: FeedForward, *, dropout_rate: float = 0.0,
     generator: torch.Generator | None = None, enable_dropout: bool = False,
 ) -> torch.Tensor:
-    """GLU: Linear D->2*inter, split, gelu(x1) * x2, Linear inter->D, dropout."""
+    """GLU: Linear D->2*inter, split, gelu(x1) * x2, Linear inter->D, dropout.
+    Under TP: this rank's hidden units, the out-projection's partial
+    products summed over the model ranks, then its bias and the dropout on
+    the replicated output."""
+    if p.tp is not None:
+        h = a2m_nn.linear(copy_to_model(x, p.tp), p.in_proj.w, p.in_proj.b)
+        x1, x2 = torch.chunk(h, 2, dim=-1)
+        out = reduce_from_model(a2m_nn.linear(a2m_nn.gelu(x1) * x2, p.out_proj.w), p.tp)
+        out = out + p.out_proj.b.to(out.dtype)
+        return a2m_nn.dropout(out, dropout_rate, generator, enable_dropout)
     h = a2m_nn.linear(x, p.in_proj.w, p.in_proj.b)
     x1, x2 = torch.chunk(h, 2, dim=-1)
     out = a2m_nn.linear(a2m_nn.gelu(x1) * x2, p.out_proj.w, p.out_proj.b)
@@ -255,8 +272,11 @@ def transformer_stack(
     x: torch.Tensor, stack: TransformerStack, rope: RopeFreqs, cfg: ModelConfig, *,
     generator: torch.Generator | None = None, enable_dropout: bool = False,
 ) -> torch.Tensor:
-    """x: (B, S, D) through every (local, global) pair in order."""
-    if _pair_kernel_applicable(cfg, x, enable_dropout):
+    """x: (B, S, D) through every (local, global) pair in order.  A stack
+    sharded over the model ranks takes no fused kernel (kernels 17, 18 hold
+    whole weights)."""
+    sharded = stack.layers[0].get_submodule("local").attention.tp is not None
+    if not sharded and _pair_kernel_applicable(cfg, x, enable_dropout):
         return _fused_stack(x, stack, rope, cfg)
     for layer in stack.layers:
         x = alternating_layer(x, layer, rope, cfg, generator=generator,

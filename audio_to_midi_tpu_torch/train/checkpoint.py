@@ -6,7 +6,10 @@ semantics (train.py:799-831, infer.py:172-236): a manager that keeps
 the model and data-prep config stored as metadata for drift detection, a
 restore of the latest step with a warning on a metadata mismatch, and a
 resume at ``latest_step() + 1``.  As in the JAX package, a checkpoint holds
-the parameters and the model state, not the optimizer.
+the parameters and the model state, not the optimizer.  On a mesh of
+ranks rank 0 writes the gathered full layout (:func:`save_checkpoint`
+with ``mesh=``) and every rank restores it whole, then takes its part
+(``parallel.place_model``).
 
 Layout: ``<dir>/metadata.json`` and one directory per step,
 ``<dir>/<step>/`` with ``params.npz`` (the flat JAX parameter layout that
@@ -36,6 +39,9 @@ STATE_FILE = "state.json"
 METADATA_FILE = "metadata.json"
 
 
+_ON_DISK = object()  # should_save: read the newest step from the disk
+
+
 class CheckpointManager:
     """Steps under one directory, the newest ``max_to_keep`` kept."""
 
@@ -56,8 +62,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
+    def should_save(self, step: int, latest=_ON_DISK) -> bool:
+        """Whether ``step`` is due: a multiple of ``save_interval_steps``
+        past ``latest``, the newest step saved (default: read from the
+        disk)."""
+        if latest is _ON_DISK:
+            latest = self.latest_step()
         if latest is not None and latest >= step:
             return False
         return step % self.save_interval_steps == 0
@@ -104,12 +114,25 @@ def create_checkpoint_manager(checkpoint_dir: str | Path, config: Optional[Confi
 
 
 def save_checkpoint(manager: CheckpointManager, step: int, model: torch.nn.Module, state: dict,
-                    force: bool = False) -> bool:
-    """Save ``model``'s parameters and ``state`` at ``step`` when the manager
-    allows it (or ``force``); True when saved."""
-    if not force and not manager.should_save(step):
+                    force: bool = False, *, mesh=None, latest=_ON_DISK) -> bool:
+    """Save ``model``'s parameters and ``state`` at ``step`` every
+    ``save_interval_steps`` steps past ``latest``, the newest step saved (by
+    default read from the disk), or when ``force``; True when saved.
+
+    On a ``mesh`` of ranks (a collective: every rank calls it at every step)
+    every rank takes part in gathering the full layout (``(E,)``-leading for
+    a population); rank 0 writes it and the others wait at a barrier.  The
+    caller passes the ``latest`` it tracks, so that no rank decides from a
+    disk that rank 0 may be writing."""
+    from ..parallel.mesh import gather_params
+
+    if not force and not manager.should_save(step, latest):
         return False
-    manager.save(step, params_to_jax(model), state or {})
+    flat = params_to_jax(model) if mesh is None else gather_params(model, mesh)
+    if mesh is None or mesh.rank == 0:
+        manager.save(step, flat, state or {})
+    if mesh is not None:
+        mesh.barrier()
     return True
 
 

@@ -100,18 +100,33 @@ def evolve_model_ensemble(params: Mapping[str, np.ndarray], ensemble_scores,
 
 
 @torch.no_grad()
-def evolve_ensemble_(ensemble: Ensemble, ensemble_scores, rng: np.random.Generator) -> list[int]:
+def evolve_ensemble_(ensemble, ensemble_scores, rng: np.random.Generator,
+                     mesh=None) -> list[int]:
     """Evolve ``ensemble`` in place: each regenerated member's child is
-    copied into its existing parameters.  Returns those members' indices
-    (none for E <= 2)."""
+    copied into its existing parameters.  Returns the regenerated members'
+    indices (none for E <= 2).
+
+    On a ``mesh`` of several ranks (a collective) ``ensemble`` is what this
+    rank holds -- its one member on an ensemble axis -- possibly sharded:
+    the population is gathered in full layout on every rank, every rank
+    runs the same evolution (the same scores and ``rng`` state), and each
+    copies its own regenerated members back into its parameters."""
+    from ..parallel.mesh import ENSEMBLE_AXIS, gather_params
+    from ..parallel.tp import local_flat
+
     scores = np.asarray(ensemble_scores)
-    if scores.shape[0] != len(ensemble):
+    on_axis = mesh is not None and mesh.extent(ENSEMBLE_AXIS) > 1
+    if not on_axis and scores.shape[0] != len(ensemble):
         raise ValueError(f"{scores.shape[0]} scores for a population of {len(ensemble)}")
-    params = params_to_jax(ensemble)
+    params = params_to_jax(ensemble) if mesh is None else gather_params(ensemble, mesh)
     evolved = evolve_model_ensemble(params, scores, rng)
     if evolved is params:
         return []
     losers = [int(i) for i in np.argsort(scores)[len(scores) // 2:]]
+    held = {mesh.index(ENSEMBLE_AXIS): ensemble} if on_axis else dict(enumerate(ensemble))
     for i in losers:
-        load_params_(ensemble[i], {path: leaf[i] for path, leaf in evolved.items()})
+        if i in held:
+            load_params_(held[i], local_flat(held[i],
+                                             {path: leaf[i] for path, leaf in evolved.items()}))
     return losers
+

@@ -1,7 +1,7 @@
 """The training loop: the input feed, loss scaling with rollback,
 checkpoints, metrics, test-set evaluation and the population's evolution.
 
-Counterpart of ``audio_to_midi_tpu/train/loop.py`` on one device.
+Counterpart of ``audio_to_midi_tpu/train/loop.py``.
 Reference semantics (train.py:211-452):
   * with loss scaling (f16 compute), a host snapshot of the parameters and
     the optimizer state every ``recovery_snapshot_every`` steps; on a
@@ -33,10 +33,28 @@ scaling the rollback needs the current step's verdict, and the loop reads
 it at once, as JAX does: a step where any member went non-finite rolls
 every member back.  The numpy generator of each evolution is seeded from
 the same CPU generator.
+
+On a mesh of several ranks (``mesh=``, the one the model was placed on:
+``parallel.place_model``), as JAX's multi-host loop: each rank's
+``data_loader`` yields its local shard, ``batch_size // world`` windows; the
+ring runs in mesh mode with the lockstep refresh (a host batch per step is
+gathered over the world instead), and every rank draws from the same
+generator state, so the host decisions agree without a collective.  Under
+TP the fused layer kernels (``"pallas_block"``, ``"pallas_pair"``,
+``"pallas_fused"``) become ``"xla"``, as in JAX; ``"pallas"`` and
+``"pallas_rw"`` keep their kernels on the local heads.  Checkpoints: every
+rank takes part in gathering the full layout (``(E,)``-leading for a
+population), rank 0 writes it, the others wait at a barrier.  Test-set
+evaluation runs on every rank in lockstep, and on an ensemble axis its
+scores are gathered over ``"ensemble"``; the evolution gathers the
+population in full layout on every rank, runs the same
+``evolve_model_ensemble`` with the same seed everywhere, and each rank
+copies its own members back in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 import warnings
@@ -51,6 +69,8 @@ from ..data.augment_device import transform_for_training_device
 from ..data.device_ring import DeviceInputRing, _Feeder
 from ..models.model import Ensemble, Model
 from ..models.rope import RopeFreqs
+from ..parallel.mesh import (DATA_AXIS, ENSEMBLE_AXIS, MODEL_AXIS, Mesh, gather_params,
+                             local_minibatches, param_digest, tp_active)
 from . import checkpoint as ckpt
 from .ensemble import evolve_ensemble_
 from .evaluate import compute_testset_loss
@@ -89,11 +109,17 @@ def train(
     num_steps: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     step_hook: Optional[Callable[[int, dict[str, Any]], None]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Run the training loop on ``model``'s device: a ``Model``, or an
     ``Ensemble`` of ``cfg.train.ensemble_size`` members; ``optimizer`` must
     be the model's.  ``data_loader`` yields (events, audio) host batches.
-    Returns (model, state, optimizer), trained in place."""
+    ``mesh``: the ranks' layout the model was placed on (this rank's member
+    on an ensemble axis).  Returns (model, state, optimizer), trained in
+    place."""
+    multihost = mesh is not None and mesh.size > 1
+    if not multihost:
+        mesh = None
     testset_dirs = testset_dirs or {}
     if testset_dirs and cfg.train.ensemble_size == 3:
         raise ValueError("ensemble_size 3 cannot evolve (one winner, and a child needs two "
@@ -102,7 +128,18 @@ def train(
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
     device = next(model.parameters()).device
-    train_step = make_train_step(cfg, optimizer, rope)
+    if tp_active(mesh) and cfg.model.attention_impl not in ("pallas", "pallas_rw", "xla"):
+        # The fused layer kernels hold whole weights: not head-shardable.
+        log.info('model axis %d active: forcing attention_impl="xla" for TP (megakernel impl '
+                 "%s is not head-shardable)", mesh.extent(MODEL_AXIS),
+                 cfg.model.attention_impl)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 attention_impl="xla"))
+    elif tp_active(mesh) and cfg.model.attention_impl != "xla":
+        log.info("model axis %d active: attention kernels on the %d local heads",
+                 mesh.extent(MODEL_AXIS),
+                 cfg.model.num_transformer_heads // mesh.extent(MODEL_AXIS))
+    train_step = make_train_step(cfg, optimizer, rope, mesh)
 
     device_augment = cfg.train.augment_on_device and cfg.transforms is not None
     # A loader built with transform_settings augments on the host whatever
@@ -124,10 +161,18 @@ def train(
     ring_settings = cfg.transforms if device_augment else None
 
     start_step = 1
-    if checkpoint_manager is not None and checkpoint_manager.latest_step() is not None:
-        start_step = checkpoint_manager.latest_step() + 1
+    latest = checkpoint_manager.latest_step() if checkpoint_manager is not None else None
+    if latest is not None:
+        start_step = latest + 1
     batch_size = cfg.train.batch_size
-    minibatch = min(cfg.train.minibatch_size_per_device, batch_size)
+    data_extent = mesh.extent(DATA_AXIS) if multihost else 1
+    # Clamped for tiny batches: one accumulation step.
+    minibatch = min(cfg.train.minibatch_size_per_device * data_extent, batch_size)
+    if multihost and (batch_size % mesh.size or minibatch % mesh.size):
+        raise ValueError(
+            f"batch_size {batch_size} and minibatch {minibatch} must both "
+            f"divide over {mesh.size} processes"
+        )
 
     grad_scale = 1.0
     use_loss_scaling = cfg.precision.needs_loss_scaling
@@ -141,14 +186,18 @@ def train(
     data_iter = iter(data_loader)
     if use_ring:
         # Window shapes come from the first feed chunk.
-        ring = DeviceInputRing(cfg.train.input_ring_capacity, batch_size, device=device)
+        ring = DeviceInputRing(cfg.train.input_ring_capacity, batch_size, device=device,
+                               mesh=mesh)
         feeder = _Feeder(data_iter, pin_memory=device.type == "cuda")
         min_fill = min(batch_size, ring.capacity)
 
     for step in range(start_step, num_steps + 1):
         if use_ring:
             refresh = step % max(cfg.train.input_ring_refresh_period, 1) == 0
-            ring.pull(feeder, min_fill=min_fill, max_chunks=1 if refresh else 0)
+            if multihost:
+                ring.pull_lockstep(feeder, min_fill=min_fill, refresh_chunks=1 if refresh else 0)
+            else:
+                ring.pull(feeder, min_fill=min_fill, max_chunks=1 if refresh else 0)
             audio_mb, events_mb = ring.sample(generator, batch_size, minibatch, ring_settings)
         else:
             try:
@@ -159,11 +208,14 @@ def train(
             # The wire is f16: decoded audio is already f16-rounded.
             audio = torch.from_numpy(np.asarray(audio, np.float16)).to(device)
             events = torch.from_numpy(np.asarray(events, np.float16)).to(device)
+            if multihost:
+                # Each rank's local shard -> the global batch on every rank.
+                audio, events = (mesh.all_gather(t, None).flatten(0, 1) for t in (audio, events))
             if device_augment:
                 audio, events = transform_for_training_device(
                     audio, events, cfg.transforms, generator)
-            audio_mb = reshape_to_minibatches(audio, minibatch)
-            events_mb = reshape_to_minibatches(events, minibatch)
+            audio_mb = local_minibatches(reshape_to_minibatches(audio, minibatch), mesh)
+            events_mb = local_minibatches(reshape_to_minibatches(events, minibatch), mesh)
 
         if use_loss_scaling and step % cfg.train.recovery_snapshot_every == 0:
             recovery = _snapshot(model, optimizer)
@@ -191,8 +243,9 @@ def train(
             if bool((out.scaled_loss < cfg.train.loss_scale_increase_threshold).all()):
                 grad_scale = grad_scale * 2
 
-        if checkpoint_manager is not None:
-            ckpt.save_checkpoint(checkpoint_manager, step, model, state)
+        if checkpoint_manager is not None and ckpt.save_checkpoint(
+                checkpoint_manager, step, model, state, mesh=mesh, latest=latest):
+            latest = step
 
         # Non-finite losses (their updates were skipped) stay out of the average.
         loss_sum += torch.where(torch.isfinite(loss), loss, 0.0)
@@ -229,6 +282,10 @@ def train(
             for name, testset_dir in testset_dirs.items():
                 test_loss, hit_rate, eventized_diff, _figs = compute_testset_loss(
                     model, cfg, testset_dir, num_model_output_frames, rope)
+                if multihost and mesh.extent(ENSEMBLE_AXIS) > 1:
+                    test_loss, hit_rate, eventized_diff = (
+                        mesh.all_gather(torch.from_numpy(np.asarray(v)), ENSEMBLE_AXIS)
+                        .reshape(-1).numpy() for v in (test_loss, hit_rate, eventized_diff))
                 log.info("testset %s: loss=%s hit_rate=%s eventized_diff=%s", name, test_loss,
                          hit_rate, eventized_diff)
                 testset_losses.append(test_loss)
@@ -245,16 +302,21 @@ def train(
                 scores = np.mean(np.stack(testset_losses), axis=0)
                 seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
                 t0 = time.perf_counter()
-                regenerated = evolve_ensemble_(model, scores, np.random.default_rng(seed))
+                regenerated = evolve_ensemble_(model, scores, np.random.default_rng(seed), mesh)
                 log.info("step %d: evolved the population on scores %s; regenerated members %s "
                          "in %.1f ms", step, scores, regenerated,
                          (time.perf_counter() - t0) * 1e3)
 
     if prev_valid is not None:
         _warn_skipped(step, prev_valid)
+    if multihost:
+        # The full layout's digest: equal on every rank of a run whose
+        # replicas stayed in step.
+        full = gather_params(model, mesh)
+        log.info("rank %d: parameter digest %d", mesh.rank,
+                 param_digest([torch.from_numpy(full[k]) for k in sorted(full)]))
     # A final save, so that short runs still leave a checkpoint; skipped if
     # the last step saved already or no step ran.
-    if checkpoint_manager is not None and step >= start_step:
-        if checkpoint_manager.latest_step() != step:
-            ckpt.save_checkpoint(checkpoint_manager, step, model, state, force=True)
+    if checkpoint_manager is not None and step >= start_step and latest != step:
+        ckpt.save_checkpoint(checkpoint_manager, step, model, state, force=True, mesh=mesh)
     return model, state, optimizer

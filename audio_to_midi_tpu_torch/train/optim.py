@@ -23,6 +23,13 @@ and the schedule, bias corrections included, computed there in f32.  The
 step's validity enters as a device tensor: an invalid step leaves
 parameters, moments and count as they were, and the host never reads the
 card.
+
+Under tensor parallelism (a model sharded by ``parallel.tp.shard_params_tp``)
+each rank holds the moments of its own slices, and the clip's global norm
+counts every replicated parameter once and sums the squares of the sharded
+ones over the model ranks (optax's norm over the global arrays), so every
+rank scales by the same factor.  On an ensemble axis each rank updates its
+one member.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from ..config import ModelConfig, TrainConfig
 from ..models.model import Ensemble, Model
+from ..parallel.mesh import ENSEMBLE_AXIS, Mesh
 
 _CNN_STAGE = re.compile(r"^cnn\.stages\.(\d+)\.(down|blocks\.(\d+))\.")
 
@@ -96,6 +104,10 @@ class LayerwiseAdamW:
         self._factors_flat = torch.cat([torch.full((n,), f, dtype=torch.float32)
                                         for n, f in zip(self._sizes, self.factors)]).to(device)
         self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._tp = getattr(model, "tp", None)
+        if self._tp is not None:
+            sharded = torch.tensor([name in self._tp.sharded for name in self.names])
+            self._sharded = sharded.to(device)
 
     def _views(self, flat: torch.Tensor) -> list[torch.Tensor]:
         return [v.view_as(p) for v, p in zip(flat.split(self._sizes), self.params)]
@@ -133,8 +145,13 @@ class LayerwiseAdamW:
         updates.div_(denom)
         updates.add_(torch.cat([p.reshape(-1) for p in self.params]), alpha=c.weight_decay)
         updates.mul_(self._factors_flat * -self._schedule(before))
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-            list(updates.split(self._sizes)))))
+        norms = torch.stack(torch._foreach_norm(list(updates.split(self._sizes))))
+        if self._tp is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            squares = norms.square()
+            sharded = self._tp.all_reduce(torch.where(self._sharded, squares, 0.0).sum())
+            norm = (sharded + torch.where(self._sharded, 0.0, squares).sum()).sqrt()
         updates.mul_(torch.where(norm < c.global_norm_clip, torch.ones_like(norm),
                                  c.global_norm_clip / norm))
         self._mu_flat.copy_(torch.where(valid, mu, self._mu_flat))
@@ -198,13 +215,21 @@ class EnsembleOptimizer:
             opt.restore(snap)
 
 
+def local_members(train_cfg: TrainConfig, mesh: Mesh | None = None) -> int:
+    """The members each rank holds: the population, or one per ensemble
+    index on an ensemble axis."""
+    return train_cfg.ensemble_size // (1 if mesh is None else mesh.extent(ENSEMBLE_AXIS))
+
+
 def setup_optimizers(model: Model | Ensemble, model_cfg: ModelConfig,
-                     train_cfg: TrainConfig) -> LayerwiseAdamW | EnsembleOptimizer:
+                     train_cfg: TrainConfig,
+                     mesh: Mesh | None = None) -> LayerwiseAdamW | EnsembleOptimizer:
     """The optimizer of ``model``'s parameters: a :class:`LayerwiseAdamW` for
     one member, an :class:`EnsembleOptimizer` for an ``Ensemble`` of
-    ``train_cfg.ensemble_size``.  ``fused_flat_optimizer`` is a no-op: the
-    chain already runs as multi-tensor calls."""
-    size = train_cfg.ensemble_size
+    ``train_cfg.ensemble_size`` (of :func:`local_members` on ``mesh``).
+    ``fused_flat_optimizer`` is a no-op: the chain already runs as
+    multi-tensor calls."""
+    size = local_members(train_cfg, mesh)
     if isinstance(model, Ensemble) != (size > 1) or (size > 1 and len(model) != size):
         raise ValueError(f"ensemble_size={size} needs "
                          + (f"an Ensemble of {size} members" if size > 1 else "one Model")

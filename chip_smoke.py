@@ -135,7 +135,27 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      audio_to_midi --validation [--individual], copy_weights and
      inspect_model on phase 13's checkpoint; f16 training from the CLI,
      which launches no kernel; ms per step at E = 4 beside phase 13's one
-     member, the peak device memory and the evolution's host ms.
+     member, the peak device memory and the evolution's host ms;
+ 15. parallel/, every rank a spawned process sharing the one card over gloo
+     (a file rendezvous, a deadline on every collective and on every
+     join): kernels 1, 2, 9, 7, 15, 12, 16, 13 on 2 heads of 64 (a TP 2
+     shard's) against their plain versions; TP 2 -- phase 3's forward on 2
+     local heads against one rank's (8 launches of kernels 1 and 2 per
+     forward per rank), one f32 dropout-free step against one rank's (loss,
+     updates; 16 launches of kernels 9 and 7 per rank), four default steps
+     (16 of each seeded kernel and 4 of the stage backward per rank per
+     step) with the replicated parameters alike on both ranks and their
+     attention seeds' Philox bytes different; DP 2 -- the same f32 step,
+     four default steps (8 and 2 per rank per step), every parameter alike;
+     cli/train_cli.py on 2 processes (the three multi-host flags and
+     --dist-backend gloo) with the ring in lockstep, one parameter digest,
+     each checkpoint written once and a resume at latest + 1, the same with
+     model_parallel_size 2, and --ensemble-size 4 over 4 processes with the
+     evaluations and evolutions of steps 2 and 4 and (4,) leaves on disk;
+     transcribe_file over 2 data ranks on phase 4's WAV against one rank;
+     ms per step per layout beside phase 13's, the peak device memory per
+     rank and one gradient all-reduce over gloo (the ranks share one card:
+     the port's overheads, not scaling).
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
 LayerNorm and products, kernels 1 and 2: many calls, not one), kernels 6, 3
@@ -163,9 +183,11 @@ import io
 import json
 import math
 import shutil
+import socket
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -2590,6 +2612,716 @@ def check_population(cfg, card: str, one_member_times: list[float]) -> dict[str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: parallel/ -- several ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# A group of ranks' deadline, and any collective's (init_process_group's
+# timeout): a rank that never reaches a collective fails the phase.
+GROUP_TIMEOUT_S = 420
+COLLECTIVE_TIMEOUT_S = 120
+TWO_HEADS = 2
+# The f32 parity step of a sharded layout against one rank's, from the
+# readings on the H100: the sound TP 2 and DP 2 steps' updates differed by
+# at most 2.2e-7 (the global-norm clip over 11.6M parameters scales a
+# typical update to ~3e-4), and the gradients by a few 1e-7 of each leaf's
+# largest.  The broken controls that phase 15 runs beside them -- DP without
+# the division over "data", TP with a clip norm that skips the model
+# all-reduce -- must fail these limits, or the check cannot see them.
+UPDATE_ATOL = 2e-6      # largest |update difference|, absolute
+GRAD_TOL = 1e-5         # largest |gradient difference| / the leaf's largest |gradient|
+# The f32 loss of a sharded step against one rank's, relative: the same sums
+# in another order (the TP all-reduces, the mean over data ranks).
+PARALLEL_LOSS_TOL = 1e-4
+CONTROLS = {"tp": "a clip norm that skips the model all-reduce",
+            "dp": "no division of the gradients over the data ranks"}
+PARITY_WINDOWS, PARITY_MINIBATCH = 16, 8
+
+
+def check_two_heads(ak) -> dict[str, dict]:
+    """Phase 15.1: the attention kernels on 2 heads of 64, the shapes a TP 2
+    shard gives them (no model path launched them with fewer than 4 heads
+    before): kernels 1 and 2 at the serving shapes, and 1, 2, 9, 7, 15, 12,
+    16, 13 at the training shapes, f32 and bf16, each against its plain
+    version with phase 2's tolerances and its time."""
+    results = {}
+    run = functools.partial(run_case, results)
+    h, width = TWO_HEADS, TWO_HEADS * HEAD_DIM
+    flops = lambda groups, s, cols, products: products * 2.0 * groups * h * s * cols * HEAD_DIM
+    thr = DROPOUT_THRESHOLD
+    for name, dt in DTYPES.items():
+        kernel_tol = lambda ref: KERNEL_TOL[name]
+        grads_tol = lambda ref: grad_tol(ref, name)
+        for n in (BATCH, 32):
+            q, k, v, g = (randn(n, SEQ, width, seed=300 + i, dtype=dt) for i in range(4))
+            ts = [randn(n, PADDED, width, seed=310 + i, dtype=dt) for i in range(6)]
+            run(f"2 heads global S=250 B={n}", name, lambda: ak.global_attention(q, k, v, h),
+                lambda: ak.global_attention_plain(q, k, v, h), kernel_tol,
+                bound(4, q.numel(), name, flops(n, SEQ, SEQ, 2)))
+            run(f"2 heads local P=256 B={n}", name, lambda: ak.local_two_phase(*ts[:5], h, 16),
+                lambda: ak.local_two_phase_plain(*ts[:5], h, 16), kernel_tol,
+                bound(6, ts[0].numel(), name, 2 * flops(n, PADDED, 16, 2)))
+            if n == BATCH:
+                continue
+            run("2 heads global grads S=250", name,
+                lambda: ak.global_attention_grads(q, k, v, g, h),
+                lambda: ak.global_attention_grads_plain(q, k, v, g, h), grads_tol,
+                bound(7, q.numel(), name, flops(n, SEQ, SEQ, 5)))
+            run("2 heads local grads P=256", name,
+                lambda: ak.local_two_phase_grads(*ts, h, 16),
+                lambda: ak.local_two_phase_grads_plain(*ts, h, 16), grads_tol,
+                bound(11, ts[0].numel(), name, 2 * flops(n, PADDED, 16, 5)))
+            seed = torch.tensor([4242, 17], dtype=torch.int32, device="cuda")
+            dumped = ak.philox_bits(seed, n, h, SEQ)
+            run("2 heads global dropout S=250", name,
+                lambda: ak.global_attention_dropout(q, k, v, seed, h, threshold=thr),
+                lambda: ak.global_attention_plain(q, k, v, h, 0, None, dumped, thr), kernel_tol,
+                bound(4, q.numel(), name, flops(n, SEQ, SEQ, 2)))
+            run("2 heads global grads prng S=250", name,
+                lambda: ak.global_attention_grads_prng(q, k, v, seed, g, h, threshold=thr),
+                lambda: ak.global_attention_grads_plain(q, k, v, g, h, 0, None, dumped, thr),
+                grads_tol, bound(7, q.numel(), name, flops(n, SEQ, SEQ, 5)))
+            planes = ak.two_phase_planes(ak.philox_bits(seed, n, 2 * h, PADDED), h)
+            run("2 heads local dropout P=256", name,
+                lambda: ak.local_two_phase_dropout(*ts[:5], seed, h, 16, threshold=thr),
+                lambda: ak.local_two_phase_plain(*ts[:5], h, 16, *planes, thr), kernel_tol,
+                bound(6, ts[0].numel(), name, 2 * flops(n, PADDED, 16, 2)))
+            run("2 heads local grads prng P=256", name,
+                lambda: ak.local_two_phase_grads_prng(*ts[:5], seed, ts[5], h, 16, threshold=thr),
+                lambda: ak.local_two_phase_grads_plain(*ts, h, 16, *planes, thr), grads_tol,
+                bound(11, ts[0].numel(), name, 2 * flops(n, PADDED, 16, 5)))
+    return results
+
+
+def _rank_entry(job: str, rank: int, world: int, run: str) -> None:
+    """A spawned rank on the one card: joins the gloo group of ``world`` by a
+    file rendezvous in ``run``, runs ``job`` and leaves its result (or its
+    traceback) there."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{run}/rendezvous", rank=rank,
+                                world_size=world,
+                                timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        out = globals()[job](Path(run))
+        torch.save(out, Path(run, f"out{rank}.pt"))
+    except BaseException:
+        Path(run, f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _cli_rank(argv: list[str], rank: int, run: str) -> None:
+    """A spawned rank of cli/train_cli.py (which joins the group itself, by
+    --coordinator-address): each step's launches, the lockstep refreshes,
+    the checkpoint writes, the evaluations and evolutions, and the loop's
+    parameter digest, left in ``run``."""
+    import logging
+    import traceback
+
+    from audio_to_midi_tpu_torch.cli import train_cli
+    from audio_to_midi_tpu_torch.data import device_ring
+    from audio_to_midi_tpu_torch.train import checkpoint as ckpt
+    from audio_to_midi_tpu_torch.train import loop
+
+    out = {"hooks": [], "lockstep": 0, "saves": [], "evals": [], "evolved": [], "log": [],
+           "spans": [], "refresh": []}
+    real_train, real_pull, real_save = loop.train, device_ring.DeviceInputRing.pull_lockstep, \
+        ckpt.CheckpointManager.save
+    real_get, real_push = device_ring._Feeder.get, device_ring.DeviceInputRing.push
+    spent = {"feed": 0.0, "push": 0.0}   # host seconds inside one lockstep refresh
+
+    def timed(key, real):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return call
+    real_eval, real_evolve = loop.compute_testset_loss, loop.evolve_ensemble_
+
+    def train(*args, **kwargs):
+        return real_train(*args, step_hook=lambda step, info: out["hooks"].append(
+            (step, read_launches(), np.asarray(info["loss"]).tolist(), time.perf_counter())),
+                          **kwargs)
+
+    def pull_lockstep(self, *args, **kwargs):
+        out["lockstep"] += 1
+        spent.update(feed=0.0, push=0.0)
+        try:
+            return real_pull(self, *args, **kwargs)
+        finally:
+            out["refresh"].append((spent["feed"], spent["push"]))
+
+    def save(self, step, *args, **kwargs):
+        out["saves"].append(step)
+        return real_save(self, step, *args, **kwargs)
+
+    def evaluate(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real_eval(*args, **kwargs)
+        out["spans"].append((t0, time.perf_counter(), None, None))
+        out["evals"].append([np.asarray(v).tolist() for v in result[:3]])
+        return result
+
+    def evolve(*args, **kwargs):
+        t0 = time.perf_counter()
+        regenerated = real_evolve(*args, **kwargs)
+        out["spans"].append((t0, time.perf_counter(), None, None))
+        out["evolved"].append(regenerated)
+        return regenerated
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            out["log"].append(record.getMessage())
+
+    loop.train, loop.compute_testset_loss, loop.evolve_ensemble_ = train, evaluate, evolve
+    device_ring.DeviceInputRing.pull_lockstep = pull_lockstep
+    device_ring._Feeder.get = timed("feed", real_get)
+    device_ring.DeviceInputRing.push = timed("push", real_push)
+    ckpt.CheckpointManager.save = save
+    logging.getLogger("audio_to_midi_tpu_torch").addHandler(Capture())
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out["rc"] = train_cli.main(argv + ["--process-id", str(rank)])
+        out["peak"] = torch.cuda.max_memory_allocated()
+        torch.save(out, Path(run, f"out{rank}.pt"))
+    except BaseException:
+        Path(run, f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def run_group(world: int, target, args: tuple, name: str) -> list[dict]:
+    """``target(*args, rank, run)`` on ``world`` spawned processes sharing the
+    card -> each rank's result.  Every process is joined by the deadline;
+    the stragglers are killed and the phase fails."""
+    import multiprocessing as mp
+
+    run = WORK / "ranks" / name
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(*args, rank, world, str(run))
+                         if target is _rank_entry else (*args, rank, str(run)))
+             for rank in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GROUP_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    errors = [(run / f"error{r}.txt").read_text() for r in range(world)
+              if (run / f"error{r}.txt").exists()]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{name} on {world} ranks: hung {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors)[-8000:])
+    log(f"{name}: {world} ranks in {time.perf_counter() - t0:.1f} s (spawn and CUDA set-up "
+        "included)")
+    return [torch.load(run / f"out{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _parity_batch(cfg):
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    audio = (torch.randn(PARITY_WINDOWS, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels = (torch.rand(PARITY_WINDOWS, SEQ, cfg.model.output_vocab, generator=gen) < 0.03)
+    return audio, labels.float().cuda()
+
+
+def _parity_step(mesh, control: bool = False) -> dict:
+    """One f32 dropout-free step (warm-up 0, lr 1e-2) of the seeded default
+    model on 16 windows in 2 minibatches of 8, on ``mesh`` or one rank: the
+    loss, the gradients the optimizer took and the parameters after, both
+    in full layout, and the step's launches.  ``control``: the step broken
+    on purpose as :data:`CONTROLS` says for the mesh's layout."""
+    from audio_to_midi_tpu_torch import convert
+    from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.parallel import mesh as pmesh
+    from audio_to_midi_tpu_torch.train import optim, step as step_lib
+
+    cfg = DEFAULT_CONFIG
+    data = 1 if mesh is None else mesh.extent(pmesh.DATA_AXIS)
+    cfg = dataclasses.replace(
+        cfg, precision=dataclasses.replace(cfg.precision, compute_dtype="f32"),
+        model=dataclasses.replace(cfg.model, transformer_dropout_rate=0.0),
+        train=dataclasses.replace(cfg.train, warmup_steps=0, base_learning_rate=1e-2,
+                                  batch_size=PARITY_WINDOWS,
+                                  minibatch_size_per_device=PARITY_MINIBATCH // data))
+    model = seeded_model(model_lib, cfg).train()
+    if mesh is not None:
+        model = pmesh.place_model(model, mesh, cfg.model.num_transformer_heads)
+    optimizer = optim.setup_optimizers(model, cfg.model, cfg.train, mesh)
+    grads, real_update = [], optimizer.update
+
+    def update(step_grads, valid):
+        grads[:] = [g.clone() for g in step_grads]
+        return real_update(step_grads, valid)
+
+    optimizer.update = update
+    if control and data > 1:
+        real_reduce = mesh.all_reduce_
+        mesh.all_reduce_ = lambda t, axis, *args: (
+            real_reduce(t, axis, *args).mul_(data) if axis == pmesh.DATA_AXIS
+            else real_reduce(t, axis, *args))  # cancels the step's .div_(data)
+    elif control:
+        optimizer._tp = types.SimpleNamespace(all_reduce=lambda x: x,
+                                              sharded=optimizer._tp.sharded)
+    step = step_lib.make_train_step(cfg, optimizer, model_lib.make_rope(cfg.model, "cuda"), mesh)
+    audio, labels = (pmesh.local_minibatches(step_lib.reshape_to_minibatches(x, PARITY_MINIBATCH),
+                                             mesh) for x in _parity_batch(cfg))
+    try:
+        with _parity_precision(torch.float32):
+            reset_launches()
+            out = step(model, audio, labels, 1.0)
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        if control and data > 1:
+            mesh.all_reduce_ = real_reduce
+    gather = (lambda: convert.params_to_jax(model)) if mesh is None else (
+        lambda: pmesh.gather_params(model, mesh))
+    params = {k: np.array(v) for k, v in gather().items()}
+    with torch.no_grad():  # the gradients, gathered as the parameters are
+        for p, g in zip(optimizer.params, grads, strict=True):
+            p.copy_(g)
+    return {"loss": float(out.loss), "valid": bool(out.grads_valid), "params": params,
+            "grads": {k: np.array(v) for k, v in gather().items()}, "launches": launches}
+
+
+def _default_steps(mesh, steps: int = 4) -> dict:
+    """``steps`` default steps (bf16, dropout 0.1, cnn_bwd_kernel; batch 64,
+    minibatch 32 x the data extent) of the seeded default model on ``mesh``
+    (None: one rank), the batch of phase 5, no feed: the losses, each step's
+    launches and host time, the digests of the parameters and the Philox
+    dump of this rank's first attention seed."""
+    from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
+    from audio_to_midi_tpu_torch.models import attention
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.ops import attention_kernels as ak
+    from audio_to_midi_tpu_torch.parallel import mesh as pmesh
+    from audio_to_midi_tpu_torch.train import optim, step as step_lib
+
+    cfg = DEFAULT_CONFIG
+    train_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, warmup_steps=0))
+    model = seeded_model(model_lib, cfg).train()
+    if mesh is not None:
+        model = pmesh.place_model(model, mesh, cfg.model.num_transformer_heads)
+    optimizer = optim.setup_optimizers(model, cfg.model, cfg.train, mesh)
+    step = step_lib.make_train_step(train_cfg, optimizer, model_lib.make_rope(cfg.model, "cuda"),
+                                    mesh)
+    data = 1 if mesh is None else mesh.extent(pmesh.DATA_AXIS)
+    minibatch = cfg.train.minibatch_size_per_device * data
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    audio = (torch.randn(cfg.train.batch_size, 2, 80_000, generator=gen) * 0.5).cuda()
+    labels = (torch.rand(cfg.train.batch_size, SEQ, 90, generator=gen) < 0.03).float().cuda()
+    audio, labels = (pmesh.local_minibatches(step_lib.reshape_to_minibatches(x, minibatch), mesh)
+                     for x in (audio, labels))
+    seeds, real_seed = [], attention.new_dropout_seed
+
+    def new_dropout_seed(*args, **kwargs):
+        seed = real_seed(*args, **kwargs)
+        if not seeds:
+            seeds.append(seed.clone())
+        return seed
+
+    attention.new_dropout_seed = new_dropout_seed
+    generator = torch.Generator().manual_seed(7)
+    losses, launches, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(steps):
+            reset_launches()
+            t0 = time.perf_counter()
+            out = step(model, audio, labels, 1.0, generator)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(read_launches())
+            losses.append(float(out.loss))
+            if not bool(out.grads_valid):
+                raise AssertionError("a default step under the mesh was not valid")
+    finally:
+        attention.new_dropout_seed = real_seed
+    dump = ak.philox_bits(seeds[0], 2, TWO_HEADS, PADDED)
+    return {"losses": losses, "launches": launches, "times": times,
+            "peak": torch.cuda.max_memory_allocated(),
+            "digest_all": pmesh.param_digest(list(model.parameters())),
+            "digest_replicated": pmesh.param_digest(pmesh.replicated_params(model)),
+            "philox": pmesh.param_digest([dump]), "seed": seeds[0].tolist()}
+
+
+def _on_rank_zero_alone(mesh_free_work):
+    """Run ``mesh_free_work`` on rank 0 alone while the other ranks wait at a
+    barrier, so that it has the card to itself; its result on rank 0."""
+    import torch.distributed as dist
+
+    out = mesh_free_work() if dist.get_rank() == 0 else None
+    dist.barrier()
+    return out
+
+
+def _parallel_job(run: Path) -> dict:
+    """One rank of phase 15's group of 2: one rank's references (phase 3's
+    forward, the f32 step, phase 4's file), then TP 2 (the forward on 2
+    local heads, the f32 step, the default steps), then DP 2 (the f32
+    step, the default steps, one gradient all-reduce, sharded serving)."""
+    from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG
+    from audio_to_midi_tpu_torch.infer import _parity_precision, load_params, transcribe_file
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.parallel import mesh as pmesh
+
+    cfg = DEFAULT_CONFIG
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    audio = (torch.randn(BATCH, 2, 80_000, generator=gen) * 0.5).cuda()   # phase 3's windows
+    rope = model_lib.make_rope(cfg.model, "cuda")
+
+    def forwards(model):
+        probs, launches = {}, {}
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            m = model if dt == torch.float32 else model_lib.cast_params(copy.deepcopy(model), dt)
+            with torch.inference_mode(), _parity_precision(dt):
+                reset_launches()
+                probs[name] = model_lib.forward(m, cfg.model, audio.to(dt), rope)[1].float()
+                torch.cuda.synchronize()
+                launches[name] = read_launches()
+        return probs, launches
+
+    single, _ = forwards(seeded_model(model_lib, cfg))
+    single_step = _parity_step(None)
+    # One rank's default steps with the card to itself, for the times.
+    out["one rank steps"] = _on_rank_zero_alone(lambda: _default_steps(None))
+
+    tp = pmesh.make_mesh(1, model_size=2)
+    sharded = pmesh.place_model(seeded_model(model_lib, cfg), tp, cfg.model.num_transformer_heads)
+    probs, launches = forwards(sharded)
+    out["tp forward"] = {"err": {k: max_err(probs[k], single[k]) for k in probs},
+                         "finite": all(bool(torch.isfinite(p).all()) for p in probs.values()),
+                         "shape": tuple(probs["f32"].shape), "launches": launches}
+    del sharded, probs
+    out["tp step"] = _parity_step(tp)
+    out["tp control"] = _parity_step(tp, control=True)
+    out["tp steps"] = _default_steps(tp)
+
+    dp = pmesh.make_mesh(1)
+    out["dp step"] = _parity_step(dp)
+    out["dp control"] = _parity_step(dp, control=True)
+    out["dp steps"] = _default_steps(dp)
+    flat = torch.zeros(model_lib.param_count(seeded_model(model_lib, cfg)), device="cuda")
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.all_reduce_(flat, pmesh.DATA_AXIS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["all_reduce"] = {"times": times[1:], "numel": flat.numel()}
+
+    wav = WORK / "synth.wav"
+    m32 = load_params(WORK / "params.npz", cfg, "cuda", torch.float32)
+    ref, ref_dpf, ref_events = transcribe_file(m32, cfg, wav)
+    reset_launches()
+    stitched, dpf, events = transcribe_file(m32, cfg, wav, mesh=dp)
+    torch.cuda.synchronize()
+    out["serving"] = {"err": float(np.abs(stitched - ref).max()), "dpf": (dpf, ref_dpf),
+                      "events": events == ref_events, "n_events": len(events),
+                      "near": min(float(np.abs(ref - t).min()) for t in EVENT_THRESHOLDS),
+                      "launches": read_launches()}
+    out["single step"] = single_step
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _step_readings(single: dict, got: dict, before: dict) -> dict:
+    """A sharded f32 parity step against one rank's: the loss's relative
+    difference, the largest gradient difference over the leaf's largest
+    gradient, the largest update difference, the share of leaves the
+    sharded step moved, and one rank's largest update."""
+    grad = upd = largest = 0.0
+    moved = 0
+    for k, ref in single["params"].items():
+        upd_ref, upd_got = ref - before[k], got["params"][k] - before[k]
+        moved += bool(np.any(upd_got != 0))
+        upd = max(upd, float(np.abs(upd_got - upd_ref).max()))
+        largest = max(largest, float(np.abs(upd_ref).max()))
+        g_ref = single["grads"][k]
+        grad = max(grad, float(np.abs(got["grads"][k] - g_ref).max())
+                   / max(float(np.abs(g_ref).max()), 1e-30))
+    return {"loss": abs(got["loss"] - single["loss"]) / abs(single["loss"]), "grad": grad,
+            "update": upd, "moved": moved / len(single["params"]), "largest": largest}
+
+
+def _step_verdicts(r: dict) -> dict[str, bool]:
+    return {"loss": r["loss"] <= PARALLEL_LOSS_TOL, "gradients": r["grad"] <= GRAD_TOL,
+            "updates": r["update"] <= UPDATE_ATOL, "moved": r["moved"] > 0.8}
+
+
+def _describe_step(r: dict) -> str:
+    return (f"loss relative {r['loss']:.2e} (tol {PARALLEL_LOSS_TOL:.0e}); gradients "
+            f"{r['grad']:.2e} of the leaf's largest (tol {GRAD_TOL:.0e}); updates largest "
+            f"difference {r['update']:.2e} (tol {UPDATE_ATOL:.0e}; one rank's largest update "
+            f"{r['largest']:.2e}); {r['moved']:.0%} of the leaves moved")
+
+
+def check_parallel(cfg, card: str, one_member_times: list[float]) -> dict[str, dict[str, int]]:
+    """Phase 15: parallel/ on the card, every rank a process sharing it over
+    gloo (NCCL takes one rank per card), spawned, with a rendezvous and a
+    join deadline.
+
+    1. kernels 1, 2, 9, 7, 15, 12, 16, 13 on 2 heads of 64 against their
+       plain versions (:func:`check_two_heads`);
+    2. TP 2: phase 3's forward on 2 local heads, bf16 and f32, against one
+       rank's, with 8 launches of kernels 1 and 2 per forward per rank; one
+       f32 dropout-free step against one rank's (loss, gradients, updates),
+       with 16 launches of kernels 9 and 7 per rank, and the same step with
+       a clip norm that skips the model all-reduce, which the check must
+       reject; four default steps (dropout
+       0.1, bf16) with 16 launches of each of 15, 12, 16, 13 and 4 of 20 per
+       rank per step, the replicated parameters bit for bit alike on both
+       ranks, and the two ranks' attention seeds' Philox bytes different;
+    3. DP 2: the same f32 step, and its control without the division over
+       "data", then four default steps (the minibatch
+       32 x 2, one per step: 8 launches of each seeded kernel and 2 of 20
+       per rank per step), every parameter bit for bit alike;
+    4. cli/train_cli.py on 2 processes (--coordinator-address,
+       --num-processes, --process-id, --dist-backend gloo) at the default
+       config, the ring and the augmentation on the card, 4 steps: the
+       lockstep refresh on both ranks, the same parameter digest, each
+       checkpoint written once (by rank 0), a resume at latest + 1; the same
+       with model_parallel_size 2; and --ensemble-size 4 over 4 processes
+       with evaluation and evolution at steps 2 and 4, (4,) leaves on disk;
+    5. transcribe_file over 2 data ranks on phase 4's WAV, against one
+       rank's (phase 4's tolerance), the events identical;
+    6. ms per step per layout beside phase 13's one rank, the peak device
+       memory per rank, one gradient all-reduce over gloo.  The ranks share
+       one card: these numbers are the port's overheads, not scaling."""
+    from audio_to_midi_tpu_torch import convert
+    from audio_to_midi_tpu_torch.config import config_to_json
+    from audio_to_midi_tpu_torch.models import model as model_lib
+    from audio_to_midi_tpu_torch.ops import attention_kernels as ak
+
+    started = time.perf_counter()
+    two_heads = check_two_heads(ak)
+    log(f"phase 15.1: {len(two_heads)} cases on 2 heads held against their plain versions")
+    before = convert.params_to_jax(seeded_model(model_lib, cfg))
+    ranks = run_group(2, _rank_entry, ("_parallel_job",), "tp2_dp2")
+    launches: dict[str, dict[str, int]] = {}
+    names = list(read_launches())
+    sum_ranks = lambda counts: {k: sum(c[k] for c in counts) for k in names}
+
+    single = ranks[0]["single step"]
+    for layout in ("tp", "dp"):
+        if layout == "tp":
+            for r, got in enumerate(rank["tp forward"] for rank in ranks):
+                for dt, err in got["err"].items():
+                    want = {k: 0 for k in names} | {"global_attention": 8, "local_two_phase": 8}
+                    ok = (got["finite"] and err <= FORWARD_TOL[dt] and got["launches"][dt] == want
+                          and got["shape"] == (BATCH, SEQ, 90))
+                    log(f"tp2 forward rank {r} {dt}: against one rank max_abs_err {err:.3e} (tol "
+                        f"{FORWARD_TOL[dt]:.0e}), launches "
+                        f"{ {k: v for k, v in got['launches'][dt].items() if v} } "
+                        f"{'OK' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"the TP 2 forward ({dt}) disagrees with one rank")
+            launches["tp2 forward"] = sum_ranks([rank["tp forward"]["launches"][dt]
+                                                 for rank in ranks for dt in ("bf16", "f32")])
+        steps = [r[f"{layout} step"] for r in ranks]
+        # 2 minibatches per rank (of 8 under TP, of 4 under DP), 8 layers each.
+        want = {k: 0 for k in names} | {"global_attention": 16, "local_two_phase": 16,
+                                         "global_attention_grads": 16,
+                                         "local_two_phase_grads": 16, "stage_bwd": 4}
+        for r, got in enumerate(steps):
+            readings = _step_readings(single, got, before)
+            ok = got["valid"] and all(_step_verdicts(readings).values())
+            log(f"{layout}2 f32 step rank {r}: loss {got['loss']:.4f} vs one rank "
+                f"{single['loss']:.4f}; {_describe_step(readings)}; launches "
+                f"{ {k: v for k, v in got['launches'].items() if v} } "
+                f"{'OK' if ok and got['launches'] == want else 'FAIL'}")
+            if not ok or got["launches"] != want:
+                raise AssertionError(f"the {layout.upper()} 2 f32 step disagrees with one rank "
+                                     f"or launched {got['launches']}, expected {want}")
+        launches[f"{layout}2 f32 step"] = sum_ranks([s["launches"] for s in steps])
+        # The broken control must fail: TP's clip shows in the updates
+        # only, DP's missing division in the gradients (Adam's first step
+        # hardly sees a gradient's scale).
+        must_fail = "updates" if layout == "tp" else "gradients"
+        for r, got in enumerate(rank[f"{layout} control"] for rank in ranks):
+            readings = _step_readings(single, got, before)
+            failed = [k for k, ok in _step_verdicts(readings).items() if not ok]
+            log(f"{layout}2 f32 control rank {r} ({CONTROLS[layout]}): "
+                f"{_describe_step(readings)}; fails {failed} "
+                f"{'OK' if must_fail in failed else 'FAIL'}")
+            if must_fail not in failed:
+                raise AssertionError(f"the {layout.upper()} 2 parity check passes a step with "
+                                     f"{CONTROLS[layout]}")
+
+        runs = [r[f"{layout} steps"] for r in ranks]
+        per = 16 if layout == "tp" else 8
+        want = {k: 0 for k in names} | {k: per for k in (
+            "global_attention_dropout", "local_two_phase_dropout", "global_attention_grads_prng",
+            "local_two_phase_grads_prng")} | {"stage_bwd": per // 4}
+        for r, got in enumerate(runs):
+            wrong = [i for i, c in enumerate(got["launches"]) if c != want]
+            if wrong or not all(math.isfinite(x) for x in got["losses"]):
+                raise AssertionError(f"{layout}2 default steps, rank {r}: losses {got['losses']}, "
+                                     f"steps {wrong} launched otherwise than {want}")
+        same_rep = runs[0]["digest_replicated"] == runs[1]["digest_replicated"]
+        same_all = runs[0]["digest_all"] == runs[1]["digest_all"]
+        seeds_differ = runs[0]["philox"] != runs[1]["philox"]
+        log(f"{layout}2 default steps (bf16, dropout 0.1, batch 64): losses "
+            + " | ".join(", ".join(f"{x:.2f}" for x in got["losses"]) for got in runs)
+            + f"; replicated parameters alike on both ranks {same_rep}, all {same_all}; first "
+            f"attention seeds {runs[0]['seed']} / {runs[1]['seed']}, their Philox bytes differ "
+            f"{seeds_differ}; per rank per step "
+            f"{ {k: v for k, v in want.items() if v} }")
+        if not same_rep or (layout == "dp" and not same_all) or (layout == "tp" and same_all):
+            raise AssertionError(f"{layout}2: the replicas fell out of step")
+        if layout == "tp" and not seeds_differ:
+            raise AssertionError("tp2: both model ranks drew the same attention masks")
+        if layout == "dp" and runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError("dp2: the ranks disagree on the loss")
+        launches[f"{layout}2 default steps"] = sum_ranks(
+            [c for got in runs for c in got["launches"]])
+        times = [t for got in runs for t in got["times"][1:]]
+        alone = ranks[0]["one rank steps"]
+        log(f"{layout}2 default steps on one card shared by 2 ranks: {_quartiles(times)} per "
+            f"step (steps 2-4 of both ranks, host clock, no feed) beside one rank's "
+            f"{_quartiles(alone['times'][1:])} (the same steps with the card to itself, this "
+            f"call); peak device memory per rank "
+            + ", ".join(f"{got['peak'] / 2**30:.2f}" for got in runs)
+            + f" GiB (one rank: {alone['peak'] / 2**30:.2f}); on {card} (the ranks share one "
+            "card: overheads, not scaling)")
+
+    serving = [r["serving"] for r in ranks]
+    for r, got in enumerate(serving):
+        ok = got["err"] <= FORWARD_TOL["f32"] and (got["events"]
+                                                    or got["near"] <= FORWARD_TOL["f32"])
+        log(f"sharded serving rank {r}: phase 4's WAV over 2 data ranks against one rank, "
+            f"stitched max_abs_err {got['err']:.3e} (tol {FORWARD_TOL['f32']:.0e}), "
+            f"{got['n_events']} events, identical {got['events']} {'OK' if ok else 'FAIL'}")
+        if not ok or got["dpf"][0] != got["dpf"][1]:
+            raise AssertionError("sharded serving disagrees with one rank")
+    launches["sharded serving"] = sum_ranks([got["launches"] for got in serving])
+    reduce_times = [t for r in ranks for t in r["all_reduce"]["times"]]
+    log(f"one gradient all-reduce over gloo ({ranks[0]['all_reduce']['numel']:,} f32 on the "
+        f"card, 2 ranks sharing it): {_quartiles(reduce_times)}; on {card}")
+
+    # --- the multi-host CLI ---
+    train_dir, val_dir = WORK / "train_set", WORK / "val_set"
+    for name, world, train, extra in (
+            ("cli dp2", 2, {}, []),
+            ("cli tp2", 2, {"model_parallel_size": 2}, []),
+            ("cli ensemble axis", 4, {"ensemble_size": 4, "testset_loss_every": 2},
+             ["--testset", f"val={val_dir}"])):
+        run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, num_steps=4, print_every=1, checkpoint_every=2,
+            testset_loss_every=train.pop("testset_loss_every", 1000), **train))
+        cfg_path = WORK / f"{name.replace(' ', '_')}.json"
+        cfg_path.write_text(config_to_json(run_cfg))
+        ck = WORK / f"{name.replace(' ', '_')}_ck"
+        shutil.rmtree(ck, ignore_errors=True)
+        resumes = (False, True) if name == "cli dp2" else (False,)
+        for resume in resumes:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            argv = ["--dataset", str(train_dir), "--config", str(cfg_path), "--checkpoint",
+                    str(ck), "--no-tensorboard", "--device", "cuda", "--dist-backend", "gloo",
+                    "--coordinator-address", f"127.0.0.1:{port}", "--num-processes",
+                    str(world), *extra] + (["--steps", "5"] if resume else [])
+            runs = run_group(world, _cli_rank, (argv,),
+                             name.replace(" ", "_") + ("_resume" if resume else ""))
+            check_cli_ranks(name, runs, resume, ck, run_cfg, names, card, launches,
+                            one_member_times)
+    log(f"phase 15 took {time.perf_counter() - started:.1f} s")
+    return launches
+
+
+def check_cli_ranks(name, runs, resume, ck, run_cfg, names, card, launches,
+                    one_rank: list[float]) -> None:
+    """The ranks of one multi-process train_cli run: steps, launches per
+    step per rank, the lockstep refresh, the digests, the checkpoint writes
+    and, for a population, the evaluations and evolutions."""
+    from audio_to_midi_tpu_torch.train import checkpoint as ckpt
+
+    world = len(runs)
+    e = run_cfg.train.ensemble_size
+    data = world // (run_cfg.train.model_parallel_size * e)
+    minibatch = min(run_cfg.train.minibatch_size_per_device * data, run_cfg.train.batch_size)
+    minibatches = run_cfg.train.batch_size // minibatch   # per rank per step
+    seeded = ("global_attention_dropout", "local_two_phase_dropout",
+              "global_attention_grads_prng", "local_two_phase_grads_prng")
+    want = {k: run_cfg.model.num_transformer_layers * minibatches for k in seeded} | {
+        "stage_bwd": 2 * minibatches}
+    steps = [5] if resume else [1, 2, 3, 4]
+    digests = set()
+    for r, got in enumerate(runs):
+        got_steps = [h[0] for h in got["hooks"]]
+        deltas, previous = [], {k: 0 for k in names}
+        for _step, counts, _loss, _t in got["hooks"]:
+            deltas.append({k: counts[k] - previous[k] for k in want})
+            previous = counts
+        digest = [m for m in got["log"] if "parameter digest" in m]
+        digests |= {m.split("parameter digest ")[1] for m in digest}
+        losses = [x for h in got["hooks"] for x in np.reshape(h[2], -1)]
+        ok = (got["rc"] == 0 and got_steps == steps and all(d == want for d in deltas)
+              and got["lockstep"] == len(steps) and len(digest) == 1
+              and all(math.isfinite(x) for x in losses))
+        log(f"{name}{' resume' if resume else ''} rank {r}: steps {got_steps}, lockstep "
+            f"refreshes {got['lockstep']}, launches per step {deltas[-1]} (expected {want}), "
+            f"losses {', '.join(f'{x:.2f}' for x in losses)}, checkpoint writes {got['saves']}, "
+            f"evaluations {len(got['evals'])}, evolutions {got['evolved']}, peak device memory "
+            f"{got['peak'] / 2**30:.2f} GiB {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} rank {r}: {got['log'][-20:]}")
+        if (r == 0) != bool(got["saves"]):
+            raise AssertionError(f"{name}: rank {r} wrote checkpoints {got['saves']}")
+    if len(digests) != 1:
+        raise AssertionError(f"{name}: the ranks end with different parameters {digests}")
+    on_disk = ckpt.CheckpointManager(ck).all_steps()
+    want_disk = [2, 4, 5] if resume else [2, 4]
+    flat, _ = ckpt.restore_raw(ck)
+    lead = {v.shape[0] for v in flat.values()}
+    if on_disk != want_disk or (e > 1 and lead != {e}) or runs[0]["saves"] != (
+            [5] if resume else [2, 4]):
+        raise AssertionError(f"{name}: checkpoints {on_disk}, leading axes {lead}")
+    if e > 1:
+        for got in runs:
+            if len(got["evals"]) != 2 or len(got["evolved"]) != 2 or got["evolved"] != runs[0][
+                    "evolved"]:
+                raise AssertionError(f"{name}: evaluations {got['evals']}, evolutions "
+                                     f"{got['evolved']}")
+    # ms per step between the hooks, the evaluations and evolutions taken out.
+    times = [_interval_without(got["spans"], a[3], b[3])[0] for got in runs
+             for a, b in zip(got["hooks"], got["hooks"][1:])]
+    # The refreshes of the same steps: waiting for the rank's feed, and the
+    # pushes (the gather over the ranks, queuing the copy).
+    feed, push = ([r[i] for got in runs for r in got["refresh"][1:]] for i in (0, 1))
+    log(f"{name}{' resume' if resume else ''}: {world} ranks, one parameter digest, "
+        f"checkpoints {on_disk} written by rank 0"
+        + (f", leaves lead with ({e},)" if e > 1 else "")
+        + (f"; {_quartiles(times)} per step (steps 2-4 of every rank, host clock, evaluations "
+           f"and evolutions taken out) beside phase 13's one rank {_quartiles(one_rank)}; peak "
+           "device memory per rank " + ", ".join(f"{got['peak'] / 2**30:.2f}" for got in runs)
+           + " GiB; the lockstep refresh of those steps: waiting for the feed "
+           + _quartiles(feed) + ", the pushes " + _quartiles(push) if times else "")
+        + f"; on {card} (the ranks share one card: overheads, not scaling)")
+    key = name + (" resume" if resume else "")
+    launches[key] = {k: sum(got["hooks"][-1][1][k] for got in runs) for k in names}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2654,26 +3386,35 @@ def main() -> int:
     log(f"training entry main-path launches: {training_entry}")
     population = check_population(cfg, card, one_member_times)
     log(f"population main-path launches: {population}")
+    parallel = check_parallel(cfg, card, one_member_times)
+    log(f"parallel main-path launches (summed over the ranks): {parallel}")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
              **fused_serving, **rw_paths, **file_serving, **native_serving, **training_entry,
-             **population}
+             **population, **parallel}
+    # Phase 15's paths: the sharded steps and the multi-process CLIs.
+    sharded_f32 = ("tp2 f32 step", "dp2 f32 step")
+    sharded_default = ("tp2 default steps", "dp2 default steps", "cli dp2", "cli dp2 resume",
+                       "cli tp2", "cli ensemble axis")
     on_path = {
-        "global_attention": ("serving", "training", "serving a member", "phase 14 clis"),
-        "local_two_phase": ("serving", "training", "serving a member", "phase 14 clis"),
-        "global_attention_grads": ("training", "bits"), "local_two_phase_grads": ("training",),
+        "global_attention": ("serving", "training", "serving a member", "phase 14 clis",
+                             "tp2 forward", "sharded serving", *sharded_f32),
+        "local_two_phase": ("serving", "training", "serving a member", "phase 14 clis",
+                            "tp2 forward", "sharded serving", *sharded_f32),
+        "global_attention_grads": ("training", "bits", *sharded_f32),
+        "local_two_phase_grads": ("training", *sharded_f32),
         "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed",
-                                     "train_cli ensemble", "ensemble step"),
+                                     "train_cli ensemble", "ensemble step", *sharded_default),
         "local_two_phase_dropout": ("dropout", "train_cli ring", "train_cli host feed",
-                                    "train_cli ensemble", "ensemble step"),
+                                    "train_cli ensemble", "ensemble step", *sharded_default),
         "global_attention_grads_prng": ("dropout", "train_cli ring", "train_cli host feed",
-                                        "train_cli ensemble", "ensemble step"),
+                                        "train_cli ensemble", "ensemble step", *sharded_default),
         "local_two_phase_grads_prng": ("dropout", "train_cli ring", "train_cli host feed",
-                                       "train_cli ensemble", "ensemble step"),
+                                       "train_cli ensemble", "ensemble step", *sharded_default),
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
         "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed",
-                      "train_cli ensemble", "ensemble step"),
+                      "train_cli ensemble", "ensemble step", *sharded_f32, *sharded_default),
         "stage_fwd": ("pallas_stage serving",),
         "attention_block": ("pallas_block serving",),
         "fused_local_sublayer": ("pallas_fused serving",),
@@ -2685,7 +3426,7 @@ def main() -> int:
         "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream",
                      "native file 300 s", "train_cli ring", "train_cli host feed",
                      "cli from a training checkpoint", "train_cli ensemble",
-                     "serving a member", "phase 14 clis"),
+                     "serving a member", "phase 14 clis", "sharded serving"),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")

@@ -496,12 +496,12 @@ def test_loop_with_evaluation_and_evolution(dataset, monkeypatch):
     seen = {}
     real = pt_loop.evolve_ensemble_
 
-    def traced(model, scores, rng):
+    def traced(model, scores, rng, mesh=None):
         seen["before"] = convert.params_to_jax(model)
         seen["moments"] = [t.clone() for chain in opt.members
                            for t in (chain._mu_flat, chain._nu_flat)]
         seen["scores"] = np.asarray(scores)
-        seen["regenerated"] = real(model, scores, rng)
+        seen["regenerated"] = real(model, scores, rng, mesh)
         seen["after"] = convert.params_to_jax(model)
         return seen["regenerated"]
 

@@ -243,12 +243,13 @@ def test_train_cli_checkpoints_resumes_and_serves(dataset, tmp_path, caplog):
                                str(cfg_path), "--device", "cpu", "--overlap", "0.1"]) == 0
     read_midi_file(out)
 
-    # Only the multi-host flags still raise (tests/test_torch_cli_tools.py
-    # trains a population, f16 and the init surgery through the CLI).
-    for flag, value in (("--coordinator-address", "localhost:1"), ("--num-processes", "2"),
-                        ("--process-id", "0")):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            train_cli.main(base + [flag, value])
+    # The multi-host flags train over several processes
+    # (tests/test_torch_parallel.py); --num-processes without the other two
+    # raises by name, as one process with --num-processes 1 is a no-op.
+    with pytest.raises(ValueError, match="--coordinator-address and --process-id"):
+        train_cli.main(base + ["--num-processes", "2"])
+    with pytest.raises(ValueError, match="--coordinator-address and --process-id"):
+        train_cli.main(base + ["--num-processes", "2", "--coordinator-address", "localhost:1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_cli.main(base[:-2])
