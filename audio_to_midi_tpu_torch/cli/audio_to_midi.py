@@ -4,9 +4,11 @@ directory, through the PyTorch port.
 Usage:
   python -m audio_to_midi_tpu_torch.cli.audio_to_midi <audio> <output.mid>
       [--checkpoint DIR|FILE] [--config JSON] [--overlap S] [--device cuda|cpu]
-      [--stream]
+      [--stream] [--visualize-audio]
   python -m audio_to_midi_tpu_torch.cli.audio_to_midi <dir> --validation
       [--individual] [--checkpoint DIR|FILE] [--config JSON] [--device cuda|cpu]
+  torchrun --nproc-per-node N -m audio_to_midi_tpu_torch.cli.audio_to_midi
+      <audio> <output.mid> [--dist-backend nccl|gloo] [...]
 
 ``--checkpoint`` is a training checkpoint directory (its latest step, as
 ``cli/train_cli.py`` writes it; default ``./audio_to_midi_checkpoints``,
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 
 
@@ -49,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="Device to run the model on (default: cuda)")
+    parser.add_argument("--visualize-audio", action="store_true",
+                        help="Visualize audio samples and event probabilities")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="Collectives' backend under torchrun (default: nccl with "
+                             "--device cuda, gloo with --device cpu)")
     parser.add_argument(
         "--stream", action="store_true",
         help="Chunked (streaming) transcription: copy/infer/stitch in window chunks -- "
@@ -75,13 +83,15 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.output is None and not args.validation:
         parser.error("the output MIDI file is required without --validation")
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if ranks > 1 and (args.stream or args.visualize_audio or args.validation):
+        parser.error("--stream, --visualize-audio and --validation run on one rank")
 
     import torch
 
     from ..config import load_config
     from ..infer import transcribe_file, transcribe_file_streaming
     from ..models import model as model_lib
-    from ..ops.midi_io import write_midi_file
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass --device cpu to run on the CPU")
@@ -98,14 +108,16 @@ def main(argv=None) -> int:
         num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
         if args.individual:
             loss_map = compute_testset_loss_individual(
-                model, cfg, Path(args.path), num_frames, rope, ensemble=False)
+                model, cfg, Path(args.path), num_frames, rope, ensemble=False,
+                generate_visualizations=False)
             for sample_name, losses in loss_map.items():
                 print(f"{sample_name}\t{losses['loss']}\t{losses['hit_rate']}\t"
                       f"{losses['eventized_diff']}\t{losses['phantom_note_diff']}\t"
                       f"{losses['missed_note_diff']}")
         else:
             loss, hit_rate, eventized_diff, _ = compute_testset_loss(
-                model, cfg, Path(args.path), num_frames, rope, ensemble=False)
+                model, cfg, Path(args.path), num_frames, rope, ensemble=False,
+                generate_visualizations=False)
             print(f"Validation loss: {float(loss[0])}")
             print(f"Hit rate: {float(hit_rate[0])}")
             print(f"Eventized diff: {float(eventized_diff[0])}")
@@ -114,13 +126,74 @@ def main(argv=None) -> int:
     audio_file = Path(args.path)
     if not audio_file.exists():
         raise FileNotFoundError(f"The specified audio file {audio_file} does not exist!")
+    if ranks > 1:
+        return _transcribe_on_ranks(args, cfg, overlap, checkpoint, audio_file)
     model = load_model(checkpoint, cfg, device)
-    transcribe = transcribe_file_streaming if args.stream else transcribe_file
-    stitched, duration_per_frame, events = transcribe(model, cfg, audio_file, overlap=overlap)
+    if args.visualize_audio:
+        from ..data.loader import load_and_slice_full_audio
+        from ..infer import predict_and_stitch
+        from ..ops.eventize import extract_events
+        from ..utils.visualize import plot_output_probs, visualize_sample
+
+        windows, window_duration = load_and_slice_full_audio(
+            audio_file, overlap=overlap, sample_rate=cfg.data.sample_rate,
+            window_duration=cfg.data.model_audio_length)
+        individual_probs, stitched, duration_per_frame = predict_and_stitch(
+            model, cfg, windows, window_duration, overlap=overlap)
+        for i in range(individual_probs.shape[0]):
+            visualize_sample(str(audio_file), windows[i], individual_probs[i])
+        plot_output_probs(str(audio_file), duration_per_frame, stitched)
+        events = extract_events(stitched)
+    else:
+        transcribe = transcribe_file_streaming if args.stream else transcribe_file
+        stitched, duration_per_frame, events = transcribe(model, cfg, audio_file,
+                                                          overlap=overlap)
+    _report(stitched, duration_per_frame, events, args.output)
+    if args.visualize_audio:
+        # Block after all work is done so that the figures stay on screen.
+        import matplotlib.pyplot as plt
+
+        plt.show(block=True)
+    return 0
+
+
+def _report(stitched, duration_per_frame: float, events, output) -> None:
+    from ..ops.midi_io import write_midi_file
+
     print(f"Stitched probs shape: {stitched.shape}")
     print(f"Extracted {len(events)} events")
-    print(f"Writing MIDI file to {args.output}")
-    write_midi_file(events, duration_per_frame, args.output)
+    print(f"Writing MIDI file to {output}")
+    write_midi_file(events, duration_per_frame, output)
+
+
+def _transcribe_on_ranks(args, cfg, overlap: float, checkpoint: Path, audio_file: Path) -> int:
+    """This process's rank of a torchrun group: the file's windows split
+    over the ranks along ``"data"``; rank 0 reports and writes."""
+    import torch
+    import torch.distributed as dist
+
+    from ..infer import transcribe_file
+    from ..parallel.mesh import (build_kernels_once, initialize_multihost, make_mesh,
+                                 rank_device)
+
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    initialize_multihost(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                         int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                         backend=backend)
+    try:
+        mesh = make_mesh(1)
+        device = rank_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+            build_kernels_once(mesh)
+        model = load_model(checkpoint, cfg, device)
+        stitched, duration_per_frame, events = transcribe_file(model, cfg, audio_file,
+                                                               overlap=overlap, mesh=mesh)
+        if mesh.rank == 0:
+            _report(stitched, duration_per_frame, events, args.output)
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

@@ -4,15 +4,15 @@ surface), through the PyTorch port.
 Usage:
   python -m audio_to_midi_tpu_torch.cli.infer_cli <input_file> [--midi OUT]
       [--validation] [--checkpoint DIR|FILE] [--overlap S] [--config JSON]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--plot]
 
 Transcribes ``input_file`` and prints its frame count and events, writing
 them to ``--midi`` when given; with ``--validation`` ``input_file`` is a
 labelled directory and the command prints its ``Average loss:``.  The
 checkpoint defaults to ``./audio_to_midi_checkpoints``; the overlap to the
 config's ``infer.window_overlap`` when ``--config`` is given, else 0.25 s
-as in the reference.  ``--plot`` waits for the port's
-``utils/visualize.py`` and raises.  ``--device`` defaults to ``cuda``;
+as in the reference.  ``--plot`` shows the stitched probabilities
+(matplotlib) once the work is done.  ``--device`` defaults to ``cuda``;
 without a CUDA device the command fails unless ``--device cpu`` is given.
 """
 
@@ -46,9 +46,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.plot:
-        raise NotImplementedError("--plot needs utils/visualize.py, which the port does not "
-                                  "have yet")
 
     import torch
 
@@ -77,7 +74,8 @@ def main(argv=None) -> int:
         rope = model_lib.make_rope(cfg.model, device)
         num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
         loss_map = compute_testset_loss_individual(
-            model, cfg, Path(args.input_file), num_frames, rope, ensemble=False)
+            model, cfg, Path(args.input_file), num_frames, rope, ensemble=False,
+            generate_visualizations=False)
         losses = np.stack([v["loss"] for v in loss_map.values()])
         print("Average loss: ", float(np.mean(losses)))
         return 0
@@ -88,6 +86,13 @@ def main(argv=None) -> int:
     if args.midi:
         write_midi_file(events, dpf, args.midi)
         print(f"Wrote {args.midi}")
+    if args.plot:
+        from ..utils.visualize import plot_output_probs
+
+        plot_output_probs("Inferred probs", dpf, stitched)
+        import matplotlib.pyplot as plt
+
+        plt.show(block=True)
     return 0
 
 

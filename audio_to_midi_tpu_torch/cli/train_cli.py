@@ -73,8 +73,8 @@ def main(argv=None) -> int:
     from ..data.loader import create_dataset_loader
     from ..metrics import configure_tensorboard
     from ..models import model as model_lib
-    from ..parallel.mesh import (DATA_AXIS, initialize_multihost, make_mesh, place_model,
-                                 rank_device, world)
+    from ..parallel.mesh import (DATA_AXIS, build_kernels_once, initialize_multihost,
+                                 make_mesh, place_model, rank_device, world)
     from ..train import checkpoint as ckpt
     from ..train import loop
     from ..train.init_surgery import apply_init_surgery_
@@ -115,7 +115,7 @@ def main(argv=None) -> int:
             torch.cuda.set_device(device)
         mesh = make_mesh(cfg.train.ensemble_size, model_size=cfg.train.model_parallel_size)
         if device.type == "cuda":
-            _build_kernels_once(mesh)
+            build_kernels_once(mesh)
     data_extent = mesh.extent(DATA_AXIS) if mesh is not None else 1
     minibatch = min(cfg.train.minibatch_size_per_device * data_extent, cfg.train.batch_size)
     logging.info("Training on %d device(s), batch %d, minibatch %d", world_size,
@@ -189,17 +189,6 @@ def main(argv=None) -> int:
         if world_size > 1:
             torch.distributed.destroy_process_group()
     return 0
-
-
-def _build_kernels_once(mesh) -> None:
-    """Rank 0 builds the CUDA kernels while the others wait at a barrier,
-    so that N ranks do not each start the compilers; then every rank loads
-    the library."""
-    from ..ops import cuda_build
-
-    if mesh.rank == 0:
-        cuda_build.build()
-    mesh.barrier()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Dataset smoke harness (reference audio_to_midi_dataset.py:514-566): iterate
-batches with the full transform settings and print shapes and statistics.
+batches with the full transform settings and print shapes and statistics;
+--visualize saves a figure of each batch's first sample
+(sample_batch<i>.png, matplotlib).
 
 Usage: python -m audio_to_midi_tpu_torch.data DATASET_DIR [--batches 5]
-       [--batch-size 4] [--no-transforms]
+       [--batch-size 4] [--no-transforms] [--visualize]
 """
 
 import argparse
@@ -20,6 +22,7 @@ def main(argv=None) -> int:
     p.add_argument("--batches", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--no-transforms", action="store_true")
+    p.add_argument("--visualize", action="store_true")
     args = p.parse_args(argv)
 
     cfg = DEFAULT_CONFIG
@@ -40,6 +43,13 @@ def main(argv=None) -> int:
                 f"[{np.abs(audio).max():.3f} peak]  events {events.shape} "
                 f"[{float(np.asarray(events, np.float32).mean()):.4f} mean]"
             )
+            if args.visualize:
+                from ..utils.visualize import visualize_sample
+
+                fig = visualize_sample(f"batch{i}", audio[0], events[0])
+                out = Path(f"sample_batch{i}.png")
+                fig.savefig(out)
+                print(f"  wrote {out}")
     return 0
 
 

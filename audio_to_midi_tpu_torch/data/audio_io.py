@@ -11,13 +11,19 @@ round trip of the reference's decode (python.rs:236-264).
 suffixes it decodes (``NATIVE_SUFFIXES``).  At the model rate both paths
 give the same bits; a file at another rate is resampled by the plane's own
 filter, which differs from scipy's (at 44.1 kHz by up to 0.84 on
-unit-variance audio).  Compressed formats (through ffmpeg) are not ported
-yet.
+unit-variance audio).  Any other suffix (aac, mp3, ...) is decoded by an
+ffmpeg subprocess where the binary exists, with the reference's commands:
+the stereo channel split, the AAC encoder-delay trim of 2 * 1024 samples at
+the source rate (python.rs:183-191) and ffmpeg's ``-ar`` resample.
 """
 
 from __future__ import annotations
 
+import shutil
 import struct
+import subprocess
+import tempfile
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -156,6 +162,70 @@ def _decode_aiff(data: bytes) -> tuple[np.ndarray, int]:
 
 
 # ---------------------------------------------------------------------------
+# ffmpeg fallback (compressed formats; the reference's pipeline)
+# ---------------------------------------------------------------------------
+
+
+def _have_ffmpeg() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def _ffprobe_sample_rate(path: str) -> float:
+    out = subprocess.run(
+        [
+            "ffprobe", path, "-show_streams", "-show_entries",
+            "stream=sample_rate", "-of", "default=noprint_wrappers=1:nokey=1",
+            "-v", "quiet",
+        ],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _ffmpeg_command(
+    path: str, sample_rate: int, src_rate: float | None
+) -> tuple[list[str], Path, Path]:
+    """The reference's decode command (python.rs:173-266): stereo channel
+    split, the AAC encoder-delay trim of 2*1024 source-rate samples when
+    ``src_rate`` is given (python.rs:183-191), f32le raw outputs at
+    ``sample_rate``.  Pure: testable without the ffmpeg binary."""
+    tmp = Path(tempfile.gettempdir())
+    uid = uuid.uuid4()
+    left_f = tmp / f"audio-to-midi-{uid}_left.raw"
+    right_f = tmp / f"audio-to-midi-{uid}_right.raw"
+
+    audio_filter = "[0:a]channelsplit=channel_layout=stereo[left][right]"
+    cmd = ["ffmpeg"]
+    if src_rate is not None:
+        cmd += ["-c:a", "aac"]
+        delay = (2 * 1024) / src_rate
+        audio_filter += (
+            f"; [left]atrim=start={delay}[left]; [right]atrim=start={delay}[right]"
+        )
+    cmd += [
+        "-i", path, "-filter_complex", audio_filter,
+        "-map", "[left]", "-ar", str(sample_rate), "-f", "f32le", str(left_f),
+        "-map", "[right]", "-ar", str(sample_rate), "-f", "f32le", str(right_f),
+    ]
+    return cmd, left_f, right_f
+
+
+def _decode_via_ffmpeg(path: str, sample_rate: int) -> np.ndarray:
+    """Reference python.rs:173-266: channel split + the AAC delay trim."""
+    src_rate = _ffprobe_sample_rate(path) if path.endswith(".aac") else None
+    cmd, left_f, right_f = _ffmpeg_command(path, sample_rate, src_rate)
+    try:
+        subprocess.run(cmd, capture_output=True, check=True)
+        left = np.fromfile(left_f, np.float32)
+        right = np.fromfile(right_f, np.float32)
+    finally:
+        left_f.unlink(missing_ok=True)
+        right_f.unlink(missing_ok=True)
+    n = min(len(left), len(right))
+    return np.stack([left[:n], right[:n]])
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -170,8 +240,12 @@ def decode_audio(path: str | Path, sample_rate: int) -> np.ndarray:
         x, rate = _decode_wav(Path(path).read_bytes())
     elif suffix in (".aif", ".aiff", ".aifc"):
         x, rate = _decode_aiff(Path(path).read_bytes())
+    elif _have_ffmpeg():
+        return _decode_via_ffmpeg(path, sample_rate)
     else:
-        raise AudioDecodeError(f"cannot decode {path}: the port decodes wav and aif")
+        raise AudioDecodeError(
+            f"cannot decode {path}: native decoders cover wav/aif and no ffmpeg found"
+        )
 
     # Malformed headers can declare rate 0 (zero-divide in the polyphase
     # ratio) or garbage.

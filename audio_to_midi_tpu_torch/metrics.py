@@ -12,7 +12,9 @@ frame labels:
 The eventizer is ``ops/eventize.extract_events_dense`` (the CUDA kernel for
 a tensor on the card, the numpy state machine on the CPU) and the raster
 ``ops/rasterize.rasterize_dense``, so on the card only five numbers come
-back.  ``configure_tensorboard`` mirrors reference metrics.py:5-10 with
+back.  ``generate_visualization`` draws the two-panel figure of the
+inferred and expected rasters (matplotlib, imported then).
+``configure_tensorboard`` mirrors reference metrics.py:5-10 with
 ``torch.utils.tensorboard``.
 """
 
@@ -22,6 +24,7 @@ import datetime
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from .ops.eventize import extract_events_dense
@@ -66,10 +69,8 @@ def detailed_event_loss_device(output_probs: torch.Tensor,
 def detailed_event_loss(output_probs, expected,
                         generate_visualization: bool = False) -> DetailedEventLoss:
     """Host-facing wrapper (reference infer.py:94-158): tensors stay on
-    their device, numpy arrays run on the CPU.  The figure waits for the
-    port's ``utils/visualize.py``."""
-    if generate_visualization:
-        raise NotImplementedError("the metrics' figure waits for the port's utils/visualize.py")
+    their device, numpy arrays run on the CPU.  ``generate_visualization``:
+    the inferred / expected figure in ``.visualization``."""
     probs = torch.as_tensor(output_probs)
     expected = torch.as_tensor(expected)
     out = detailed_event_loss_device(probs, expected)
@@ -82,7 +83,35 @@ def detailed_event_loss(output_probs, expected,
         missed_notes_diff=float(host[2]),
         notes_hit=int(host[3]),
         hit_rate=float(host[4]),
+        visualization=_visualize(_host(probs), _host(expected)) if generate_visualization
+        else None,
     )
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def _visualize(output_probs: np.ndarray, expected: np.ndarray):
+    """Two-panel inferred/expected heatmap (reference infer.py:131-149)."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("the metrics' figure needs matplotlib, which is not installed") from e
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    norm = plt.Normalize(vmin=0.0, vmax=1.0)
+    fig, (ax1, ax2) = plt.subplots(nrows=2, ncols=1)
+    n = output_probs.shape[0]
+    x = np.linspace(0.0, n, n)
+    y = np.arange(output_probs.shape[1])
+    ax1.pcolor(x, y, output_probs.T, cmap="viridis", norm=norm)
+    ax1.set(ylabel="Inferred events")
+    ax2.pcolor(x[: expected.shape[0]], y, expected[:n].T, cmap="viridis", norm=norm)
+    ax2.set(xlabel="Time [frame]", ylabel="Expected events")
+    return fig
 
 
 def configure_tensorboard(run_dir: str | None = None):

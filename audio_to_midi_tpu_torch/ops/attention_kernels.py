@@ -90,6 +90,15 @@ kernel does.  Kernel 10 (RoPE inside) is a RoPE pass over copies of q and
 k, then kernel 1's body on them, so it rounds its bf16 weights where kernel
 1 does.
 
+The forward entries of kernel 1's body (kernels 1, 4, 15) and kernel 2's
+(2, 5, 12, 6) are ``torch.library`` custom operators,
+``torch.ops.a2m.global_attention_fwd`` and ``a2m::local_two_phase_fwd``:
+the plain version on the CPU, the kernel on the card (where each launch is
+counted), and a fake implementation that gives the output's shape, dtype
+and strides and runs the kernel's geometry checks, so that ``torch.export``
+keeps each kernel as one node and a loaded program launches it
+(``export.py``).  The backward entries stay plain calls.
+
 The forwards are ``torch.autograd.Function``s on either device: they save
 their inputs (and the bits or the seed, never the drawn mask), as the JAX
 ``custom_vjp``s do, and their backward goes through the ``*_grads``
@@ -387,21 +396,64 @@ def _check_mask_source(like: torch.Tensor, bits, bits_shape, seed, threshold: in
     return threshold
 
 
+def check_device(t: torch.Tensor, what: str) -> None:
+    """A kernel wrapper takes CPU (its plain version) and CUDA tensors."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA, not {t.device}")
+
+
 def _global_forward(wrapper, q, k, v, num_heads: int, block: int, valid_len: int | None,
                     bits=None, seed=None, threshold: int = 0):
-    """The global forward with its mask source: none, ``bits`` or ``seed``.
-    ``wrapper`` is the public function whose launch this counts as."""
+    """The global forward with its mask source: none, ``bits`` or ``seed``,
+    through :func:`global_attention_fwd`.  ``wrapper`` is the public
+    function whose launch this is; the op counts it by the mask source."""
+    check_device(q, wrapper.__name__)
+    return global_attention_fwd(q, k, v, bits, seed, num_heads, block, valid_len, threshold)
+
+
+def _global_wrapper(bits, seed):
+    """The public function a launch of kernel 1's body counts as."""
+    if bits is not None:
+        return global_attention_dropout_bits
+    return global_attention_dropout if seed is not None else global_attention
+
+
+def _global_launch_checks(q, k, v, bits, seed, num_heads: int, block: int,
+                          valid_len: int | None, threshold: int):
+    """-> (dtype, hd, valid_len, threshold) of a CUDA launch; raises on what
+    the kernel does not take.  Reads shapes, dtypes and devices only, so it
+    also runs on fake tensors."""
     g, s, _ = q.shape
-    if q.device.type == "cpu":
-        if seed is not None:
-            bits = philox_bits_plain(seed, g, num_heads, s)
-        return global_attention_plain(q, k, v, num_heads, block, valid_len, bits, threshold)
-    if q.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {q.device}")
     dtype, hd = _check_cuda((q, k, v), num_heads)
     valid_len = _check_global(s, block, valid_len)
     threshold = _check_mask_source(q, None if bits is None else (bits,),
                                    (g, num_heads, s, s), seed, threshold)
+    return dtype, hd, valid_len, threshold
+
+
+@torch.library.custom_op(
+    "a2m::global_attention_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bits, Tensor? seed, int num_heads, "
+           "int block, int? valid_len, int threshold) -> Tensor")
+def global_attention_fwd(q, k, v, bits, seed, num_heads, block, valid_len, threshold):
+    """Kernels 1, 4 and 15 as one operator, ``torch.ops.a2m.global_attention_fwd``:
+    the forward of :func:`global_attention` with no mask source, ``bits`` or
+    ``seed``.  On the CPU the plain version; on the card the kernel, counted
+    in the ``.launches`` of the public function of its mask source.  Its
+    fake implementation gives the output's shape, dtype and strides from
+    the inputs' and runs the kernel's geometry checks, so that
+    ``torch.export`` traces the kernel as one node."""
+    if seed is not None:
+        bits = philox_bits_plain(seed, q.shape[0], num_heads, q.shape[1])
+    return global_attention_plain(q, k, v, num_heads, block, valid_len, bits, threshold)
+
+
+@global_attention_fwd.register_kernel("cuda")
+def _global_attention_fwd_cuda(q, k, v, bits, seed, num_heads, block, valid_len, threshold):
+    wrapper = _global_wrapper(bits, seed)
+    dtype, hd, valid_len, threshold = _global_launch_checks(
+        q, k, v, bits, seed, num_heads, block, valid_len, threshold)
+    g, s, _ = q.shape
     out = torch.empty_like(q)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
@@ -414,6 +466,13 @@ def _global_forward(wrapper, q, k, v, num_heads: int, block: int, valid_len: int
     cuda_build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
+
+
+@global_attention_fwd.register_fake
+def _global_attention_fwd_fake(q, k, v, bits, seed, num_heads, block, valid_len, threshold):
+    if q.device.type == "cuda":
+        _global_launch_checks(q, k, v, bits, seed, num_heads, block, valid_len, threshold)
+    return q.new_empty(q.shape)
 
 
 def _global_grads(wrapper, q, k, v, g, num_heads: int, block: int, valid_len: int | None,
@@ -650,22 +709,66 @@ def _seed_planes(seed: torch.Tensor, batch: int, num_heads: int, p_len: int):
 def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
                    bits=None, seed=None, threshold: int = 0):
     """The two-phase forward with its mask source: none, ``bits`` = (bits_a,
-    bits_b) or ``seed``.  ``wrapper``: the public function this counts as;
-    on the CPU :func:`local_two_phase_rw` takes its own plain version."""
+    bits_b) or ``seed``, through :func:`local_two_phase_fwd`.  ``wrapper``:
+    the public function this launch is; :func:`local_two_phase_rw` takes its
+    own plain version on the CPU and counts its own launches on the card."""
+    check_device(qa, wrapper.__name__)
+    bits_a, bits_b = bits or (None, None)
+    return local_two_phase_fwd(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window,
+                               threshold, wrapper is local_two_phase_rw)
+
+
+def _local_wrapper(bits_a, seed, rw: bool):
+    """The public function a launch of kernel 2's body counts as."""
+    if rw:
+        return local_two_phase_rw
+    if bits_a is not None:
+        return local_two_phase_dropout_bits
+    return local_two_phase_dropout if seed is not None else local_two_phase
+
+
+def _local_launch_checks(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads: int, window: int,
+                         threshold: int):
+    """-> (dtype, hd, threshold) of a CUDA launch; raises on what the kernel
+    does not take.  Shapes, dtypes and devices only: it runs on fake
+    tensors too."""
     b, p_len, _ = qa.shape
-    if qa.device.type == "cpu":
-        if wrapper is local_two_phase_rw:
-            return local_two_phase_rw_plain(qa, ka, qb, kb, v, num_heads, window)
-        if seed is not None:
-            bits = _seed_planes(seed, b, num_heads, p_len)
-        return local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window,
-                                     *(bits or (None, None)), threshold)
-    if qa.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__} runs on CPU or CUDA, not {qa.device}")
     dtype, hd = _check_cuda((qa, ka, qb, kb, v), num_heads)
     _check_local(p_len, window)
+    bits = None if bits_a is None else (bits_a, bits_b)
     threshold = _check_mask_source(qa, bits, (b, num_heads, p_len, p_len), seed, threshold)
-    bits_a, bits_b = bits or (None, None)
+    return dtype, hd, threshold
+
+
+@torch.library.custom_op(
+    "a2m::local_two_phase_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor qa, Tensor ka, Tensor qb, Tensor kb, Tensor v, Tensor? bits_a, "
+           "Tensor? bits_b, Tensor? seed, int num_heads, int window, int threshold, "
+           "bool rw) -> Tensor")
+def local_two_phase_fwd(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window, threshold,
+                        rw):
+    """Kernels 2, 5, 12 and 6 as one operator, ``torch.ops.a2m.local_two_phase_fwd``:
+    the forward of :func:`local_two_phase` with no mask source, per-phase
+    bits or a seed, or with ``rw`` that of :func:`local_two_phase_rw`.  On
+    the CPU the plain versions; on the card kernel 2's body, counted in the
+    ``.launches`` of the public function it stands for.  Its fake
+    implementation gives the output's shape, dtype and strides and runs the
+    kernel's geometry checks."""
+    if rw:
+        return local_two_phase_rw_plain(qa, ka, qb, kb, v, num_heads, window)
+    if seed is not None:
+        bits_a, bits_b = _seed_planes(seed, qa.shape[0], num_heads, qa.shape[1])
+    return local_two_phase_plain(qa, ka, qb, kb, v, num_heads, window, bits_a, bits_b,
+                                 threshold)
+
+
+@local_two_phase_fwd.register_kernel("cuda")
+def _local_two_phase_fwd_cuda(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window,
+                              threshold, rw):
+    wrapper = _local_wrapper(bits_a, seed, rw)
+    dtype, hd, threshold = _local_launch_checks(qa, ka, qb, kb, v, bits_a, bits_b, seed,
+                                                num_heads, window, threshold)
+    b, p_len, _ = qa.shape
     out = torch.empty_like(qa)
     scale = float(_query_scale(hd, dtype))
     lib = cuda_build.library()
@@ -678,6 +781,15 @@ def _local_forward(wrapper, qa, ka, qb, kb, v, num_heads: int, window: int,
     cuda_build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
+
+
+@local_two_phase_fwd.register_fake
+def _local_two_phase_fwd_fake(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window,
+                              threshold, rw):
+    if qa.device.type == "cuda":
+        _local_launch_checks(qa, ka, qb, kb, v, bits_a, bits_b, seed, num_heads, window,
+                             threshold)
+    return qa.new_empty(qa.shape)
 
 
 def _local_grads(wrapper, qa, ka, qb, kb, v, g, num_heads: int, window: int,

@@ -35,7 +35,10 @@ Each wrapper takes its plain version only for tensors on the CPU.  On a
 CUDA tensor it launches the kernel or raises: f16 raises
 ``NotImplementedError`` (the models' gates send f16 to autograd, as the JAX
 package sends it to XLA), anything else the kernel does not take raises
-``ValueError``.  Each wrapper counts its launches in ``.launches``.
+``ValueError``.  Each wrapper counts its launches in ``.launches``.  The
+stage forward runs as the ``torch.library`` custom operator
+``a2m::convnext_stage_fwd`` (the plain version on the CPU, the kernel on the
+card, a fake implementation for ``torch.export``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch.nn.functional as F
 
 from ..models import nn as a2m_nn
 from . import cuda_build
+from .attention_kernels import check_device
 
 KERNEL_TAPS = 7
 LN_EPS = 1e-5
@@ -350,11 +354,24 @@ def stage_fwd(x: torch.Tensor, weights) -> torch.Tensor:
     ``weights`` = :func:`stage_weights` in x's dtype.  Any L: rows are
     bounds-checked, nothing is padded; any C and H: rows that do not fill
     whole 16-byte pieces take the kernel's element copies.  The sums run in
-    a fixed order: the same inputs give the same bits."""
-    if x.device.type == "cpu":
-        return stage_fwd_plain(x, weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"stage_fwd runs on CPU or CUDA, not {x.device}")
+    a fixed order: the same inputs give the same bits.  Runs as
+    :func:`convnext_stage_fwd`."""
+    check_device(x, "stage_fwd")
+    return convnext_stage_fwd(x, list(weights))
+
+
+@torch.library.custom_op("a2m::convnext_stage_fwd", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor[] weights) -> Tensor")
+def convnext_stage_fwd(x, weights):
+    """Kernel 19 as one operator, ``torch.ops.a2m.convnext_stage_fwd``: the
+    plain version on the CPU, the kernel on the card (counted in
+    ``stage_fwd.launches``), and a fake implementation that gives the
+    output's shape, dtype and strides and runs the geometry checks."""
+    return stage_fwd_plain(x, weights)
+
+
+@convnext_stage_fwd.register_kernel("cuda")
+def _convnext_stage_fwd_cuda(x, weights):
     depth, hidden, code = _check_stage(x, weights, "stage_fwd")
     lib = cuda_build.library()
     workspace = _workspace(lib.a2m_convnext_stage_fwd_workspace, "stage_fwd", x, hidden, code)
@@ -368,6 +385,13 @@ def stage_fwd(x: torch.Tensor, weights) -> torch.Tensor:
     cuda_build.check(err, "stage_fwd")
     stage_fwd.launches += 1
     return out
+
+
+@convnext_stage_fwd.register_fake
+def _convnext_stage_fwd_fake(x, weights):
+    if x.device.type == "cuda":
+        _check_stage(x, weights, "stage_fwd")
+    return x.new_empty(x.shape)
 
 
 class FusedConvnextStage(torch.autograd.Function):

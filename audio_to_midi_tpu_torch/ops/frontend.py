@@ -1,8 +1,9 @@
 """Audio frontend on tensors: resampling, loudness normalization and window
 slicing.
 
-Counterpart of ``make_windows``, ``normalize_loudness``, ``resample_poly``
-and ``prepare_windows`` in ``audio_to_midi_tpu/ops/frontend.py``.  They run
+Counterpart of ``make_windows``, ``slice_full_audio``, ``normalize_loudness``,
+``resample_poly`` and ``prepare_windows`` in
+``audio_to_midi_tpu/ops/frontend.py``.  They run
 on whatever device the samples lie on.
 """
 
@@ -40,6 +41,16 @@ def make_windows(samples: torch.Tensor, window_size: int, overlap_samples: int) 
     pad_to = (n_windows - 1) * step + window_size
     padded = F.pad(samples, (0, max(0, pad_to - n)))
     return padded.unfold(1, window_size, step).transpose(0, 1).contiguous()
+
+
+def slice_full_audio(samples: torch.Tensor, sample_rate: int, window_duration: float,
+                     overlap: float) -> tuple[torch.Tensor, float]:
+    """(2, N) audio -> ((W, 2, window) overlapping model windows, the last
+    zero-padded, window_duration), on the samples' device; the overlap and
+    the window duration in seconds (reference
+    audio_to_midi_dataset.py:277-294)."""
+    window_size = round(window_duration * sample_rate)
+    return make_windows(samples, window_size, round(overlap * sample_rate)), window_duration
 
 
 def _kaiser_sinc_filter(num_taps: int, cutoff: float, beta: float = 8.0) -> np.ndarray:

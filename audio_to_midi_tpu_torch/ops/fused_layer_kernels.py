@@ -36,8 +36,12 @@ Each wrapper takes its plain version only for tensors on the CPU.  On a CUDA
 tensor it launches the kernel or raises: f16 raises ``NotImplementedError``
 (the models' gates send f16 to the plain formulation, as the JAX package
 sends it to XLA), a geometry the kernel does not take raises ``ValueError``.
-Each wrapper counts its launches in ``.launches``.  None of them is
-differentiable by itself: the ``autograd.Function``s in ``models/`` save the
+Each wrapper counts its launches in ``.launches``.  Each runs as a
+``torch.library`` custom operator (``a2m::attention_block_fwd``,
+``a2m::fused_sublayer_fwd``, ``a2m::transformer_pair_fwd``): the plain
+version on the CPU, the kernel on the card, where the launch is counted,
+and a fake implementation for ``torch.export`` (shape, dtype, strides and
+the geometry checks).  None of them is differentiable by itself: the ``autograd.Function``s in ``models/`` save the
 inputs and differentiate the plain formulation, as the JAX ``custom_vjp``s
 do.
 """
@@ -53,7 +57,7 @@ import torch.nn.functional as F
 from ..models import nn as a2m_nn
 from ..models.rope import rope_with
 from . import cuda_build
-from .attention_kernels import MASK_FILL, two_phase_masks
+from .attention_kernels import MASK_FILL, check_device, two_phase_masks
 
 KERNEL_WINDOW = 16
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -292,6 +296,7 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+
 # ---------------------------------------------------------------------------
 # Kernel 11: the attention block
 # ---------------------------------------------------------------------------
@@ -344,13 +349,18 @@ def attention_block(x, wq, wkv, wk, wv, wo, cos, sin, num_heads: int, valid_len:
     sin (n, hd/2) with n >= (P/8 - 1) * 16, the table of the windowed rows
     (positions restarting every 16).  ``window`` 0: global attention over
     the columns < ``valid_len``; cos, sin with at least P rows of absolute
-    positions."""
-    if x.device.type == "cpu":
-        return attention_block_plain(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len,
-                                     window)
+    positions.  Runs as :func:`attention_block_fwd`."""
+    check_device(x, "attention_block")
+    return attention_block_fwd(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window)
+
+
+def _attention_block_checks(x, wq, wkv, wk, wv, wo, cos, sin, num_heads: int, valid_len: int,
+                            window: int) -> tuple[int, int, int]:
+    """-> (dtype code, hd, ckv) of a CUDA launch of kernel 11; raises on what
+    it does not take.  Shapes only: it runs on fake tensors too."""
     what = "attention_block"
     code = _check_cuda_x(x, what)
-    b, p_len, d = x.shape
+    p_len = x.shape[1]
     hd, ckv = _check_attention_operands(what, x, (wq, wkv, wk, wv, wo), num_heads)
     if window:
         if window != KERNEL_WINDOW or p_len % (window // 2) or p_len < window:
@@ -362,6 +372,28 @@ def attention_block(x, wq, wkv, wk, wv, wo, cos, sin, num_heads: int, valid_len:
             raise ValueError(f"{what}: valid_len {valid_len} out of range for P={p_len}")
         rows = p_len
     _check_tables(what, (cos, sin), rows, hd, x)
+    return code, hd, ckv
+
+
+@torch.library.custom_op(
+    "a2m::attention_block_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor wq, Tensor wkv, Tensor wk, Tensor wv, Tensor wo, Tensor cos, "
+           "Tensor sin, int num_heads, int valid_len, int window) -> Tensor")
+def attention_block_fwd(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window):
+    """Kernel 11 as one operator, ``torch.ops.a2m.attention_block_fwd``: the
+    plain version on the CPU, the kernel on the card (counted in
+    ``attention_block.launches``), and a fake implementation that gives the
+    output's shape, dtype and strides and runs the geometry checks."""
+    return attention_block_plain(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len,
+                                 window)
+
+
+@attention_block_fwd.register_kernel("cuda")
+def _attention_block_fwd_cuda(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window):
+    code, hd, ckv = _attention_block_checks(x, wq, wkv, wk, wv, wo, cos, sin, num_heads,
+                                            valid_len, window)
+    what = "attention_block"
+    b, p_len, d = x.shape
     lib = cuda_build.library()
     workspace = _workspace(lib.a2m_attention_block_workspace(b, p_len, d, num_heads, hd, ckv, code),
                            what, x)
@@ -377,6 +409,13 @@ def attention_block(x, wq, wkv, wk, wv, wo, cos, sin, num_heads: int, valid_len:
     return out
 
 
+@attention_block_fwd.register_fake
+def _attention_block_fwd_fake(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window):
+    if x.device.type == "cuda":
+        _attention_block_checks(x, wq, wkv, wk, wv, wo, cos, sin, num_heads, valid_len, window)
+    return x.new_empty(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # Kernel 18: the fused attention sublayers
 # ---------------------------------------------------------------------------
@@ -390,26 +429,49 @@ def fused_sublayer_plain(xp, weights, tables, *, num_heads: int, valid_len: int,
     return _attention_sublayer(xp, weights, tables, num_heads, valid_len, pad_l, window)
 
 
-def _sublayer(wrapper, entry: str, xp, weights, tables, num_heads: int, valid_len: int,
-              pad_l: int, window: int) -> torch.Tensor:
-    if xp.device.type == "cpu":
-        return fused_sublayer_plain(xp, weights, tables, num_heads=num_heads,
-                                    valid_len=valid_len, pad_l=pad_l, window=window)
-    what = wrapper.__name__
+def _sublayer_checks(what: str, xp, weights, tables, num_heads: int, valid_len: int,
+                     pad_l: int, window: int) -> tuple[int, int, int]:
+    """-> (dtype code, hd, ckv) of a CUDA launch of kernel 18; shapes only."""
     code = _check_cuda_x(xp, what)
-    b, p_len, d = xp.shape
+    d, p_len = xp.shape[2], xp.shape[1]
     if len(weights) != len(SUBLAYER_OPERANDS):
         raise ValueError(f"{what} takes the {len(SUBLAYER_OPERANDS)} operands of sublayer_weights")
     _check_padded(what, p_len, valid_len, pad_l, window)
     _expect(what, "ln", weights[0], (2, d), torch.float32, xp)
     hd, ckv = _check_attention_operands(what, xp, weights[1:], num_heads)
     _check_tables(what, tables, p_len, hd, xp)
+    return code, hd, ckv
+
+
+@torch.library.custom_op(
+    "a2m::fused_sublayer_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor xp, Tensor[] weights, Tensor[] tables, int num_heads, int valid_len, "
+           "int pad_l, int window) -> Tensor")
+def fused_sublayer_fwd(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    """Kernel 18 as one operator, ``torch.ops.a2m.fused_sublayer_fwd``: the
+    local sublayer for ``window`` > 0 (4 tables), the global one for 0 (2
+    tables).  The plain version on the CPU, the kernel on the card (counted
+    in ``fused_local_sublayer.launches`` or ``fused_global_sublayer``'s),
+    and a fake implementation that gives the output's shape, dtype and
+    strides and runs the geometry checks."""
+    return fused_sublayer_plain(xp, weights, tables, num_heads=num_heads, valid_len=valid_len,
+                                pad_l=pad_l, window=window)
+
+
+@fused_sublayer_fwd.register_kernel("cuda")
+def _fused_sublayer_fwd_cuda(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    wrapper = fused_local_sublayer if window else fused_global_sublayer
+    what = wrapper.__name__
+    code, hd, ckv = _sublayer_checks(what, xp, weights, tables, num_heads, valid_len, pad_l,
+                                     window)
+    b, p_len, d = xp.shape
     lib = cuda_build.library()
     workspace = _workspace(lib.a2m_fused_sublayer_workspace(b, p_len, d, num_heads, hd, ckv, code),
                            what, xp)
     out = torch.empty_like(xp)
+    entry = lib.a2m_fused_local_sublayer if window else lib.a2m_fused_global_sublayer
     with torch.cuda.device(xp.device):
-        err = getattr(lib, entry)(
+        err = entry(
             xp.data_ptr(), *(w.data_ptr() for w in weights), *(t.data_ptr() for t in tables),
             out.data_ptr(), workspace.data_ptr(), b, p_len, d, num_heads, hd, ckv, valid_len,
             pad_l, float(_query_scale(hd, xp.dtype)), code, _stream(xp))
@@ -418,16 +480,27 @@ def _sublayer(wrapper, entry: str, xp, weights, tables, num_heads: int, valid_le
     return out
 
 
+@fused_sublayer_fwd.register_fake
+def _fused_sublayer_fwd_fake(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    if xp.device.type == "cuda":
+        what = "fused_local_sublayer" if window else "fused_global_sublayer"
+        _sublayer_checks(what, xp, weights, tables, num_heads, valid_len, pad_l, window)
+    return xp.new_empty(xp.shape)
+
+
 def fused_local_sublayer(xp, weights, tables, *, num_heads: int, valid_len: int, pad_l: int,
                          window: int) -> torch.Tensor:
     """xp (B, P, D) in padded coordinates (P a multiple of 16) -> xp + the
     local attention sublayer of it.  weights: :func:`sublayer_weights`;
     tables: cos_a, sin_a, cos_b, sin_b (P, hd/2), the per-row tables of the
-    two phases."""
+    two phases.  Runs as :func:`fused_sublayer_fwd`."""
     if len(tables) != 4:
         raise ValueError("fused_local_sublayer takes the four phase tables")
-    return _sublayer(fused_local_sublayer, "a2m_fused_local_sublayer", xp, weights, tables,
-                     num_heads, valid_len, pad_l, window)
+    if window <= 0:
+        raise ValueError(f"fused_local_sublayer takes window {KERNEL_WINDOW}, got {window}")
+    check_device(xp, "fused_local_sublayer")
+    return fused_sublayer_fwd(xp, list(weights), list(tables), num_heads, valid_len, pad_l,
+                              window)
 
 
 def fused_global_sublayer(xp, weights, tables, *, num_heads: int, valid_len: int,
@@ -436,8 +509,8 @@ def fused_global_sublayer(xp, weights, tables, *, num_heads: int, valid_len: int
     cos_g, sin_g (P, hd/2), positions counted from row pad_l."""
     if len(tables) != 2:
         raise ValueError("fused_global_sublayer takes the two global tables")
-    return _sublayer(fused_global_sublayer, "a2m_fused_global_sublayer", xp, weights, tables,
-                     num_heads, valid_len, pad_l, 0)
+    check_device(xp, "fused_global_sublayer")
+    return fused_sublayer_fwd(xp, list(weights), list(tables), num_heads, valid_len, pad_l, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -460,13 +533,20 @@ def transformer_pair(xp, weights, tables, *, num_heads: int, valid_len: int, pad
                      window: int) -> torch.Tensor:
     """A whole alternating pair on xp (B, P, D) in padded coordinates (P a
     multiple of 16).  weights: the 22 of :func:`pair_weights`; tables:
-    cos_a, sin_a, cos_b, sin_b, cos_g, sin_g (P, hd/2)."""
-    if xp.device.type == "cpu":
-        return transformer_pair_plain(xp, weights, tables, num_heads=num_heads,
-                                      valid_len=valid_len, pad_l=pad_l, window=window)
+    cos_a, sin_a, cos_b, sin_b, cos_g, sin_g (P, hd/2).  Runs as
+    :func:`transformer_pair_fwd`."""
+    check_device(xp, "transformer_pair")
+    return transformer_pair_fwd(xp, list(weights), list(tables), num_heads, valid_len, pad_l,
+                                window)
+
+
+def _pair_checks(xp, weights, tables, num_heads: int, valid_len: int, pad_l: int,
+                 window: int) -> tuple[int, int, int, int]:
+    """-> (dtype code, hd, ckv, inter) of a CUDA launch of kernel 17; shapes
+    only."""
     what = "transformer_pair"
     code = _check_cuda_x(xp, what)
-    b, p_len, d = xp.shape
+    d, p_len = xp.shape[2], xp.shape[1]
     if len(weights) != 2 * (len(SUBLAYER_OPERANDS) + len(FFN_OPERANDS)) or len(tables) != 6:
         raise ValueError(f"{what} takes the 22 operands of pair_weights and 6 tables")
     if window != KERNEL_WINDOW:
@@ -486,6 +566,27 @@ def transformer_pair(xp, weights, tables, *, num_heads: int, valid_len: int, pad
             weights[18].shape, weights[12].shape, weights[13].shape) or inter < 1:
         raise ValueError(f"{what}: the local and global sides must share their widths")
     _check_tables(what, tables, p_len, hd, xp)
+    return code, hd, ckv, inter
+
+
+@torch.library.custom_op(
+    "a2m::transformer_pair_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor xp, Tensor[] weights, Tensor[] tables, int num_heads, int valid_len, "
+           "int pad_l, int window) -> Tensor")
+def transformer_pair_fwd(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    """Kernel 17 as one operator, ``torch.ops.a2m.transformer_pair_fwd``:
+    the plain version on the CPU, the kernel on the card (counted in
+    ``transformer_pair.launches``), and a fake implementation that gives the
+    output's shape, dtype and strides and runs the geometry checks."""
+    return transformer_pair_plain(xp, weights, tables, num_heads=num_heads,
+                                  valid_len=valid_len, pad_l=pad_l, window=window)
+
+
+@transformer_pair_fwd.register_kernel("cuda")
+def _transformer_pair_fwd_cuda(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    what = "transformer_pair"
+    code, hd, ckv, inter = _pair_checks(xp, weights, tables, num_heads, valid_len, pad_l, window)
+    b, p_len, d = xp.shape
     lib = cuda_build.library()
     workspace = _workspace(
         lib.a2m_transformer_pair_workspace(b, p_len, d, num_heads, hd, ckv, inter, code), what, xp)
@@ -500,6 +601,13 @@ def transformer_pair(xp, weights, tables, *, num_heads: int, valid_len: int, pad
     cuda_build.check(err, what)
     transformer_pair.launches += 1
     return out
+
+
+@transformer_pair_fwd.register_fake
+def _transformer_pair_fwd_fake(xp, weights, tables, num_heads, valid_len, pad_l, window):
+    if xp.device.type == "cuda":
+        _pair_checks(xp, weights, tables, num_heads, valid_len, pad_l, window)
+    return xp.new_empty(xp.shape)
 
 
 for _fn in (attention_block, fused_local_sublayer, fused_global_sublayer, transformer_pair):

@@ -81,6 +81,17 @@ def rank_device(device_type: str) -> torch.device:
     return torch.device("cuda", world()[0] % torch.cuda.device_count())
 
 
+def build_kernels_once(mesh: "Mesh") -> None:
+    """Rank 0 builds the CUDA kernels while the others wait at a barrier,
+    so that N ranks do not each start the compilers; then every rank loads
+    the library."""
+    from ..ops import cuda_build
+
+    if mesh.rank == 0:
+        cuda_build.build()
+    mesh.barrier()
+
+
 def mesh_layout(ensemble_size: int, n: int, model_size: int = 1) -> tuple[tuple, tuple]:
     """JAX's ``make_mesh`` rules on ``n`` ranks -> (axis names, shape).
     ``model_size`` that does not divide ``n`` raises; ``ensemble_size`` that

@@ -7,8 +7,9 @@ probabilities are CONCATENATED (not crossfade-stitched, train.py:150)
 before ``metrics.detailed_event_loss``, which runs on the model's device.
 The results keep the JAX package's leading member axis: with ``ensemble``
 an ``Ensemble``'s members are evaluated in turn, (E,) results; one
-``Model`` gives (1,).  The figures wait for the port's
-``utils/visualize.py``: the figure list is empty.
+``Model`` gives (1,).  With ``generate_visualizations`` (default: when the
+test set holds fewer than 30 samples, as in the JAX package) each member's
+inferred / expected figure of each sample is drawn (matplotlib).
 """
 
 from __future__ import annotations
@@ -82,12 +83,15 @@ def compute_testset_loss_individual(
     num_model_output_frames: int,
     rope: RopeFreqs,
     ensemble: bool = True,
+    generate_visualizations: bool | None = None,
 ) -> dict[str, dict[str, Any]]:
     """Per sample: loss, hit_rate, eventized_diff, phantom_note_diff,
     missed_note_diff (each of shape (E,), (1,) for one ``Model``) and
-    visualizations ([])."""
+    visualizations (a figure per member, or [])."""
     members = _members(model, ensemble)
     batches = load_test_set(testset_dir, num_model_output_frames, cfg)
+    if generate_visualizations is None:
+        generate_visualizations = len(batches) < 30
     param = next(model.parameters())
     loss_map: dict[str, dict[str, Any]] = {}
     with _parity_precision(torch.float32):
@@ -95,6 +99,7 @@ def compute_testset_loss_individual(
             expected = torch.from_numpy(labels.reshape(-1, labels.shape[-1])).to(param.device)
             fields: dict[str, list[float]] = {k: [] for k in (
                 "loss", "hit_rate", "eventized_diff", "phantom_note_diff", "missed_note_diff")}
+            figs = []
             for member in members:
                 probs_chunks, loss_chunks = [], []
                 for lo in range(0, audio.shape[0], _MAX_WINDOWS_PER_BATCH):
@@ -105,14 +110,17 @@ def compute_testset_loss_individual(
                     probs_chunks.append(p)
                     loss_chunks.append(l)
                 probs = torch.cat(probs_chunks)
-                detail = detailed_event_loss(probs.reshape(-1, probs.shape[-1]), expected)
+                detail = detailed_event_loss(probs.reshape(-1, probs.shape[-1]), expected,
+                                             generate_visualization=generate_visualizations)
                 fields["loss"].append(float(torch.cat(loss_chunks).mean()))
                 fields["hit_rate"].append(detail.hit_rate)
                 fields["eventized_diff"].append(detail.full_diff)
                 fields["phantom_note_diff"].append(detail.phantom_notes_diff)
                 fields["missed_note_diff"].append(detail.missed_notes_diff)
+                if generate_visualizations:
+                    figs.append(detail.visualization)
             loss_map[name] = {k: np.array(v) for k, v in fields.items()}
-            loss_map[name]["visualizations"] = []
+            loss_map[name]["visualizations"] = figs
     return loss_map
 
 
@@ -123,13 +131,16 @@ def compute_testset_loss(
     num_model_output_frames: int,
     rope: RopeFreqs,
     ensemble: bool = True,
+    generate_visualizations: bool | None = None,
 ):
     """Averages over samples -> (loss (E,), hit_rate (E,), eventized (E,),
     figs); (1,) each for one ``Model``."""
     per_sample = compute_testset_loss_individual(
-        model, cfg, testset_dir, num_model_output_frames, rope, ensemble)
+        model, cfg, testset_dir, num_model_output_frames, rope, ensemble,
+        generate_visualizations=generate_visualizations)
     n = len(per_sample)
     loss = sum(v["loss"] for v in per_sample.values()) / n
     hit = sum(v["hit_rate"] for v in per_sample.values()) / n
     eventized = sum(v["eventized_diff"] for v in per_sample.values()) / n
-    return loss, hit, eventized, []
+    figs = [fig for v in per_sample.values() for fig in v["visualizations"]]
+    return loss, hit, eventized, figs

@@ -280,8 +280,11 @@ def train(
         if testset_dirs and step % cfg.train.testset_loss_every == 0:
             testset_losses = []
             for name, testset_dir in testset_dirs.items():
-                test_loss, hit_rate, eventized_diff, _figs = compute_testset_loss(
-                    model, cfg, testset_dir, num_model_output_frames, rope)
+                # The figures go to the summary writer: none are drawn without
+                # one (the card's machine has no matplotlib).
+                test_loss, hit_rate, eventized_diff, figs = compute_testset_loss(
+                    model, cfg, testset_dir, num_model_output_frames, rope,
+                    generate_visualizations=None if summary_writer is not None else False)
                 if multihost and mesh.extent(ENSEMBLE_AXIS) > 1:
                     test_loss, hit_rate, eventized_diff = (
                         mesh.all_gather(torch.from_numpy(np.asarray(v)), ENSEMBLE_AXIS)
@@ -295,6 +298,15 @@ def train(
                                               step)
                     summary_writer.add_scalar(f"train/test-eventized-diff-{name}",
                                               float(eventized_diff[0]), step)
+                    for i, fig in enumerate(figs):
+                        summary_writer.add_figure(f"train/test-loss-{name}-{i}", fig, step)
+                if figs:
+                    # add_figure rendered them; release pyplot's references
+                    # (open figures hold host memory on long runs).
+                    import matplotlib.pyplot as plt
+
+                    for fig in figs:
+                        plt.close(fig)
             if summary_writer is not None:
                 summary_writer.flush()
 

@@ -186,6 +186,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import textwrap
 import time
 import types
 import warnings
@@ -267,6 +268,29 @@ LONG_SECONDS = 300.0
 FUSED_44K_TOL = 1e-2
 TIMED_BATCHES = (BATCH, SERVING_BATCH)  # windows per forward in the serving timings
 DROPOUT_THRESHOLD = 26  # round(0.1 * 256): the default transformer_dropout_rate
+# Phase 16's full-geometry parity against the JAX package's logits
+# (tests/full_geometry.py, tests/full_geometry_golden.npz): the largest
+# |logit difference| over the largest |logit|, every route, the kernels on
+# the card against JAX on the CPU.  Read on an H100: f32 2.5e-6 to 3.0e-6
+# on every route (the CPU's plain forward 3.1e-6), bf16 2.6e-2 to 2.8e-2
+# (the plain "xla" route 2.6e-2: bf16 rounding taken in other places; the
+# bf16 golden itself lies 3.4e-2 from the f32 one).  The broken control
+# (one global layer's query heads rotated) reads 0.14 in both.
+PARITY_LIMIT = {"f32": 2e-5, "bf16": 5e-2}
+# The routes phase 16 exports and holds against JAX: attention_impl, and
+# "pallas_stage" for cnn_impl="pallas_stage" (the "pallas" attention), "xla"
+# the plain formulations everywhere.
+ROUTES = ("pallas", "pallas_rw", "pallas_block", "pallas_fused", "pallas_pair", "pallas_stage",
+          "xla")
+ROUTE_NODES = {  # the a2m::* nodes of a route's program, per transformer pair
+    "pallas": {"global_attention_fwd": 1, "local_two_phase_fwd": 1},
+    "pallas_rw": {"global_attention_fwd": 1, "local_two_phase_fwd": 1},
+    "pallas_block": {"attention_block_fwd": 2},
+    "pallas_fused": {"fused_sublayer_fwd": 2},
+    "pallas_pair": {"transformer_pair_fwd": 1},
+    "pallas_stage": {"global_attention_fwd": 1, "local_two_phase_fwd": 1},
+}
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the memory
 # rate, and the operation rate of the input type -- bf16 on the tensor
 # cores, f32 outside them (TF32 would change the f32 kernels' numerics).
@@ -2565,9 +2589,10 @@ def check_population(cfg, card: str, one_member_times: list[float]) -> dict[str,
         outputs[bool(extra)] = captured.getvalue().strip().splitlines()
     model13, _ = load_newest_checkpoint(ck13, cfg, "cuda")
     num_frames = cfg.model.output_frames(cfg.data.samples_per_window)
+    # As the CLI calls it: no figures (the card's machine has no matplotlib).
     in_process = float(compute_testset_loss(model13, cfg, val_dir, num_frames,
                                             model_lib.make_rope(cfg.model, "cuda"),
-                                            ensemble=False)[0][0])
+                                            ensemble=False, generate_visualizations=False)[0][0])
     printed = float(outputs[False][0].split(":")[1])
     rel = abs(printed - in_process) / abs(in_process)
     log(f"audio_to_midi --validation: {' | '.join(outputs[False])}; in-process "
@@ -3322,6 +3347,383 @@ def check_cli_ranks(name, runs, resume, ck, run_cfg, names, card, launches,
     launches[key] = {k: sum(got["hooks"][-1][1][k] for got in runs) for k in names}
 
 
+def route_cfg(cfg, route: str):
+    """``cfg`` on one of ``ROUTES``."""
+    attention, cnn = {"pallas_stage": ("pallas", "pallas_stage"),
+                      "xla": ("xla", "xla")}.get(route, (route, cfg.model.cnn_impl))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attention_impl=attention, cnn_impl=cnn))
+
+
+def expected_nodes(cfg, route: str) -> dict[str, int]:
+    layers = cfg.model.num_transformer_layers
+    nodes = {op: n * layers for op, n in ROUTE_NODES[route].items()}
+    if route == "pallas_stage":
+        nodes["convnext_stage_fwd"] = 3  # stages 4, 5, 6
+    return nodes
+
+
+def _recording(module, name: str, calls: dict):
+    """``module.name`` (a kernel's operator) replaced by one that keeps its
+    first call's arguments beside ``torch.ops.a2m.<name>``; returns the
+    original."""
+    real = getattr(module, name)
+
+    def recorded(*args):
+        calls.setdefault(name, (getattr(torch.ops.a2m, name).default, args))
+        return real(*args)
+
+    setattr(module, name, recorded)
+    return real
+
+
+def check_exported_programs(model_lib, cfg, model, card: str) -> dict[str, dict[str, int]]:
+    """Phase 16a: ``export.py`` on the card.  The default model exported at
+    f32 and bf16 (8 + 8 kernel nodes each) and at JAX's default f16 (none),
+    saved, loaded and run in a fresh process with its launches counted,
+    its outputs held against eager ``predict`` bit for bit; each other route
+    exported at bf16, its nodes counted, run here against eager ``predict``
+    bit for bit; every kernel operator's fake implementation against its
+    CUDA implementation (``torch.library.opcheck``) on the arguments the
+    model gives it.  Returns the launches of each program's run."""
+    from audio_to_midi_tpu_torch import export as ex
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.ops import attention_kernels as ak
+    from audio_to_midi_tpu_torch.ops import convnext_kernels as ck
+    from audio_to_midi_tpu_torch.ops import fused_layer_kernels as flk
+
+    out_dir = WORK / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    samples = torch.randn(2, cfg.data.samples_per_window, generator=gen) * 0.5
+    np.save(out_dir / "samples.npy", samples.numpy())
+    rope = model_lib.make_rope(cfg.model, "cuda")
+    models = {"f32": model, "bf16": model_lib.cast_params(copy.deepcopy(model), torch.bfloat16)}
+
+    def eager(m, run_cfg, dt):
+        with torch.no_grad(), _parity_precision(dt):
+            return model_lib.predict(m, run_cfg.model, samples.cuda().to(dt), rope)
+
+    for name, m in models.items():
+        dt = DTYPES[name]
+        t0 = time.perf_counter()
+        program = ex.export_program(m, cfg, example_dtype=dt, output_file=out_dir / f"{name}.pt2")
+        wall = time.perf_counter() - t0
+        nodes = ex.kernel_nodes(program)
+        log(f"export {name} (default route): a2m nodes {nodes}, export wall {wall:.2f} s, "
+            f".pt2 {(out_dir / f'{name}.pt2').stat().st_size:,} bytes")
+        if nodes != expected_nodes(cfg, "pallas"):
+            raise AssertionError(f"the {name} program holds {nodes}")
+        for part, t in zip(("logits", "probs"), eager(m, cfg, dt)):
+            np.save(out_dir / f"{name}_eager_{part}.npy", t.float().cpu().numpy())
+    t0 = time.perf_counter()
+    f16_nodes = ex.kernel_nodes(ex.export_program(model, cfg))
+    log(f"export f16 (JAX's default example dtype, f32 parameters): a2m nodes {f16_nodes} "
+        f"(none expected: no kernel takes f16), export wall {time.perf_counter() - t0:.2f} s")
+    if f16_nodes:
+        raise AssertionError("the f16 program reaches a kernel")
+
+    code = textwrap.dedent(f"""
+        import json, time
+        import numpy as np, torch
+        from audio_to_midi_tpu_torch import export as ex
+        from audio_to_midi_tpu_torch.ops import attention_kernels as ak, convnext_kernels as ck
+        from audio_to_midi_tpu_torch.ops import eventize, fused_layer_kernels as flk
+        kernels = ak.KERNELS + ck.KERNELS + flk.KERNELS + eventize.KERNELS
+        out = {{}}
+        samples = torch.from_numpy(np.load({str(out_dir / "samples.npy")!r})).cuda()
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            t0 = time.perf_counter()
+            program = ex.load_program({str(out_dir)!r} + "/" + name + ".pt2")
+            load = time.perf_counter() - t0
+            for fn in kernels:
+                fn.launches = 0
+            logits, probs = ex.run_program(program, samples.to(dt))
+            torch.cuda.synchronize()
+            np.save({str(out_dir)!r} + "/" + name + "_loaded_logits.npy", logits.float().cpu().numpy())
+            np.save({str(out_dir)!r} + "/" + name + "_loaded_probs.npy", probs.float().cpu().numpy())
+            out[name] = {{"load_s": load, "launches": {{fn.__name__: fn.launches for fn in kernels}}}}
+        print(json.dumps(out))
+    """)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the programs in a fresh process failed:\n{proc.stderr}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    paths = {"exported program": dict.fromkeys(read_launches(), 0)}
+    for name in models:
+        same = all(np.array_equal(np.load(out_dir / f"{name}_loaded_{part}.npy"),
+                                  np.load(out_dir / f"{name}_eager_{part}.npy"))
+                   for part in ("logits", "probs"))
+        launches = {k: v for k, v in loaded[name]["launches"].items() if v}
+        log(f"loaded program {name} in a fresh process (load {loaded[name]['load_s']:.2f} s): "
+            f"logits and probs equal to eager predict's bit for bit {same}; launches {launches}")
+        if not same or launches != {"global_attention": cfg.model.num_transformer_layers,
+                                    "local_two_phase": cfg.model.num_transformer_layers}:
+            raise AssertionError(f"the loaded {name} program is not eager predict")
+        for k, v in loaded[name]["launches"].items():
+            paths["exported program"][k] += v
+    log(f"fresh-process round: {time.perf_counter() - t0:.1f} s")
+
+    # The other routes, bf16, and the operators' fakes against their CUDA
+    # implementations on the model's own arguments.
+    calls: dict = {}
+    hooks = [(ak, "global_attention_fwd"), (ak, "local_two_phase_fwd"),
+             (flk, "attention_block_fwd"), (flk, "fused_sublayer_fwd"),
+             (flk, "transformer_pair_fwd"), (ck, "convnext_stage_fwd")]
+    bf16 = models["bf16"]
+    for route in ROUTES[1:-1]:
+        run_cfg = route_cfg(cfg, route)
+        t0 = time.perf_counter()
+        program = ex.export_program(bf16, run_cfg, example_dtype=torch.bfloat16)
+        wall = time.perf_counter() - t0
+        nodes = ex.kernel_nodes(program)
+        reset_launches()
+        got = ex.run_program(program, samples.cuda().bfloat16())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        reals = [(mod, name, _recording(mod, name, calls)) for mod, name in hooks]
+        try:
+            ref = eager(bf16, run_cfg, torch.bfloat16)
+        finally:
+            for mod, name, real in reals:
+                setattr(mod, name, real)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"export bf16 {route}: a2m nodes {nodes}, export wall {wall:.2f} s; its run "
+            f"equal to eager predict's bit for bit {same}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if nodes != expected_nodes(cfg, route) or not same:
+            raise AssertionError(f"the {route} program is not eager predict's route")
+        paths[f"exported program {route}"] = launches
+    for name, (op, args) in calls.items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+        log(f"opcheck a2m::{name} on the card (schema; fake vs CUDA implementation: shape, "
+            f"dtype, strides) at {tuple(args[0].shape)} {args[0].dtype}: OK "
+            f"({time.perf_counter() - t0:.2f} s)")
+    if len(calls) != len(hooks):
+        raise AssertionError(f"operators never called: {sorted({n for _, n in hooks} - set(calls))}")
+    return paths
+
+
+def full_geometry_case() -> types.ModuleType:
+    """tests/full_geometry.py of this checkout, loaded by its path: a
+    ``tests`` package installed elsewhere may take the name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("full_geometry",
+                                                  ROOT / "tests" / "full_geometry.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_full_geometry(model_lib, cfg, card: str) -> None:
+    """Phase 16b: the full-geometry parity against the JAX package (the case
+    of tests/full_geometry.py, the JAX logits of its golden file) on every
+    route in f32 and bf16, and the broken control outside the limits."""
+    from audio_to_midi_tpu_torch import convert
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+
+    fg = full_geometry_case()
+
+    golden = np.load(ROOT / "tests" / fg.GOLDEN)
+    shapes = {k: v.shape for k, v in
+              convert.state_dict_to_jax(model_lib.Model(cfg.model).state_dict()).items()}
+    flat = fg.weights(shapes)
+
+    def build(weights, dt):
+        m = model_lib.Model(cfg.model)
+        m.load_state_dict(convert.jax_to_state_dict(weights), strict=True)
+        return m.to(device="cuda", dtype=dt).eval()
+
+    def rel(m, run_cfg, name):
+        dt = DTYPES[name]
+        x = torch.from_numpy(fg.audio()).cuda().to(dt)
+        with torch.inference_mode(), _parity_precision(dt):
+            logits, _ = model_lib.forward(m, run_cfg.model, x,
+                                          model_lib.make_rope(run_cfg.model, "cuda"))
+        return fg.relative_error(logits.float().cpu().numpy(), golden[f"logits_{name}"])
+
+    readings = {}
+    for name in ("f32", "bf16"):
+        m = build(flat, DTYPES[name])
+        for route in ROUTES:
+            readings[(route, name)] = rel(m, route_cfg(cfg, route), name)
+        control = rel(build(fg.rotate_heads(flat, 3, cfg.model.num_transformer_heads),
+                            DTYPES[name]), cfg, name)
+        log(f"full-geometry parity {name} against JAX (max |dlogit| / max |logit|, limit "
+            f"{PARITY_LIMIT[name]:.0e}): "
+            + ", ".join(f"{r} {readings[(r, name)]:.3e}" for r in ROUTES)
+            + f"; control (global layer 3's query heads rotated, pallas) {control:.3e}")
+        if control <= PARITY_LIMIT[name]:
+            raise AssertionError(f"the {name} parity limit does not catch the broken control")
+    bad = {k: v for k, v in readings.items() if v > PARITY_LIMIT[k[1]]}
+    if bad:
+        raise AssertionError(f"full-geometry parity outside the limits: {bad}")
+
+
+def check_serving_tools(model_lib, cfg, model, card: str) -> None:
+    """Phase 16c: the serving CLI on two ranks (torchrun, gloo on the one
+    card) against one rank's MIDI byte for byte; a trace of one forward and
+    one capture on demand; modelutil against infer on the 30 s file; --plot
+    and --visualize-audio."""
+    from audio_to_midi_tpu_torch import modelutil, native
+    from audio_to_midi_tpu_torch.cli import audio_to_midi as serve_cli
+    from audio_to_midi_tpu_torch.cli import infer_cli
+    from audio_to_midi_tpu_torch.data.loader import load_and_slice_full_audio
+    from audio_to_midi_tpu_torch.infer import _parity_precision, predict_and_stitch
+    from audio_to_midi_tpu_torch.ops.eventize import extract_events
+    from audio_to_midi_tpu_torch.utils import profiling
+
+    wav, ckpt, one_rank = WORK / "synth.wav", WORK / "params.npz", WORK / "out.mid"
+    two_ranks = WORK / "out_ranks2.mid"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "audio_to_midi_tpu_torch.cli.audio_to_midi", str(wav), str(two_ranks),
+         "--checkpoint", str(ckpt), "--dist-backend", "gloo"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the two-rank CLI failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    same = two_ranks.read_bytes() == one_rank.read_bytes()
+    log(f"cli on 2 ranks (torchrun, gloo, one card): {proc.stdout.strip().splitlines()[-2:]}; "
+        f"MIDI identical to one rank's (phase 4) byte for byte {same}; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("the two-rank CLI's MIDI differs from one rank's")
+
+    rope = model_lib.make_rope(cfg.model, "cuda")
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    x = (torch.randn(BATCH, 2, 80_000, generator=gen) * 0.5).cuda()
+
+    def forward():
+        with torch.inference_mode(), _parity_precision(torch.float32):
+            return model_lib.forward(model, cfg.model, x, rope)
+
+    kernel_names = ("global_attention_fwd_kernel", "local_two_phase_fwd_kernel")
+
+    def read_trace(path):
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        found = {k: any(k in n for n in kernels) for k in kernel_names}
+        ops = {e.get("name", "") for e in events if e.get("cat") == "cpu_op"}
+        return found, len(kernels), ops
+
+    trace_dir = WORK / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    forward()
+    with profiling.trace(str(trace_dir)):
+        forward()
+    (trace_file,) = trace_dir.glob("*.json")
+    found, n_kernels, ops = read_trace(trace_file)
+    log(f"trace of one forward ({trace_file.stat().st_size:,} bytes, {n_kernels} kernel "
+        f"names): kernel 1's and 2's CUDA functions named {found}; main thread's "
+        f"a2m::global_attention_fwd op recorded {'a2m::global_attention_fwd' in ops}")
+    if not all(found.values()):
+        raise AssertionError("the trace does not name kernels 1 and 2")
+
+    server = profiling.start_server(0)
+    cap_dir = WORK / "capture"
+    shutil.rmtree(cap_dir, ignore_errors=True)
+    client = subprocess.Popen(
+        [sys.executable, "-c", "from audio_to_midi_tpu_torch.utils.profiling import capture; "
+         f"print(capture({server.port}, 1500, {str(cap_dir)!r}))"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        forwards = 0
+        while client.poll() is None:
+            forward()
+            torch.cuda.synchronize()
+            forwards += 1
+        out, err = client.communicate(timeout=120)
+    finally:
+        if client.poll() is None:
+            client.kill()
+        server.close()
+    if client.returncode != 0:
+        raise AssertionError(f"the capture client failed:\n{err}")
+    found, n_kernels, ops = read_trace(out.strip().splitlines()[-1])
+    log(f"capture on demand (start_server / capture from another process, 1500 ms while the "
+        f"main thread ran {forwards} forwards): {n_kernels} kernel names, kernel 1's and 2's "
+        f"named {found}; the main thread's CPU operators recorded "
+        f"{bool(ops & {'a2m::global_attention_fwd', 'aten::linear', 'aten::mm'})} "
+        f"({len(ops)} operator names)")
+
+    windows, window_duration = load_and_slice_full_audio(
+        wav, overlap=cfg.infer.window_overlap, sample_rate=cfg.data.sample_rate,
+        window_duration=cfg.data.model_audio_length)
+    probs, stitched, dpf = predict_and_stitch(model, cfg, windows, window_duration,
+                                              overlap=cfg.infer.window_overlap)
+    mu_stitched = modelutil.stitch_probs(probs, cfg.infer.window_overlap, dpf)
+    err = float(np.abs(mu_stitched - stitched).max())
+    # The eventizers on the same probabilities: infer's on the card.
+    mu_events = modelutil.extract_events(stitched)
+    events = extract_events(torch.from_numpy(stitched).cuda())
+    frames = modelutil.to_frame_events([mu_events], mu_stitched.shape[0])[0]
+    log(f"modelutil on the 30 s file's {probs.shape} probabilities (native plane "
+        f"{native.available()}): stitch_probs vs infer's stitch on the card max_abs_err "
+        f"{err:.3e} (tol {FORWARD_TOL['f32']:.0e}); extract_events = infer's eventizer on the "
+        f"card {list(map(tuple, mu_events)) == list(events)} ({len(events)} events); "
+        f"to_frame_events {frames.shape}")
+    if err > FORWARD_TOL["f32"] or list(map(tuple, mu_events)) != list(events):
+        raise AssertionError("modelutil disagrees with infer on the 30 s file")
+
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+    except ImportError:
+        matplotlib = None
+    figures = WORK / "figures"
+    runs = {"infer_cli --plot": (infer_cli.main, [str(wav), "--plot", "--checkpoint", str(ckpt)]),
+            "audio_to_midi --visualize-audio": (serve_cli.main, [
+                str(wav), str(WORK / "out_visualize.mid"), "--checkpoint", str(ckpt),
+                "--visualize-audio"])}
+    for what, (main_fn, argv) in runs.items():
+        captured = io.StringIO()
+        if matplotlib is None:
+            try:
+                with contextlib.redirect_stdout(captured):
+                    main_fn(argv)
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    raise
+                log(f"{what}: no matplotlib on this machine; raised ImportError naming it: {e}")
+                continue
+            raise AssertionError(f"{what} ran without matplotlib")
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+        with contextlib.redirect_stdout(captured):
+            rc = main_fn(argv)
+        figures.mkdir(parents=True, exist_ok=True)
+        nums = plt.get_fignums()
+        for n in nums:
+            plt.figure(n).savefig(figures / f"{what.split()[-1].strip('-')}_{n}.png")
+        plt.close("all")
+        log(f"{what}: rc {rc}, {len(nums)} figures written under Agg to {figures}")
+        if rc != 0 or not nums:
+            raise AssertionError(f"{what} drew no figure")
+
+
+def check_export_and_tools(model_lib, cfg, model, card: str) -> dict[str, dict[str, int]]:
+    """Phase 16: the exported programs, the full-geometry parity against
+    JAX, and the serving tools.  Returns the programs' launches by path."""
+    started = time.perf_counter()
+    paths = check_exported_programs(model_lib, cfg, model, card)
+    log(f"phase 16a took {time.perf_counter() - started:.1f} s")
+    t0 = time.perf_counter()
+    check_full_geometry(model_lib, cfg, card)
+    log(f"phase 16b took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_serving_tools(model_lib, cfg, model, card)
+    log(f"phase 16c took {time.perf_counter() - t0:.1f} s; phase 16 took "
+        f"{time.perf_counter() - started:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3388,19 +3790,23 @@ def main() -> int:
     log(f"population main-path launches: {population}")
     parallel = check_parallel(cfg, card, one_member_times)
     log(f"parallel main-path launches (summed over the ranks): {parallel}")
+    exported = check_export_and_tools(model_lib, cfg, model, card)
+    log(f"exported-program launches: {exported}")
     paths = {"serving": serving, "training": training, "dropout": dropout, "bits": bits_route,
              "default-config training": default_training, "pallas_stage serving": stage_serving,
              **fused_serving, **rw_paths, **file_serving, **native_serving, **training_entry,
-             **population, **parallel}
+             **population, **parallel, **exported}
     # Phase 15's paths: the sharded steps and the multi-process CLIs.
     sharded_f32 = ("tp2 f32 step", "dp2 f32 step")
     sharded_default = ("tp2 default steps", "dp2 default steps", "cli dp2", "cli dp2 resume",
                        "cli tp2", "cli ensemble axis")
     on_path = {
         "global_attention": ("serving", "training", "serving a member", "phase 14 clis",
-                             "tp2 forward", "sharded serving", *sharded_f32),
+                             "tp2 forward", "sharded serving", *sharded_f32, "exported program",
+                             "exported program pallas_stage"),
         "local_two_phase": ("serving", "training", "serving a member", "phase 14 clis",
-                            "tp2 forward", "sharded serving", *sharded_f32),
+                            "tp2 forward", "sharded serving", *sharded_f32, "exported program",
+                            "exported program pallas_stage"),
         "global_attention_grads": ("training", "bits", *sharded_f32),
         "local_two_phase_grads": ("training", *sharded_f32),
         "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed",
@@ -3415,12 +3821,13 @@ def main() -> int:
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
         "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed",
                       "train_cli ensemble", "ensemble step", *sharded_f32, *sharded_default),
-        "stage_fwd": ("pallas_stage serving",),
-        "attention_block": ("pallas_block serving",),
-        "fused_local_sublayer": ("pallas_fused serving",),
-        "fused_global_sublayer": ("pallas_fused serving",),
-        "transformer_pair": ("pallas_pair serving",),
-        "local_two_phase_rw": ("pallas_rw serving", "pallas_rw training"),
+        "stage_fwd": ("pallas_stage serving", "exported program pallas_stage"),
+        "attention_block": ("pallas_block serving", "exported program pallas_block"),
+        "fused_local_sublayer": ("pallas_fused serving", "exported program pallas_fused"),
+        "fused_global_sublayer": ("pallas_fused serving", "exported program pallas_fused"),
+        "transformer_pair": ("pallas_pair serving", "exported program pallas_pair"),
+        "local_two_phase_rw": ("pallas_rw serving", "pallas_rw training",
+                               "exported program pallas_rw"),
         "head_major_attention": ("attention functions",),
         "rope_attention": ("attention functions",),
         "eventize": ("serving", "file 30 s", "file 300 s", "streaming 300 s", "cli --stream",

@@ -124,8 +124,19 @@ def test_infer_cli_validation_matches_jax_and_writes_midi(env, capsys, tmp_path)
     frames = int(re.search(r"Frame count: (\d+)", out).group(1))
     assert frames > 0
     read_midi_file(mid)
-    with pytest.raises(NotImplementedError, match="utils/visualize.py"):
-        infer_cli.main([str(wav), "--plot"] + common)
+    # --plot draws the stitched probabilities (and shows them: Agg returns).
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    rc, out = run(infer_cli.main, [str(wav), "--plot", "--overlap", "0.1"] + common, capsys)
+    assert rc == 0 and f"Frame count: {frames}" in out
+    (fig,) = [plt.figure(n) for n in plt.get_fignums()]
+    assert fig.axes[0].get_title() == "Probs Inferred probs"
+    assert fig.axes[0].collections[0].get_array().size == frames * 90
+    plt.close("all")
 
 
 def test_audio_to_midi_needs_an_output_without_validation(env, capsys):

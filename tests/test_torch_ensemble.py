@@ -465,9 +465,13 @@ def test_ensemble_evaluation_matches_jax(dataset):
 class _Writer:
     def __init__(self):
         self.scalars = []
+        self.figures = []
 
     def add_scalar(self, tag, value, step):
         self.scalars.append((tag, float(value), step))
+
+    def add_figure(self, tag, figure, step):
+        self.figures.append((tag, step))
 
     def flush(self):
         pass

@@ -1676,3 +1676,108 @@ def test_ring_first_push_lands_after_the_pool_fill_on_card(cuda_device):
     torch.cuda.synchronize()
     assert np.unique(got_audio.cpu().numpy()).tolist() == [3.0]
     assert np.unique(got_labels.cpu().numpy()).tolist() == [3.0]
+
+
+# --- the port at full geometry against the JAX package (chip_smoke phase 16) ---
+
+import importlib.util  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from audio_to_midi_tpu_torch import convert  # noqa: E402
+from audio_to_midi_tpu_torch.config import DEFAULT_CONFIG  # noqa: E402
+
+# The largest |logit difference| over the largest |logit| against the JAX
+# logits of tests/full_geometry_golden.npz, every route on the card: the
+# limits of chip_smoke.py's PARITY_LIMIT, set from the readings beside them
+# there (f32 <= 3.0e-6, bf16 <= 2.8e-2; the broken control 0.14).
+FULL_GEOMETRY_LIMIT = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+FULL_GEOMETRY_ROUTES = {
+    "pallas": ("pallas", "pallas"), "pallas_rw": ("pallas_rw", "pallas"),
+    "pallas_block": ("pallas_block", "pallas"), "pallas_fused": ("pallas_fused", "pallas"),
+    "pallas_pair": ("pallas_pair", "pallas"), "pallas_stage": ("pallas", "pallas_stage"),
+    "xla": ("xla", "xla"),
+}
+
+
+@pytest.fixture(scope="module")
+def full_geometry():
+    """(tests/full_geometry.py loaded by its path, the filled weights, the
+    golden logits)."""
+    spec = importlib.util.spec_from_file_location(
+        "full_geometry", Path(__file__).with_name("full_geometry.py"))
+    fg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fg)
+    shapes = {k: v.shape for k, v in
+              convert.state_dict_to_jax(pt_model.Model(DEFAULT_CONFIG.model).state_dict()).items()}
+    return fg, fg.weights(shapes), np.load(Path(__file__).with_name(fg.GOLDEN))
+
+
+def _full_geometry_error(fg, flat, golden, route: str, dtype, device) -> float:
+    attention, cnn = FULL_GEOMETRY_ROUTES[route]
+    cfg = dataclasses.replace(DEFAULT_CONFIG.model, attention_impl=attention, cnn_impl=cnn)
+    model = pt_model.Model(cfg)
+    model.load_state_dict(convert.jax_to_state_dict(flat), strict=True)
+    model = model.to(device=device, dtype=dtype).eval()
+    x = torch.from_numpy(fg.audio()).to(device=device, dtype=dtype)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            logits, _ = pt_model.forward(model, cfg, x, pt_model.make_rope(cfg, device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    name = "f32" if dtype == torch.float32 else "bf16"
+    return fg.relative_error(logits.float().cpu().numpy(), golden[f"logits_{name}"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", list(FULL_GEOMETRY_ROUTES))
+def test_full_geometry_matches_the_jax_logits_on_card(cuda_device, full_geometry, route, dtype):
+    fg, flat, golden = full_geometry
+    assert _full_geometry_error(fg, flat, golden, route, dtype, cuda_device) <= \
+        FULL_GEOMETRY_LIMIT[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_geometry_limit_rejects_the_broken_control_on_card(cuda_device, full_geometry, dtype):
+    fg, flat, golden = full_geometry
+    broken = fg.rotate_heads(flat, 3, DEFAULT_CONFIG.model.num_transformer_heads)
+    assert _full_geometry_error(fg, broken, golden, "pallas", dtype, cuda_device) > \
+        FULL_GEOMETRY_LIMIT[dtype]
+
+
+def _recorder(calls: dict, name: str, real):
+    """``real`` (an operator), keeping its first call's arguments."""
+    def recorded(*args):
+        calls.setdefault(name, args)
+        return real(*args)
+    return recorded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pallas_rw", "pallas_block", "pallas_fused", "pallas_pair",
+                                   "pallas_stage"])
+def test_kernel_operators_fakes_match_the_kernels_on_card(cuda_device, route, monkeypatch):
+    """Each operator a route calls, on the arguments the bf16 model gives it
+    (the fused layers' padded stack included): its fake implementation's
+    shape, dtype and strides against the CUDA implementation's output."""
+    attention, cnn = FULL_GEOMETRY_ROUTES[route]
+    cfg = dataclasses.replace(DEFAULT_CONFIG.model, attention_impl=attention, cnn_impl=cnn)
+    model = pt_model.Model(cfg, torch.Generator().manual_seed(0)).to(
+        device=cuda_device, dtype=torch.bfloat16).eval()
+    calls = {}
+    for module, name in ((ak, "global_attention_fwd"), (ak, "local_two_phase_fwd"),
+                         (flk, "attention_block_fwd"), (flk, "fused_sublayer_fwd"),
+                         (flk, "transformer_pair_fwd"), (ck, "convnext_stage_fwd")):
+        monkeypatch.setattr(module, name, _recorder(calls, name, getattr(module, name)))
+    x = _randn(2, 2, 80_000, seed=5, device=cuda_device, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        pt_model.forward(model, cfg, x, pt_model.make_rope(cfg, cuda_device))
+    assert calls
+    for name, args in calls.items():
+        torch.library.opcheck(getattr(torch.ops.a2m, name).default, args,
+                              test_utils=("test_schema", "test_faketensor"))

@@ -403,14 +403,13 @@ def test_dropout_folds_keep_index_zero():
 
 
 def test_build_once_barrier_builds_on_rank_zero_only(monkeypatch):
-    from audio_to_midi_tpu_torch.cli import train_cli
     from audio_to_midi_tpu_torch.ops import cuda_build
 
     for rank in (0, 1, 3):
         calls = []
         monkeypatch.setattr(cuda_build, "build", lambda: calls.append("build"))
         mesh = SimpleNamespace(rank=rank, barrier=lambda: calls.append("barrier"))
-        train_cli._build_kernels_once(mesh)
+        pmesh.build_kernels_once(mesh)
         assert calls == (["build", "barrier"] if rank == 0 else ["barrier"])
 
 

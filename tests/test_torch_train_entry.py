@@ -195,10 +195,11 @@ def test_testset_loss_matches_jax(dataset):
         for key in ("loss", "hit_rate", "eventized_diff", "phantom_note_diff",
                     "missed_note_diff"):
             np.testing.assert_allclose(ours[name][key], ref[name][key], rtol=1e-5, err_msg=key)
-        assert ours[name]["visualizations"] == []
+        # Fewer than 30 samples: a figure per sample by default, as in JAX.
+        assert len(ours[name]["visualizations"]) == 1
     loss, hit, eventized, figs = pt_evaluate.compute_testset_loss(model, cfg, dataset, FRAMES,
                                                                  rope)
-    assert loss.shape == hit.shape == eventized.shape == (1,) and figs == []
+    assert loss.shape == hit.shape == eventized.shape == (1,) and len(figs) == len(ours)
     assert 0.0 <= hit[0] <= 1.0
 
 

@@ -190,9 +190,13 @@ def test_a_nan_step_is_skipped_on_the_card_and_reported_a_step_late(caplog):
 class _Writer:
     def __init__(self):
         self.scalars = []
+        self.figures = []
 
     def add_scalar(self, tag, value, step):
         self.scalars.append((tag, float(value), step))
+
+    def add_figure(self, tag, figure, step):
+        self.figures.append((tag, step))
 
     def flush(self):
         pass
@@ -216,6 +220,9 @@ def test_the_ring_loop_runs_with_its_stats_in_step_hook(dataset):
         "train/loss", "train/learning_rate", "train/steps_per_sec", "train/ring_reuse_factor",
         "train/ring_refreshed_windows", "train/ring_filled", "train/test-loss-synth",
         "train/test-hit-rate-synth", "train/test-eventized-diff-synth"}
+    # One evaluation figure per test sample, as the JAX loop adds them.
+    assert writer.figures == [(f"train/test-loss-synth-{i}", 4)
+                              for i in range(len(pt_loader.load_sample_names(dataset)))]
     assert len(seen) == 4 and all(info["ring"] is not None for info in seen)
     assert sum(i["ring"]["interval_sampled_windows"] for i in seen) == 4 * cfg.train.batch_size
     assert seen[-1]["ring"]["pushed_windows"] == 16  # a finite source: epoch-style reuse
