@@ -6,7 +6,8 @@ Usage:
       [--testset NAME=DIR ...] [--checkpoint DIR] [--steps N] [--batch-size N]
       [--ensemble-size E] [--num-workers N] [--learning-rate LR]
       [--precision bf16|f16|f32] [--no-tensorboard] [--config JSON]
-      [--device cuda|cpu] [--coordinator-address HOST:PORT --num-processes N
+      [--device cuda|cpu] [--threaded-loader]
+      [--coordinator-address HOST:PORT --num-processes N
       --process-id I [--dist-backend nccl|gloo]]
 
 The JAX package's flags, with its defaults, and ``--device`` (default
@@ -15,7 +16,10 @@ is given).  Training resumes at the latest checkpoint + 1.
 ``--ensemble-size`` above 1 trains a population, its members in turn, and
 evolves it after each evaluation when it has more than 2 members;
 ``TrainConfig.use_custom_init`` applies the init surgery to each member;
-``--precision f16`` trains with loss scaling.
+``--precision f16`` trains with loss scaling.  The batches come from the
+grain pipeline (``data.loader.GrainLoader``, ``dataset_num_workers`` worker
+processes), as the JAX CLI's do where grain is installed;
+``--threaded-loader`` takes the threaded loader instead.
 
 Several processes (the three multi-host flags, one process per rank, each
 started with its ``--process-id``) join one process group
@@ -25,8 +29,9 @@ counterpart of the transport XLA picks itself, ``nccl`` by default with
 that share one card).  Rank r trains on ``cuda:{r % device_count}``.  The
 ranks form the mesh of ``ensemble_size`` and ``model_parallel_size``
 (``parallel.make_mesh``), each rank's loader yields ``batch_size // world``
-windows with a seed of its own, rank 0 builds the CUDA kernels while the
-others wait, writes the checkpoints and the TensorBoard summaries.
+windows from a stream of its own (seed + 7919 x rank), rank 0 builds the
+CUDA kernels while the others wait, writes the checkpoints and the
+TensorBoard summaries.
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "--device cuda, gloo with --device cpu)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="Device to train on (default: cuda)")
+    p.add_argument("--threaded-loader", action="store_true",
+                   help="Feed from the threaded loader instead of the grain pipeline")
     return p
 
 
@@ -171,6 +178,9 @@ def main(argv=None) -> int:
         output_divisions=num_frames,
         # With augmentation on the device the loader feeds raw windows.
         transform_settings=None if cfg.train.augment_on_device else cfg.transforms,
+        # The JAX package's seeds (42, 0xBEEF) on rank 0.
+        seed=42 + 7919 * rank,
+        use_grain=not args.threaded_loader,
         threaded_seed=0xBEEF + 7919 * rank,
     )
     testset_dirs = {}

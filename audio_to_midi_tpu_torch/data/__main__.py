@@ -35,6 +35,7 @@ def main(argv=None) -> int:
         num_epochs=10**6,
         output_divisions=num_frames,
         transform_settings=settings,
+        use_grain=False,
     )
     with batches:
         for i, (events, audio) in zip(range(args.batches), batches):

@@ -6,22 +6,26 @@ Counterpart of ``audio_to_midi_tpu/data/loader.py``.  When the native C++
 data plane (``native.py``) is built, the decode/cache/rasterize inner loop
 and the host augmentation dispatch to it; otherwise the numpy
 implementations of this package run.  Either path gives the JAX package's
-arrays on the same path.  The JAX package's grain pipeline waits for a
-machine that has ``grain``: :func:`create_dataset_loader` always builds the
-threaded loader, as the JAX one does where grain is missing.
+arrays on the same path.  :func:`create_dataset_loader` builds, as the JAX
+one does where grain is installed, the grain pipeline (:class:`GrainLoader`:
+the same stream of batches, through ``torch.utils.data`` worker processes,
+without grain) or, with ``use_grain=False``, the threaded loader.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import multiprocessing
 import os
 import queue
 import threading
+import time
 from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
+import torch.utils.data
 
 from .. import native
 from ..config import (
@@ -34,6 +38,7 @@ from ..ops.rasterize import rasterize_events_np
 from . import augment
 from .audio_io import NATIVE_SUFFIXES, NO_CACHE, decode_audio, load_full_audio_f16
 from .audio_io import normalize_loudness_np
+from .index_shuffle import index_shuffle_array
 from .labels import parse_events_csv
 
 AUDIO_EXTENSIONS = (".wav", ".aif", ".aac", ".aiff")
@@ -503,13 +508,20 @@ def create_dataset_loader(
     *,
     threaded_seed: int = 0xBEEF,
 ):
-    """The JAX package's signature.  Builds the threaded loader (which the
-    JAX function returns as an iterator; here the loader itself, which
-    iterates and has ``close``): the grain pipeline, whose arguments
-    ``seed`` and ``use_grain`` are, is not ported.  ``threaded_seed`` seeds
-    the threaded loader's order and workers (a rank of a multi-process run
-    takes its own)."""
-    del seed, use_grain
+    """The JAX package's signature and rule where grain is installed: the
+    grain pipeline (:class:`GrainLoader`, ``seed`` its shuffle's) or, with
+    ``use_grain=False``, the threaded loader, which ``threaded_seed`` seeds
+    (the JAX package's 0xBEEF; a rank of a multi-process run takes its own).
+    Either iterates over (events, audio) f16 batches and has ``close``."""
+    if use_grain:
+        return GrainLoader(
+            _GrainBatches(
+                _GrainSource(dataset_dir, output_divisions, sample_rate, duration,
+                             transform_settings),
+                batch_size, num_epochs, seed,
+            ),
+            num_workers,
+        )
     return ThreadedBatchLoader(
         dataset_dir,
         batch_size,
@@ -521,3 +533,147 @@ def create_dataset_loader(
         sample_rate=sample_rate,
         audio_duration=duration,
     )
+
+
+# ---------------------------------------------------------------------------
+# The grain pipeline (JAX data/loader.py:543-620), without grain
+# ---------------------------------------------------------------------------
+
+
+class _GrainSource(torch.utils.data.Dataset):
+    """The JAX package's grain source: mini-batches of ``mini_batch_size``
+    names, permuted once by ``default_rng(0xBEEF)``; item i is the f16
+    (events, audio) windows of mini-batch i, augmented without a seed when
+    ``transform_settings`` is given, as in JAX."""
+
+    def __init__(
+        self, dataset_dir, output_divisions, sample_rate, audio_duration,
+        transform_settings, mini_batch_size=16,
+    ):
+        self.dataset_dir = Path(dataset_dir)
+        self.output_divisions = output_divisions
+        self.sample_rate = sample_rate
+        self.audio_duration = audio_duration
+        self.transform_settings = transform_settings
+        self.mini_batch_size = mini_batch_size
+        rng = np.random.default_rng(0xBEEF)
+        names = load_sample_names(self.dataset_dir)
+        self.all_sample_names = [names[i] for i in rng.permutation(len(names))]
+
+    def __getitem__(self, idx):
+        lo = idx * self.mini_batch_size
+        take = self.all_sample_names[lo : lo + self.mini_batch_size]
+        if self.transform_settings is not None:
+            audio, events, _ = load_events_and_audio_with_transformations(
+                self.dataset_dir, take, self.sample_rate, self.audio_duration,
+                self.output_divisions, self.transform_settings,
+            )
+        else:
+            audio, events, _ = load_events_and_audio(
+                self.dataset_dir, take, self.sample_rate, self.audio_duration,
+                self.output_divisions,
+            )
+        return (
+            np.stack(events).astype(np.float16),
+            np.stack(audio).astype(np.float16),
+        )
+
+    def __len__(self):
+        return max(1, int(len(self.all_sample_names) / self.mini_batch_size))
+
+
+def _shuffle_seed(seed: int) -> int:
+    """The seed grain's ``.seed(seed).repeat(E).shuffle()`` gives its
+    shuffle: a ``SeedSequence`` of the pipeline's seed and the depth, 2, of
+    the ``seed`` node below the shuffle."""
+    return int(np.random.SeedSequence([seed, 2]).generate_state(1, np.uint32)[0])
+
+
+class _GrainBatches(torch.utils.data.Dataset):
+    """Batch j of grain's ``MapDataset.source(source).seed(seed)
+    .repeat(num_epochs).shuffle().batch(batch_size // 16)``: one
+    permutation over all ``len(source) * num_epochs`` mini-batches (so the
+    epochs mix), grouped in order, the last group short; each group's
+    fields concatenated and cropped or zero-padded to ``batch_size``."""
+
+    def __init__(self, source: _GrainSource, batch_size: int, num_epochs: int, seed: int):
+        self.source = source
+        self.batch_size = batch_size
+        self.total = len(source) * num_epochs
+        self.per_batch = max(1, int(batch_size / source.mini_batch_size))
+        self.seed = _shuffle_seed(seed)
+
+    def __len__(self):
+        return math.ceil(self.total / self.per_batch)
+
+    def mini_batches(self, j: int) -> np.ndarray:
+        """The source's mini-batches that make batch ``j``."""
+        stream = np.arange(j * self.per_batch, min((j + 1) * self.per_batch, self.total))
+        return index_shuffle_array(stream, self.total - 1, self.seed) % len(self.source)
+
+    def __getitem__(self, j):
+        if not 0 <= j < len(self):
+            raise IndexError(j)
+        parts = [self.source[int(i)] for i in self.mini_batches(j)]
+        return tuple(self._crop_or_pad(np.concatenate(field)) for field in zip(*parts))
+
+    def _crop_or_pad(self, batched: np.ndarray) -> np.ndarray:
+        if batched.shape[0] < self.batch_size:
+            padded = np.zeros((self.batch_size, *batched.shape[1:]), batched.dtype)
+            padded[: batched.shape[0]] = batched
+            batched = padded
+        return batched[: self.batch_size]
+
+
+class GrainLoader:
+    """The grain pipeline's stream through ``torch.utils.data``: item j of
+    the DataLoader is batch j, taken in order (a sequential sampler, no
+    batching of its own), so any number of workers gives the same stream.
+    ``num_workers`` > 0 decodes in that many worker processes, each with
+    ``prefetch_factor`` 4, as grain's ``prefetch_buffer_size``, kept for the
+    whole run; 0 decodes in this process.  The workers are forked from a
+    forkserver, never from this process: by the time training builds the
+    loader it has initialised CUDA and runs threads.  The server imports
+    the main module and this one (torch with it) once, and serves every
+    later loader of the process, whose workers see the environment it
+    started with (``A2M_DISABLE_NATIVE``, ``SAMPLE_CACHE_DIR``); each loads
+    the native plane on its own.  A worker's exception re-raises from the
+    iteration.  ``first_batch_s``: the wall from ``iter()`` (the workers'
+    start) to the first batch."""
+
+    def __init__(self, batches: _GrainBatches, num_workers: int):
+        self.transform_settings = batches.source.transform_settings
+        self.first_batch_s: Optional[float] = None
+        workers = {}
+        if num_workers > 0:
+            context = multiprocessing.get_context("forkserver")
+            context.set_forkserver_preload(["__main__", __name__])
+            workers = {"multiprocessing_context": context, "prefetch_factor": 4,
+                       "persistent_workers": True}
+        # batch_size=None: the items are whole batches; default_convert hands
+        # them over as tensors (shared memory from a worker).
+        self._loader = torch.utils.data.DataLoader(
+            batches, batch_size=None, shuffle=False, num_workers=num_workers,
+            in_order=True, **workers)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        t0 = time.perf_counter()
+        return self._stream(iter(self._loader), t0)
+
+    def _stream(self, it, t0: float):
+        for events, audio in it:
+            if self.first_batch_s is None:
+                self.first_batch_s = time.perf_counter() - t0
+            yield events.numpy(), audio.numpy()
+
+    def close(self):
+        """Stop the worker processes."""
+        it, self._loader._iterator = self._loader._iterator, None
+        if it is not None:  # persistent workers only
+            it._shutdown_workers()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -117,9 +117,13 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      ones; finite losses, the val set's hit rate in [0, 1], checkpoints on
      disk, a second invocation resuming at latest + 1, the serving CLI on
      the checkpoint directory; the same with input_ring_capacity=0 (host
-     batches augmented on the card); ms per step, the ring's reuse factor,
-     the augmentation's ms and device events per batch (its waves against
-     its sequential plain version, bit for bit) and the peak device memory;
+     batches augmented on the card); both feed from the default loader, the
+     grain pipeline (data.loader.GrainLoader, dataset_num_workers 3 worker
+     processes from a forkserver); the ring run again with --threaded-loader, the
+     same checks; ms per step, the ring's reuse factor, the pipeline
+     workers' start-up wall (to the first batch), the augmentation's ms and
+     device events per batch (its waves against its sequential plain
+     version, bit for bit) and the peak device memory;
      then one step in flight: the ring feed over 12 steps with the loss
      read every step (print_every 1) and every third (print_every 3), in
      turns, ms per step over steps 4-12;
@@ -2177,8 +2181,9 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
     only ``train``'s fields of ``cfg``; its checkpoints go to
     WORK/train_ck_<name>, emptied first unless ``resume``.  Returns the step
     hooks' (step, host clock, launches so far, info), the test-set
-    evaluations, the wall, the launches, the peak device memory and the
-    checkpoint directory; and the spans of the evaluations (host clock,
+    evaluations, the wall, the launches, the peak device memory, the
+    checkpoint directory and the data loader loop.train was given; and the
+    spans of the evaluations (host clock,
     launches before and after) and of the evolutions (host clock), with
     each evolution's step, regenerated members and wall."""
     from audio_to_midi_tpu_torch.cli import train_cli
@@ -2192,11 +2197,12 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
     if not resume:
         shutil.rmtree(ck, ignore_errors=True)
     argv = argv + ["--config", str(cfg_path), "--checkpoint", str(ck), "--no-tensorboard"]
-    hooks, evals, spans, evolutions = [], [], [], []
+    hooks, evals, spans, evolutions, loaders = [], [], [], [], []
     real_train, real_eval = loop.train, loop.compute_testset_loss
     real_evolve = loop.evolve_ensemble_
 
     def traced_train(*args, **kwargs):
+        loaders.append(args[4])
         return real_train(*args, step_hook=lambda step, info: hooks.append(
             (step, time.perf_counter(), read_launches(), info)), **kwargs)
 
@@ -2230,7 +2236,7 @@ def run_train_cli(cfg, name: str, argv: list[str], resume: bool = False, **train
         loop.evolve_ensemble_ = real_evolve
     return {"hooks": hooks, "evals": evals, "spans": spans, "evolutions": evolutions,
             "wall": wall, "launches": read_launches(),
-            "peak": torch.cuda.max_memory_allocated(), "ck": ck}
+            "peak": torch.cuda.max_memory_allocated(), "ck": ck, "loader": loaders[0]}
 
 
 def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
@@ -2244,7 +2250,9 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
     set's hit rate in [0, 1]; checkpoints on disk; a second invocation
     resumes at latest + 1; the serving CLI transcribes phase 4's WAV from
     the checkpoint directory.  Then the same with input_ring_capacity=0
-    (host batches, augmented on the card).  Last, one step in flight: the
+    (host batches, augmented on the card).  Both runs feed from the default
+    loader, the grain pipeline with the config's 3 worker processes; the
+    ring run again with --threaded-loader.  Last, one step in flight: the
     ring feed over 12 steps at print_every 1 (the host reads the loss every
     step) and at print_every 3 (steps 4-5, 7-8, 10-11 leave theirs on the
     card), in turns 1, 3, 3, 1, with the final checkpoint only and no
@@ -2253,6 +2261,7 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
     run's step times (s, steps 2-6)."""
     from audio_to_midi_tpu_torch.cli.audio_to_midi import main as cli_main
     from audio_to_midi_tpu_torch.data import synthetic
+    from audio_to_midi_tpu_torch.data.loader import GrainLoader, ThreadedBatchLoader
     from audio_to_midi_tpu_torch.ops.midi_io import read_midi_file
     from audio_to_midi_tpu_torch.train import checkpoint as ckpt
 
@@ -2270,19 +2279,29 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
                 "global_attention_grads_prng": 16, "local_two_phase_grads_prng": 16,
                 "stage_bwd": 4}
     steps = 6
-    launches, step_times = {}, {}
+    launches, step_times, reuse_by, first_batch = {}, {}, {}, {}
     dataset = ["--dataset", str(train_dir)]
-    for label, ring_capacity in (("ring", cfg.train.input_ring_capacity), ("host feed", 0)):
-        argv = dataset + ["--testset", f"val={val_dir}"]
+    workers = cfg.train.dataset_num_workers
+    if workers != 3:
+        raise AssertionError(f"phase 13 must train on the default 3 loader workers, not {workers}")
+    ring = cfg.train.input_ring_capacity
+    for label, ring_capacity, flags, loader_type in (
+            ("ring", ring, [], GrainLoader), ("host feed", 0, [], GrainLoader),
+            ("ring, threaded loader", ring, ["--threaded-loader"], ThreadedBatchLoader)):
+        argv = dataset + ["--testset", f"val={val_dir}"] + flags
         train = {"num_steps": steps, "print_every": 1, "checkpoint_every": 3,
                  "testset_loss_every": steps, "input_ring_capacity": ring_capacity}
-        run = run_train_cli(cfg, label.replace(" ", "_"), argv, **train)
+        name = label.replace(",", "").replace(" ", "_")
+        run = run_train_cli(cfg, name, argv, **train)
+        if type(run["loader"]) is not loader_type:
+            raise AssertionError(f"{label}: trained on a {type(run['loader']).__name__}, "
+                                 f"not a {loader_type.__name__}")
+        first_batch[label] = getattr(run["loader"], "first_batch_s", None)
         launches[f"train_cli {label}"] = run["launches"]
         first, evals, ck = run["hooks"], run["evals"], run["ck"]
         latest = ckpt.CheckpointManager(ck).latest_step()
-        resumed = [h[0] for h in run_train_cli(cfg, label.replace(" ", "_"),
-                                               argv + ["--steps", str(steps + 1)], resume=True,
-                                               **train)["hooks"]]
+        resumed = [h[0] for h in run_train_cli(cfg, name, argv + ["--steps", str(steps + 1)],
+                                               resume=True, **train)["hooks"]]
 
         if [h[0] for h in first] != list(range(1, steps + 1)) or resumed != [latest + 1]:
             raise AssertionError(f"{label}: steps {[h[0] for h in first]}, resumed at {resumed} "
@@ -2307,6 +2326,7 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
         times = [b[1] - a[1] for a, b in zip(first, first[1:])]
         step_times[label] = times
         reuse = [h[3]["ring"]["reuse_factor"] for h in first if h[3]["ring"] is not None]
+        reuse_by[label] = reuse
         log(f"train_cli {label}, default config (batch 64 = 2 x 32, bf16, dropout 0.1, "
             f"cnn_bwd_kernel): {steps} steps in {run['wall']:.1f} s (build, fill and evaluation "
             f"included); per step {_quartiles(times)} over steps 2-{steps}; losses "
@@ -2318,6 +2338,13 @@ def check_training_entry(cfg, card: str) -> dict[str, dict[str, int]]:
             f"{float(hit[0]):.4f}, eventized diff {float(eventized[0]):.1f}; checkpoints "
             f"{on_disk}, resumed at {resumed[0]}; peak device memory "
             f"{run['peak'] / 2**30:.2f} GiB; on {card}")
+    log(f"train_cli loaders, default config, ring feed, steps 2-{steps}: grain pipeline "
+        f"({workers} worker processes) per step {_quartiles(step_times['ring'])}, reuse factor "
+        + ", ".join(f"{r:.2f}" for r in reuse_by["ring"])
+        + f", workers' start-up {first_batch['ring']:.2f} s to the first batch (host feed run "
+        f"{first_batch['host feed']:.2f} s); threaded loader ({workers} threads) per step "
+        f"{_quartiles(step_times['ring, threaded loader'])}, reuse factor "
+        + ", ".join(f"{r:.2f}" for r in reuse_by["ring, threaded loader"]) + f"; on {card}")
 
     in_flight_steps = 12
     walls = {1: [], 3: []}

@@ -174,7 +174,7 @@ def test_threaded_batch_loader_is_jaxs(dataset, monkeypatch, native, transforms)
 
 def test_create_dataset_loader_builds_the_threaded_loader(dataset):
     loader = pt_loader.create_dataset_loader(dataset, batch_size=2, num_workers=0, num_epochs=3,
-                                             duration=0.5, output_divisions=50)
+                                             duration=0.5, output_divisions=50, use_grain=False)
     assert isinstance(loader, pt_loader.ThreadedBatchLoader)
     with loader:
         batches = list(loader)

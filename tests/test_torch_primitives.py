@@ -252,14 +252,15 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 54, names
+        assert len(names) >= 55, names
         assert {"audio_to_midi_tpu_torch.train." + m for m in ("loss", "optim", "step")} <= set(names)
         assert "audio_to_midi_tpu_torch.ops.fused_layer_kernels" in names
         assert {"audio_to_midi_tpu_torch." + m for m in (
-            "native", "data.loader", "data.device_ring", "data.augment_device", "train.loop",
-            "train.checkpoint", "train.evaluate", "cli.train_cli", "train.ensemble",
-            "train.init_surgery", "cli.infer_cli", "cli.copy_weights",
-            "cli.inspect_model", "parallel.mesh", "parallel.tp", "export", "modelutil",
+            "native", "data.loader", "data.index_shuffle", "data.device_ring",
+            "data.augment_device", "train.loop", "train.checkpoint", "train.evaluate",
+            "cli.train_cli", "train.ensemble", "train.init_surgery", "cli.infer_cli",
+            "cli.copy_weights", "cli.inspect_model", "parallel.mesh", "parallel.tp", "export",
+            "modelutil",
             "utils.profiling", "utils.visualize")
         } <= set(names)
         leaked = sorted(m for m in sys.modules
