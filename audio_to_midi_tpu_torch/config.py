@@ -4,7 +4,8 @@ Mirrors the sections of ``audio_to_midi_tpu.config`` (``model``, ``data``,
 ``precision``, ``train``, ``infer``, ``transforms``) with dtypes kept as the
 strings ``"f32"``/``"bf16"``/``"f16"``.  :func:`config_from_json` reads the
 JSON that the JAX package's ``config_to_json`` writes, and
-:func:`config_to_json` writes it.
+:func:`config_to_json` writes it; :func:`config_from_metadata` rebuilds a
+``Config`` from a checkpoint's metadata.
 
 Scheduling knobs that only mean something to XLA on a TPU
 (``*_scan_unroll``, ``*_remat``, ``fast_dropout_rng``,
@@ -304,3 +305,31 @@ def load_config(path: str | Path | None) -> Config:
     if path is None:
         return DEFAULT_CONFIG
     return config_from_json(Path(path).read_text())
+
+
+def config_from_metadata(meta: dict[str, Any]) -> Config:
+    """Rebuild a Config from checkpoint metadata, the inverse of
+    :meth:`Config.metadata`: the keys and defaults of the JAX package's
+    ``config_from_metadata`` (the misspelt ``"midi_voccab_size"`` among
+    them); every field they do not name keeps its default."""
+    m = meta.get("model", {})
+    d = meta.get("data_prep", {})
+    model = ModelConfig(
+        dims=tuple(m.get("dims", ModelConfig.dims)),
+        depths=tuple(m.get("depths", ModelConfig.depths)),
+        cnn_hidden_expansion=m.get("cnn_hidden_expansion", 2.0),
+        num_transformer_layers=m.get("num_transformer_layers", 8),
+        num_transformer_heads=m.get("num_transformer_heads", 4),
+        attention_size=m.get("attention_size", 64),
+        compressed_attention_q_size=m.get("compressed_attention_q_size", 64),
+        compressed_attention_kv_size=m.get("compressed_attention_kv_size", 64),
+        transformer_dropout_rate=m.get("transformer_dropout_rate", 0.1),
+        transformer_hidden_expansion=m.get("transformer_hidden_expansion", 2.0),
+        sdd_rate=m.get("sdd_rate", 0.1),
+    )
+    data = DataConfig(
+        midi_vocab_size=d.get("midi_voccab_size", MIDI_EVENT_VOCAB_SIZE),
+        model_audio_length=d.get("max_event_timestamp", MODEL_AUDIO_LENGTH),
+        num_velocity_categories=d.get("num_velocity_categories", NUM_VELOCITY_CATEGORIES),
+    )
+    return Config(model=model, data=data)

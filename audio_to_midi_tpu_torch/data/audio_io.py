@@ -19,6 +19,7 @@ the source rate (python.rs:183-191) and ffmpeg's ``-ar`` resample.
 
 from __future__ import annotations
 
+import math
 import shutil
 import struct
 import subprocess
@@ -279,6 +280,32 @@ def normalize_loudness_np(samples: np.ndarray) -> np.ndarray:
         return samples.astype(np.float32)
     variance = float(np.mean(np.square(samples, dtype=np.float64)))
     return (samples * np.sqrt(1.0 / variance)).astype(np.float32)
+
+
+def _write_extended80(value: float) -> bytes:
+    """Encode a positive float as an 80-bit IEEE extended float (the AIFF
+    sample rate field), the inverse of :func:`_read_extended80`."""
+    if value == 0:
+        return b"\x00" * 10
+    mantissa, exponent = math.frexp(value)  # value = mantissa * 2**exponent
+    # The integer mantissa has its top bit (bit 63) set.
+    return struct.pack(">HQ", exponent + 16383 - 1, int(mantissa * (1 << 64)))
+
+
+def write_aiff(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:
+    """Write (channels, N) float32 as 16-bit big-endian PCM AIFF, clipped to
+    [-1, 1] and scaled by 32767: a COMM chunk, then an SSND chunk.  The
+    fixture writer beside :func:`write_wav` for the reference's ``.aif``
+    datasets (python.rs:412-421)."""
+    x = np.clip(samples, -1.0, 1.0)
+    pcm = (x.T * 32767.0).astype(">i2").tobytes()
+    channels, nframes = samples.shape
+    comm = struct.pack(">HIH", channels, nframes, 16) + _write_extended80(float(sample_rate))
+    ssnd = struct.pack(">II", 0, 0) + pcm
+    body = (b"AIFF"
+            + b"COMM" + struct.pack(">I", len(comm)) + comm
+            + b"SSND" + struct.pack(">I", len(ssnd)) + ssnd)
+    Path(path).write_bytes(b"FORM" + struct.pack(">I", len(body)) + body)
 
 
 def write_wav(path: str | Path, samples: np.ndarray, sample_rate: int) -> None:

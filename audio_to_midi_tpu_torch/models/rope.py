@@ -4,7 +4,9 @@ Counterpart of ``audio_to_midi_tpu/models/rope.py``.  The q/k up-projection
 weights are stored with each head's output columns already permuted to
 [0, 2, 4, ..., 1, 3, 5, ...] (the JAX package does that at init and at
 checkpoint import), so the rotation acts on contiguous halves.  The port
-reads those weights as they are and never permutes them again.
+reads those weights as they are and never permutes them again; the
+interleaved form :func:`apply_rope` and :func:`permute_qk_weight_for_rope`
+are kept for weights in the reference's layout.
 """
 
 from __future__ import annotations
@@ -28,6 +30,19 @@ def rope_permutation(head_dim: int) -> np.ndarray:
     perm[:half] = np.arange(half) * 2
     perm[half:] = np.arange(half) * 2 + 1
     return perm
+
+
+def permute_qk_weight_for_rope(w, num_heads: int):
+    """Permute a (in, H*hd) q/k up-projection weight (a numpy array or a
+    tensor) into the halves layout: each head's output columns reordered by
+    :func:`rope_permutation`."""
+    in_dim, out = w.shape
+    hd = out // num_heads
+    perm = rope_permutation(hd)
+    if isinstance(w, torch.Tensor):
+        perm = torch.from_numpy(perm).to(w.device)
+    w = w.reshape(in_dim, num_heads, hd)
+    return w[..., perm].reshape(in_dim, out)
 
 
 def precompute_frequencies(
@@ -58,3 +73,17 @@ def apply_rope_halves(x: torch.Tensor, rope: RopeFreqs) -> torch.Tensor:
     """RoPE over the sequence axis (-3) of x: (..., S, H, hd), positions 0..S-1."""
     seq_len = x.shape[-3]
     return rope_with(x, rope.cos[:seq_len], rope.sin[:seq_len])
+
+
+def apply_rope(x: torch.Tensor, rope: RopeFreqs) -> torch.Tensor:
+    """RoPE on interleaved channel pairs (2j, 2j + 1), the reference's
+    layout: x (..., S, H, hd), positions 0..S-1 over axis -3, computed in
+    float32 and cast back to x's dtype.  Equal to :func:`apply_rope_halves`
+    on the channels permuted by :func:`rope_permutation`."""
+    seq_len = x.shape[-3]
+    cos = rope.cos[:seq_len][:, None, :]
+    sin = rope.sin[:seq_len][:, None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rotated.flatten(-2).to(x.dtype)

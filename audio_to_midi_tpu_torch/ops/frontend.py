@@ -2,9 +2,10 @@
 slicing.
 
 Counterpart of ``make_windows``, ``slice_full_audio``, ``normalize_loudness``,
-``resample_poly`` and ``prepare_windows`` in
-``audio_to_midi_tpu/ops/frontend.py``.  They run
-on whatever device the samples lie on.
+``resample_poly``, ``prepare_windows`` and ``fft_audio`` in
+``audio_to_midi_tpu/ops/frontend.py``.  They run on whatever device the
+samples lie on.  ``split_training_windows`` is the numpy host helper of the
+same file.
 """
 
 from __future__ import annotations
@@ -29,6 +30,28 @@ def normalize_loudness(samples: torch.Tensor) -> torch.Tensor:
     return (x * adjustment).to(samples.dtype)
 
 
+def split_training_windows(samples: np.ndarray,
+                           window_size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Non-overlapping training splits with the reference's drop rule.
+
+    samples: (2, N) numpy ->
+      windows: (S, 2, window_size), zero-padded,
+      keep:    (S,) bool, True iff the split has MORE than half real samples
+               (python.rs:517),
+      backing: (S,) int, the number of real (not padded) samples per split.
+    """
+    n = samples.shape[1]
+    num_splits = max(1, math.ceil(n / window_size))
+    out = np.zeros((num_splits, 2, window_size), samples.dtype)
+    backing = np.zeros((num_splits,), np.int64)
+    for s in range(num_splits):
+        start = s * window_size
+        take = min(window_size, n - start)
+        out[s, :, :take] = samples[:, start:start + take]
+        backing[s] = take
+    return out, backing > window_size // 2, backing
+
+
 def make_windows(samples: torch.Tensor, window_size: int, overlap_samples: int) -> torch.Tensor:
     """(2, N) -> (W, 2, window_size) overlapping windows, the last zero-padded.
 
@@ -51,6 +74,27 @@ def slice_full_audio(samples: torch.Tensor, sample_rate: int, window_duration: f
     audio_to_midi_dataset.py:277-294)."""
     window_size = round(window_duration * sample_rate)
     return make_windows(samples, window_size, round(overlap * sample_rate)), window_duration
+
+
+def fft_audio(signal: torch.Tensor, window_size: int, overlap: float = 0.5) -> torch.Tensor:
+    """The legacy spectrogram (reference audio_to_midi_dataset.py:58-107),
+    kept for tooling: the whole input read as one sequence, whole frames
+    every ``window_size * (1 - overlap)`` samples under the window
+    exp(-0.001 n), the complex abs taken by hand and scaled by 1/180.
+    Returns (window_size // 2 + 1, frames) on the signal's device."""
+    if window_size & (window_size - 1):
+        raise ValueError("window_size must be a power of 2")
+    hop = int(window_size * (1 - overlap))
+    sig = signal.reshape(-1)
+    window = torch.exp(torch.arange(window_size, device=sig.device, dtype=torch.float32)
+                       * -0.001)
+    if sig.numel() < window_size:  # no whole frame
+        return sig.new_zeros((window_size // 2 + 1, 0),
+                             dtype=torch.promote_types(sig.dtype, window.dtype))
+    frames = sig.unfold(0, window_size, hop) * window
+    fft = torch.fft.rfft(frames, dim=-1)
+    absolute = torch.sqrt(fft.real.square() + fft.imag.square())
+    return absolute.T / 180.0
 
 
 def _kaiser_sinc_filter(num_taps: int, cutoff: float, beta: float = 8.0) -> np.ndarray:

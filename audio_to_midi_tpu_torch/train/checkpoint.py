@@ -29,6 +29,7 @@ import warnings
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -97,6 +98,12 @@ class CheckpointManager:
     def restore(self, step: int) -> tuple[dict, dict]:
         d = self.directory / str(step)
         return load_npz(d / PARAMS_FILE), json.loads((d / STATE_FILE).read_text())
+
+
+def score_by_checkpoint_metrics(metrics: dict) -> float:
+    """Mean of the metric values, as a Python float: the reference's
+    (commented) best-checkpoint score (train.py:468-470)."""
+    return float(np.mean(np.array(list(metrics.values()))))
 
 
 def _write_json(path: Path, value: Any) -> None:

@@ -159,7 +159,18 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX.  Phases:
      transcribe_file over 2 data ranks on phase 4's WAV against one rank;
      ms per step per layout beside phase 13's, the peak device memory per
      rank and one gradient all-reduce over gloo (the ranks share one card:
-     the port's overheads, not scaling).
+     the port's overheads, not scaling);
+ 16. a. export.py: the default model's programs at f32, bf16 and f16, run
+     in a fresh process, every route's nodes, opcheck of each a2m::* op;
+     b. the full-geometry parity against the JAX package
+     (tests/full_geometry_golden.npz): every route's logits, f32 and bf16;
+     c. the same at ConvNeXt layer scale 1, where the blocks weigh
+     (tests/full_geometry_blocks_golden.npz): every route's logits, and the
+     digest of the training loss's gradients on the default route (kernels
+     7, 9 and 20 launched), without the stage-backward kernel and on "xla",
+     f32 and bf16, the controls (rotated query heads, stage 5's taps
+     reversed) outside every limit; d. the serving CLI on 2 ranks, a trace,
+     modelutil and the figures.
 Phase 2 also holds kernels 11, 18 and 17 against their plain versions at the
 serving shapes, beside the same layer by the default "pallas" route (torch
 LayerNorm and products, kernels 1 and 2: many calls, not one), kernels 6, 3
@@ -286,6 +297,29 @@ PARITY_LIMIT = {"f32": 2e-5, "bf16": 5e-2}
 # the plain formulations everywhere.
 ROUTES = ("pallas", "pallas_rw", "pallas_block", "pallas_fused", "pallas_pair", "pallas_stage",
           "xla")
+# Phase 16c's parity at ConvNeXt layer scale 1
+# (tests/full_geometry_blocks_golden.npz): the logits as above, and
+# tests/full_geometry.grad_error of the digest of the training loss's
+# gradients, on the routes of GRAD_ROUTES.
+# Read on an H100 (NVIDIA H100 80GB HBM3, 700.00 W): logits f32 1.48e-6 to
+# 1.79e-6 on the 7 routes, bf16 3.23e-2 to 3.99e-2; gradients f32 4.22e-6
+# to 6.68e-6 on the 3 routes of GRAD_ROUTES, bf16 0.553 to 0.588 (the worst
+# leaves in stage 0, where 39 blocks' bf16 rounding piles up: JAX's own bf16
+# gradients lie 0.87 from its f32 ones, its bf16 logits 0.063).  The
+# controls read f32 3.2e-2 / 0.68 (logits) and 0.26 / 2.1 (gradients), bf16
+# 0.27 / 0.67 and 2.4 / 2.9.  f32 limits ~4x the readings, bf16 ~1.4x.
+BLOCKS_PARITY_LIMIT = {"f32": 8e-6, "bf16": 6e-2}
+GRAD_PARITY_LIMIT = {"f32": 3e-5, "bf16": 0.8}
+# One global layer's rotated query heads moves the bf16 readings no further
+# than bf16's own spread (0.043 / 0.59 on the H100), so bf16 takes every
+# layer's heads rotated as its control, and logs this one unjudged.
+UNJUDGED = "global layer 3's query heads rotated (inside bf16's spread, not judged)"
+# The routes a training step takes: name -> (attention_impl, cnn_impl,
+# cnn_bwd_kernel).  "pallas" is the default: kernels 1, 2 forward, 7, 9
+# and 20 backward.
+GRAD_ROUTES = {"pallas": ("pallas", "pallas", True),
+               "pallas without the stage-backward kernel": ("pallas", "pallas", False),
+               "xla": ("xla", "xla", False)}
 ROUTE_NODES = {  # the a2m::* nodes of a route's program, per transformer pair
     "pallas": {"global_attention_fwd": 1, "local_two_phase_fwd": 1},
     "pallas_rw": {"global_attention_fwd": 1, "local_two_phase_fwd": 1},
@@ -3546,53 +3580,184 @@ def full_geometry_case() -> types.ModuleType:
     return module
 
 
+def full_geometry_weights(model_lib, cfg, fg, layer_scale: float) -> dict[str, np.ndarray]:
+    from audio_to_midi_tpu_torch import convert
+
+    shapes = {k: v.shape for k, v in
+              convert.state_dict_to_jax(model_lib.Model(cfg.model).state_dict()).items()}
+    return fg.weights(shapes, layer_scale=layer_scale)
+
+
+def full_geometry_model(model_lib, run_cfg, weights, dtype: torch.dtype):
+    """The port's model of ``run_cfg`` on the card, loaded with the flat JAX
+    ``weights`` and cast to ``dtype``."""
+    from audio_to_midi_tpu_torch import convert
+
+    m = model_lib.Model(run_cfg.model)
+    m.load_state_dict(convert.jax_to_state_dict(weights), strict=True)
+    return m.to(device="cuda", dtype=dtype)
+
+
+def logits_error(model_lib, m, run_cfg, fg, golden, name: str) -> float:
+    """The largest |logit difference| over the largest |logit| of the
+    full-geometry forward of ``m`` (in ``name``'s dtype) on ``run_cfg``'s
+    route against ``golden``'s JAX logits."""
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+
+    dt = DTYPES[name]
+    x = torch.from_numpy(fg.audio()).cuda().to(dt)
+    with torch.inference_mode(), _parity_precision(dt):
+        logits, _ = model_lib.forward(m, run_cfg.model, x,
+                                      model_lib.make_rope(run_cfg.model, "cuda"))
+    return fg.relative_error(logits.float().cpu().numpy(), golden[f"logits_{name}"])
+
+
+def grad_digest(model_lib, m, run_cfg, fg, name: str) -> tuple[dict, float]:
+    """The digest (tests/full_geometry.grad_digest) of the gradients of the
+    training loss of ``m`` (f32 parameters) on the card: the forward in
+    ``name``'s dtype on ``run_cfg``'s route, no dropout, scale 1, the seeded
+    labels; and the loss."""
+    from audio_to_midi_tpu_torch import convert
+    from audio_to_midi_tpu_torch.infer import _parity_precision
+    from audio_to_midi_tpu_torch.train import loss as loss_lib
+
+    for p in m.parameters():
+        p.grad = None
+    with _parity_precision(DTYPES[name]):
+        loss = loss_lib.batch_loss(m, run_cfg.model, torch.from_numpy(fg.audio()).cuda(),
+                                   torch.from_numpy(fg.labels()).cuda(),
+                                   model_lib.make_rope(run_cfg.model, "cuda"), 1.0, DTYPES[name],
+                                   enable_dropout=False)
+        loss.backward()
+    grads = convert.state_dict_to_jax({n: p.grad for n, p in m.named_parameters()})
+    if not all(np.isfinite(g).all() for g in grads.values()):
+        raise AssertionError(f"a {name} gradient is not finite on {run_cfg.model.attention_impl}")
+    return fg.grad_digest(grads), loss.item()
+
+
+def judge(what: str, readings: dict, broken: dict, limit: dict) -> None:
+    """Raise unless every reading ((route, dtype) -> error) lies within its
+    dtype's ``limit`` and every control ((control, dtype) -> error) outside."""
+    bad = {k: v for k, v in readings.items() if v > limit[k[1]]}
+    if bad:
+        raise AssertionError(f"{what} outside the limits {limit}: {bad}")
+    caught = {k: v for k, v in broken.items() if v <= limit[k[1]] and k[0] != UNJUDGED}
+    if caught:
+        raise AssertionError(f"the limits {limit} of {what} do not catch the controls {caught}")
+
+
+def full_geometry_logits(model_lib, cfg, fg, golden, flat, controls: dict, limit: dict,
+                         what: str) -> None:
+    """The full-geometry logits of ``flat`` on every route of ``ROUTES`` in f32
+    and bf16 against ``golden``'s JAX logits within ``limit``, and each of
+    ``controls`` (dtype -> name -> broken weights, on the default route)
+    outside it."""
+    readings, broken = {}, {}
+    for name in ("f32", "bf16"):
+        m = full_geometry_model(model_lib, cfg, flat, DTYPES[name]).eval()
+        for route in ROUTES:
+            readings[(route, name)] = logits_error(model_lib, m, route_cfg(cfg, route), fg, golden,
+                                                   name)
+        for c, w in controls[name].items():
+            broken[(c, name)] = logits_error(
+                model_lib, full_geometry_model(model_lib, cfg, w, DTYPES[name]).eval(), cfg, fg,
+                golden, name)
+        log(f"{what} {name} against JAX (max |dlogit| / max |logit|, limit "
+            f"{limit[name]:.0e}): " + ", ".join(f"{r} {readings[(r, name)]:.3e}" for r in ROUTES)
+            + "; controls (pallas) "
+            + ", ".join(f"{c} {v:.3e}" for (c, n), v in broken.items() if n == name))
+    judge(what, readings, broken, limit)
+
+
 def check_full_geometry(model_lib, cfg, card: str) -> None:
     """Phase 16b: the full-geometry parity against the JAX package (the case
     of tests/full_geometry.py, the JAX logits of its golden file) on every
     route in f32 and bf16, and the broken control outside the limits."""
-    from audio_to_midi_tpu_torch import convert
-    from audio_to_midi_tpu_torch.infer import _parity_precision
-
     fg = full_geometry_case()
+    flat = full_geometry_weights(model_lib, cfg, fg, fg.LAYER_SCALE_INIT)
+    control = {"global layer 3's query heads rotated":
+               fg.rotate_heads(flat, 3, cfg.model.num_transformer_heads)}
+    full_geometry_logits(model_lib, cfg, fg, np.load(ROOT / "tests" / fg.GOLDEN), flat,
+                         {"f32": control, "bf16": control}, PARITY_LIMIT, "full-geometry parity")
 
-    golden = np.load(ROOT / "tests" / fg.GOLDEN)
-    shapes = {k: v.shape for k, v in
-              convert.state_dict_to_jax(model_lib.Model(cfg.model).state_dict()).items()}
-    flat = fg.weights(shapes)
 
-    def build(weights, dt):
-        m = model_lib.Model(cfg.model)
-        m.load_state_dict(convert.jax_to_state_dict(weights), strict=True)
-        return m.to(device="cuda", dtype=dt).eval()
+def blocks_controls(cfg, fg, flat) -> dict[str, dict[str, dict[str, np.ndarray]]]:
+    """Phase 16c's broken controls by dtype.  One global layer's rotated
+    query heads move the logits at layer scale 1 by ~0.03 of the largest,
+    inside bf16's own spread, so bf16 takes every layer's heads rotated and
+    reads that one unjudged (``UNJUDGED``)."""
+    heads, layers = cfg.model.num_transformer_heads, cfg.model.num_transformer_layers
+    one_layer, taps = fg.rotate_heads(flat, 3, heads), fg.reverse_taps(flat)
+    return {"f32": {"global layer 3's query heads rotated": one_layer,
+                    "stage 5's taps reversed": taps},
+            "bf16": {"every layer's query heads rotated": fg.rotate_every_head(flat, layers, heads),
+                     "stage 5's taps reversed": taps, UNJUDGED: one_layer}}
 
-    def rel(m, run_cfg, name):
-        dt = DTYPES[name]
-        x = torch.from_numpy(fg.audio()).cuda().to(dt)
-        with torch.inference_mode(), _parity_precision(dt):
-            logits, _ = model_lib.forward(m, run_cfg.model, x,
-                                          model_lib.make_rope(run_cfg.model, "cuda"))
-        return fg.relative_error(logits.float().cpu().numpy(), golden[f"logits_{name}"])
 
-    readings = {}
+def full_geometry_grads(model_lib, cfg, fg, golden, flat, controls: dict):
+    """Phase 16c's gradient readings: each route of ``GRAD_ROUTES`` and each
+    control (on the default route) against the JAX digest of ``golden``, f32
+    and bf16, logged.  Returns (readings, controls' readings, the launches
+    of the default route)."""
+    from audio_to_midi_tpu_torch import convert
+
+    paths = sorted(convert.state_dict_to_jax(model_lib.Model(cfg.model).state_dict()))
+    meta = json.loads(str(golden["meta"]))
+    launches = dict.fromkeys(read_launches(), 0)
+    readings, broken = {}, {}
+    m = full_geometry_model(model_lib, cfg, flat, torch.float32).train()
     for name in ("f32", "bf16"):
-        m = build(flat, DTYPES[name])
-        for route in ROUTES:
-            readings[(route, name)] = rel(m, route_cfg(cfg, route), name)
-        control = rel(build(fg.rotate_heads(flat, 3, cfg.model.num_transformer_heads),
-                            DTYPES[name]), cfg, name)
-        log(f"full-geometry parity {name} against JAX (max |dlogit| / max |logit|, limit "
-            f"{PARITY_LIMIT[name]:.0e}): "
-            + ", ".join(f"{r} {readings[(r, name)]:.3e}" for r in ROUTES)
-            + f"; control (global layer 3's query heads rotated, pallas) {control:.3e}")
-        if control <= PARITY_LIMIT[name]:
-            raise AssertionError(f"the {name} parity limit does not catch the broken control")
-    bad = {k: v for k, v in readings.items() if v > PARITY_LIMIT[k[1]]}
-    if bad:
-        raise AssertionError(f"full-geometry parity outside the limits: {bad}")
+        want = fg.golden_digest(golden, name)
+        for route, (attention, cnn, bwd_kernel) in GRAD_ROUTES.items():
+            run_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, attention_impl=attention, cnn_impl=cnn, cnn_bwd_kernel=bwd_kernel))
+            reset_launches()
+            got, loss = grad_digest(model_lib, m, run_cfg, fg, name)
+            counted = read_launches()
+            if route == "pallas":
+                launches = {k: launches[k] + v for k, v in counted.items()}
+            readings[(route, name)], leaf = fg.grad_error(got, want)
+            log(f"full-geometry gradients {name}, {route}: loss {loss:.4f} (JAX "
+                f"{meta['loss'][name]:.4f}), worst leaf {paths[leaf]} "
+                f"{readings[(route, name)]:.3e} (limit {GRAD_PARITY_LIMIT[name]:.0e}); launches "
+                + str({k: v for k, v in counted.items() if v}))
+        for c, w in controls[name].items():
+            broken[(c, name)], leaf = fg.grad_error(grad_digest(
+                model_lib, full_geometry_model(model_lib, cfg, w, torch.float32).train(), cfg, fg,
+                name)[0], want)
+            log(f"full-geometry gradients {name}, control {c} (pallas): "
+                f"{broken[(c, name)]:.3e} at {paths[leaf]}")
+    return readings, broken, launches
+
+
+def check_full_geometry_blocks(model_lib, cfg, card: str) -> dict[str, dict[str, int]]:
+    """Phase 16c: the full-geometry parity at ConvNeXt layer scale 1, where
+    the blocks weigh (tests/full_geometry_blocks_golden.npz): the logits on
+    every route, and the digest of the training loss's gradients on every
+    route a training step takes, in f32 and bf16 against JAX's; the broken
+    controls outside every limit.  Returns the launches of the default
+    route's gradients, which must include kernels 7, 9 and 20."""
+    fg = full_geometry_case()
+    golden = np.load(ROOT / "tests" / fg.BLOCKS_GOLDEN)
+    flat = full_geometry_weights(model_lib, cfg, fg, fg.BLOCKS_LAYER_SCALE)
+    controls = blocks_controls(cfg, fg, flat)
+    spread = fg.grad_error(fg.golden_digest(golden, "bf16"), fg.golden_digest(golden, "f32"))[0]
+    log("full-geometry parity at layer scale 1: JAX's own bf16 against its f32, logits "
+        f"{fg.relative_error(golden['logits_bf16'], golden['logits_f32']):.3e}, gradients "
+        f"{spread:.3e}")
+    full_geometry_logits(model_lib, cfg, fg, golden, flat, controls, BLOCKS_PARITY_LIMIT,
+                         "full-geometry parity at layer scale 1")
+    readings, broken, launches = full_geometry_grads(model_lib, cfg, fg, golden, flat, controls)
+    judge("full-geometry gradients", readings, broken, GRAD_PARITY_LIMIT)
+    missing = [k for k in ("local_two_phase_grads", "global_attention_grads", "stage_bwd")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the default route's gradients never launched {missing}")
+    return {"full-geometry grads": launches}
 
 
 def check_serving_tools(model_lib, cfg, model, card: str) -> None:
-    """Phase 16c: the serving CLI on two ranks (torchrun, gloo on the one
+    """Phase 16d: the serving CLI on two ranks (torchrun, gloo on the one
     card) against one rank's MIDI byte for byte; a trace of one forward and
     one capture on demand; modelutil against infer on the 30 s file; --plot
     and --visualize-audio."""
@@ -3745,8 +3910,11 @@ def check_export_and_tools(model_lib, cfg, model, card: str) -> dict[str, dict[s
     check_full_geometry(model_lib, cfg, card)
     log(f"phase 16b took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    paths |= check_full_geometry_blocks(model_lib, cfg, card)
+    log(f"phase 16c took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_serving_tools(model_lib, cfg, model, card)
-    log(f"phase 16c took {time.perf_counter() - t0:.1f} s; phase 16 took "
+    log(f"phase 16d took {time.perf_counter() - t0:.1f} s; phase 16 took "
         f"{time.perf_counter() - started:.1f} s")
     return paths
 
@@ -3830,12 +3998,12 @@ def main() -> int:
     on_path = {
         "global_attention": ("serving", "training", "serving a member", "phase 14 clis",
                              "tp2 forward", "sharded serving", *sharded_f32, "exported program",
-                             "exported program pallas_stage"),
+                             "exported program pallas_stage", "full-geometry grads"),
         "local_two_phase": ("serving", "training", "serving a member", "phase 14 clis",
                             "tp2 forward", "sharded serving", *sharded_f32, "exported program",
-                            "exported program pallas_stage"),
-        "global_attention_grads": ("training", "bits", *sharded_f32),
-        "local_two_phase_grads": ("training", *sharded_f32),
+                            "exported program pallas_stage", "full-geometry grads"),
+        "global_attention_grads": ("training", "bits", *sharded_f32, "full-geometry grads"),
+        "local_two_phase_grads": ("training", *sharded_f32, "full-geometry grads"),
         "global_attention_dropout": ("dropout", "train_cli ring", "train_cli host feed",
                                      "train_cli ensemble", "ensemble step", *sharded_default),
         "local_two_phase_dropout": ("dropout", "train_cli ring", "train_cli host feed",
@@ -3847,7 +4015,8 @@ def main() -> int:
         "global_attention_dropout_bits": ("bits",), "local_two_phase_dropout_bits": ("bits",),
         "local_two_phase_grads_bits": ("bits",), "philox_bits": ("bits",),
         "stage_bwd": ("default-config training", "train_cli ring", "train_cli host feed",
-                      "train_cli ensemble", "ensemble step", *sharded_f32, *sharded_default),
+                      "train_cli ensemble", "ensemble step", *sharded_f32, *sharded_default,
+                      "full-geometry grads"),
         "stage_fwd": ("pallas_stage serving", "exported program pallas_stage"),
         "attention_block": ("pallas_block serving", "exported program pallas_block"),
         "fused_local_sublayer": ("pallas_fused serving", "exported program pallas_fused"),
