@@ -39,6 +39,7 @@ from .ops.eventize import extract_events
 from .ops.frontend import make_windows, prepare_windows
 from .ops.stitch import stitch_chunk, stitch_chunk_plan, stitch_probs_parallel
 from .parallel.mesh import DATA_AXIS, Mesh
+from .utils.profiling import recording, span
 
 log = logging.getLogger(__name__)
 
@@ -148,11 +149,16 @@ def predict_and_stitch_fused(
 ) -> torch.Tensor:
     """The model forward on (W, 2, N) windows, then the crossfade stitch:
     (frames, 90) float32 on the windows' device.  ``valid_windows``: where
-    the batch is padded, only its first ``valid_windows`` windows stitch."""
-    with _parity_precision(_param(model).dtype):
-        probs = _predict_windows(model, cfg, windows, rope).float()
-    if valid_windows is not None and valid_windows < probs.shape[0]:
-        probs = probs[:valid_windows]
+    the batch is padded, only its first ``valid_windows`` windows stitch.
+    The windows are cast to the model's dtype.  Spans: ``model.forward``
+    (windows), then ``ops.stitch``."""
+    dtype = _param(model).dtype
+    with span("model.forward") as s:
+        s.add("windows", windows.shape[0])
+        with _parity_precision(dtype):
+            probs = _predict_windows(model, cfg, windows.to(dtype), rope).float()
+        if valid_windows is not None and valid_windows < probs.shape[0]:
+            probs = probs[:valid_windows]
     return stitch_probs_parallel(probs, overlap, window_duration / probs.shape[1])
 
 
@@ -166,18 +172,34 @@ def transcribe_samples_fused(
     normalization -> windows -> model -> crossfade stitch.  The model and
     the windows run in ``cfg.precision.compute_dtype``; where that is not
     the model's dtype a cast copy of the model runs, and ``model`` stays as
-    it is."""
-    param = _param(model)
-    dst_rate = cfg.data.sample_rate
-    window_size = round(window_duration * dst_rate)
-    overlap_samples = round(overlap * dst_rate)
-    windows = prepare_windows(torch.as_tensor(samples).to(param.device), src_rate, dst_rate,
-                              window_size, overlap_samples)
-    compute = DTYPES[cfg.precision.compute_dtype]
-    if param.dtype != compute:
-        model = model_lib.cast_params(copy.deepcopy(model), compute)
-    return predict_and_stitch_fused(model, cfg.model, windows.to(compute), rope,
-                                    window_duration, overlap)
+    it is.
+
+    Span ``serve.transcribe`` (audio samples in, per channel) over
+    ``frontend.h2d`` (bytes), the frontend's spans, ``serve.cast_model``
+    (leaves and bytes cast; only where the dtypes differ), ``model.forward``
+    and ``ops.stitch``."""
+    with span("serve.transcribe") as root:
+        root.add("samples", samples.shape[-1])
+        param = _param(model)
+        dst_rate = cfg.data.sample_rate
+        window_size = round(window_duration * dst_rate)
+        overlap_samples = round(overlap * dst_rate)
+        with span("frontend.h2d") as s:
+            audio = torch.as_tensor(samples)
+            s.add("bytes", audio.nbytes)
+            audio = audio.to(param.device)
+        windows = prepare_windows(audio, src_rate, dst_rate, window_size, overlap_samples)
+        del audio   # the recording on the device: free before the forward
+        compute = DTYPES[cfg.precision.compute_dtype]
+        if param.dtype != compute:
+            with span("serve.cast_model") as s:
+                model = model_lib.cast_params(copy.deepcopy(model), compute)
+                if s.on:
+                    leaves = [*model.parameters(), *model.buffers()]
+                    s.add("leaves", len(leaves))
+                    s.add("bytes", sum(t.nbytes for t in leaves))
+        return predict_and_stitch_fused(model, cfg.model, windows, rope, window_duration,
+                                        overlap)
 
 
 def _predict_sharded(model, cfg: ModelConfig, windows: torch.Tensor, rope: RopeFreqs,
@@ -192,23 +214,17 @@ def _predict_sharded(model, cfg: ModelConfig, windows: torch.Tensor, rope: RopeF
     return mesh.all_gather(local, DATA_AXIS).flatten(0, 1)
 
 
-class _Stages:
-    """Seconds per named stage into ``times`` (when given), each stage ended
-    by a device synchronization so that it holds its own work; without
-    ``times`` nothing synchronizes."""
-
-    def __init__(self, times: dict | None, device: torch.device):
-        self.times, self.device = times, device
-        self.t = time.perf_counter()
-
-    def end(self, name: str) -> None:
-        if self.times is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + now - self.t
-        self.t = now
+@contextlib.contextmanager
+def _stage(times: dict | None, name: str, device: torch.device):
+    """Span ``file.<name>``; with ``times``, it ends by synchronizing the
+    device, so that it holds its own work, and its seconds go into
+    ``times[name]``."""
+    with span("file." + name) as s:
+        yield
+        if times is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if times is not None:
+        times[name] = times.get(name, 0.0) + s.ns / 1e9
 
 
 def transcribe_file(
@@ -234,27 +250,52 @@ def transcribe_file(
     (then None is returned in their place), come back to the host.
 
     ``stage_times``: a dict that receives the seconds of each stage
-    (decode, transfer, window, model_stitch, eventize, fetch).  Each stage
-    then ends by synchronizing the device, so the stages do not overlap;
-    without it nothing synchronizes but the fetches.
+    (decode, transfer, window, model_stitch, eventize, fetch), read from
+    the spans ``file.<stage>`` under ``file.transcribe``, which are then on
+    (``utils/profiling.recording``).  Each stage then ends by synchronizing
+    the device, so the stages do not overlap; without it nothing
+    synchronizes but the fetches.
 
     ``mesh``: with more than one rank along ``"data"`` (every rank calls,
     with the same model), the chunk size is rounded to the data extent,
     each chunk is zero-padded to whole shards, and each rank runs its share
     of every chunk; every rank returns the same stitched array and events.
     """
+    on = recording() if stage_times is not None else contextlib.nullcontext()
+    with on, span("file.transcribe"):
+        param = _param(model)
+        device, dtype = param.device, param.dtype
+        window_duration = cfg.data.model_audio_length
+        with _stage(stage_times, "decode", device):
+            raw = torch.from_numpy(load_full_audio_f16(input_file, cfg.data.sample_rate))
+        with _stage(stage_times, "transfer", device):
+            raw = raw.to(device)
+        with _stage(stage_times, "window", device):
+            window_size = round(window_duration * cfg.data.sample_rate)
+            overlap_samples = round(overlap * cfg.data.sample_rate)
+            windows = make_windows(raw, window_size, overlap_samples).to(dtype)
+        with _stage(stage_times, "model_stitch", device):
+            stitched = _model_stitch(model, cfg, windows, rope, overlap, max_windows_per_batch,
+                                     mesh)
+        # Reuse the rounded window_size from above: int() truncation could land
+        # one sample short and yield a different frame count than the windows the
+        # model actually saw, skewing every MIDI timestamp by one frame's worth.
+        duration_per_frame = window_duration / cfg.model.output_frames(window_size)
+        with _stage(stage_times, "eventize", device):
+            events = extract_events(stitched)
+        with _stage(stage_times, "fetch", device):
+            stitched_np = stitched.cpu().numpy() if fetch_stitched else None
+        return stitched_np, duration_per_frame, events
+
+
+def _model_stitch(model, cfg: Config, windows: torch.Tensor, rope: RopeFreqs | None,
+                  overlap: float, max_windows_per_batch: int, mesh: Mesh | None) -> torch.Tensor:
+    """:func:`transcribe_file`'s windows through the model, in chunks of up
+    to ``max_windows_per_batch`` (over the mesh's ``"data"`` ranks where it
+    has several), then stitched."""
     param = _param(model)
     device, dtype = param.device, param.dtype
-    stages = _Stages(stage_times, device)
     window_duration = cfg.data.model_audio_length
-    raw = torch.from_numpy(load_full_audio_f16(input_file, cfg.data.sample_rate))
-    stages.end("decode")
-    raw = raw.to(device)
-    stages.end("transfer")
-    window_size = round(window_duration * cfg.data.sample_rate)
-    overlap_samples = round(overlap * cfg.data.sample_rate)
-    windows = make_windows(raw, window_size, overlap_samples).to(dtype)
-    stages.end("window")
     rope = rope if rope is not None else model_lib.make_rope(cfg.model, device)
     num_windows = windows.shape[0]
     data = 1 if mesh is None else mesh.extent(DATA_AXIS)
@@ -273,12 +314,9 @@ def transcribe_file(
                 if pad:
                     chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
                 chunks.append(_predict_sharded(model, cfg.model, chunk, rope, mesh)[:take])
-        all_probs = torch.cat(chunks)
-        stitched = stitch_probs_parallel(all_probs, overlap,
-                                         window_duration / all_probs.shape[1])
     elif num_windows <= max_windows_per_batch:
-        stitched = predict_and_stitch_fused(model, cfg.model, windows, rope, window_duration,
-                                            overlap, valid_windows=num_windows)
+        return predict_and_stitch_fused(model, cfg.model, windows, rope, window_duration,
+                                        overlap, valid_windows=num_windows)
     else:
         chunks = []
         with _parity_precision(dtype):
@@ -289,19 +327,8 @@ def transcribe_file(
                     pad = chunk.new_zeros((max_windows_per_batch - take, *chunk.shape[1:]))
                     chunk = torch.cat([chunk, pad])
                 chunks.append(_predict_windows(model, cfg.model, chunk, rope)[:take].float())
-        all_probs = torch.cat(chunks)
-        stitched = stitch_probs_parallel(all_probs, overlap,
-                                         window_duration / all_probs.shape[1])
-    stages.end("model_stitch")
-    # Reuse the rounded window_size from above: int() truncation could land
-    # one sample short and yield a different frame count than the windows the
-    # model actually saw, skewing every MIDI timestamp by one frame's worth.
-    duration_per_frame = window_duration / cfg.model.output_frames(window_size)
-    events = extract_events(stitched)
-    stages.end("eventize")
-    stitched_np = stitched.cpu().numpy() if fetch_stitched else None
-    stages.end("fetch")
-    return stitched_np, duration_per_frame, events
+    all_probs = torch.cat(chunks)
+    return stitch_probs_parallel(all_probs, overlap, window_duration / all_probs.shape[1])
 
 
 # Frames an event's release must lie inside the emitted prefix to be final:

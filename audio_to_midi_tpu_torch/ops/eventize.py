@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 
 ACTIVATION_THRESHOLD = np.float32(0.5)
@@ -180,27 +181,38 @@ def extract_events(probs, real_velocity: bool = False) -> list[Event]:
     state come back to the host in one copy.  Velocity is 7 (the
     reference's constant); ``real_velocity=True`` takes round(10 * the
     note's peak probability), clipped to [1, 10], from a host copy of the
-    probabilities, as the JAX package does."""
-    fired, attack, duration, final_active, final_started = extract_events_dense(probs)
-    num_frames, num_keys = fired.shape
-    rows = _event_rows(fired, attack, duration)
-    host = torch.cat([rows.reshape(-1), final_active.to(torch.int32), final_started]).cpu()
-    host = host.numpy()
-    table = host[: rows.numel()].reshape(-1, 3)
-    active = host[rows.numel() : rows.numel() + num_keys].astype(bool)
-    started = host[rows.numel() + num_keys :]
-    final = np.nonzero(active)[0]
-    notes = np.concatenate([table, np.stack([started[final], final,
-                                            np.maximum(num_frames - started[final], 1)], 1)])
-    attack, key, length = notes.T.astype(np.int64)
-    velocity = np.full(len(notes), FIXED_VELOCITY, np.int64)
-    if real_velocity:
-        p = (probs.float().cpu().numpy() if isinstance(probs, torch.Tensor)
-             else np.asarray(probs, np.float32))
-        for i, (a, k, d) in enumerate(zip(attack, key, length)):
-            peak = float(p[a : a + d, k].max()) if d > 0 else 0.0
-            velocity[i] = int(np.clip(round(peak * 10), 1, 10))
-    events = np.stack([attack, key, length, velocity], 1)
-    # Tuples sort by attack, then key, duration, velocity: lexsort's last key first.
-    events = events[np.lexsort((velocity, length, key, attack))]
-    return list(map(tuple, events.tolist()))
+    probabilities, as the JAX package does.
+
+    Span ``eventize`` (frames, notes) over ``eventize.kernel`` (the dense
+    pass and the rows), ``eventize.fetch`` (the one copy to the host) and
+    ``eventize.host`` (the note table, its sort and the tuples)."""
+    with span("eventize") as s:
+        with span("eventize.kernel"):
+            fired, attack, duration, final_active, final_started = extract_events_dense(probs)
+            num_frames, num_keys = fired.shape
+            rows = _event_rows(fired, attack, duration)
+            packed = torch.cat([rows.reshape(-1), final_active.to(torch.int32), final_started])
+        with span("eventize.fetch"):
+            host = packed.cpu().numpy()
+        with span("eventize.host"):
+            table = host[: rows.numel()].reshape(-1, 3)
+            active = host[rows.numel() : rows.numel() + num_keys].astype(bool)
+            started = host[rows.numel() + num_keys :]
+            final = np.nonzero(active)[0]
+            notes = np.concatenate([table, np.stack([started[final], final,
+                                                    np.maximum(num_frames - started[final], 1)], 1)])
+            attack, key, length = notes.T.astype(np.int64)
+            velocity = np.full(len(notes), FIXED_VELOCITY, np.int64)
+            if real_velocity:
+                p = (probs.float().cpu().numpy() if isinstance(probs, torch.Tensor)
+                     else np.asarray(probs, np.float32))
+                for i, (a, k, d) in enumerate(zip(attack, key, length)):
+                    peak = float(p[a : a + d, k].max()) if d > 0 else 0.0
+                    velocity[i] = int(np.clip(round(peak * 10), 1, 10))
+            events = np.stack([attack, key, length, velocity], 1)
+            # Tuples sort by attack, then key, duration, velocity: lexsort's last key first.
+            events = events[np.lexsort((velocity, length, key, attack))]
+            events = list(map(tuple, events.tolist()))
+        s.add("frames", num_frames)
+        s.add("notes", len(events))
+        return events

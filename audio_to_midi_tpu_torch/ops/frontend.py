@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 
 def normalize_loudness(samples: torch.Tensor) -> torch.Tensor:
     """Unit-variance normalization over both channels with a silence guard.
@@ -120,43 +122,51 @@ def resample_poly(x: torch.Tensor, up: int, down: int, taps_per_phase: int = 16)
     ``resample_poly`` (another filter and edge layout); the host decoder
     uses scipy's, as the JAX package's does.
     """
-    g = math.gcd(up, down)
-    up, down = up // g, down // g
-    if up == 1 and down == 1:
-        return x
-    num_taps = taps_per_phase * up
-    h = _kaiser_sinc_filter(num_taps, 0.5 / max(up, down)) * np.float32(up)
-    reversed_h = h[::-1]
-    pad = num_taps // 2
-    *lead, n = x.shape
-    out_len = math.ceil(n * up / down)
-    # Output m = q * up + r: its first tap on a stuffed sample is j0(r) =
-    # (pad - r * down) mod up, on input sample start(r) + q * down.
-    r = np.arange(up)
-    j0 = (pad - r * down) % up
-    start = (r * down + j0 - pad) // up  # exact: the numerator is a multiple of up
-    q_len = -(-out_len // up)
-    weights = np.stack([reversed_h[j0 + t * up] for t in range(taps_per_phase)])  # (taps, up)
-    lo = max(0, -int(start.min()))
-    hi = max(0, int(start.max()) + (q_len - 1) * down + taps_per_phase - n)
-    xf = F.pad(x.reshape(-1, n).float(), (lo, hi))
-    first = torch.as_tensor(
-        (lo + start)[None, :] + down * np.arange(q_len)[:, None], device=x.device
-    )  # (q_len, up): the input index of each output's first tap
-    w = torch.as_tensor(weights, device=x.device)
-    y = xf[:, first] * w[0]
-    for t in range(1, taps_per_phase):
-        y = y + xf[:, first + t] * w[t]
-    return y.reshape(y.shape[0], -1)[:, :out_len].reshape(*lead, out_len).to(x.dtype)
+    with span("frontend.resample") as s:
+        g = math.gcd(up, down)
+        up, down = up // g, down // g
+        if up == 1 and down == 1:
+            return x
+        num_taps = taps_per_phase * up
+        h = _kaiser_sinc_filter(num_taps, 0.5 / max(up, down)) * np.float32(up)
+        reversed_h = h[::-1]
+        pad = num_taps // 2
+        *lead, n = x.shape
+        out_len = math.ceil(n * up / down)
+        # Output m = q * up + r: its first tap on a stuffed sample is j0(r) =
+        # (pad - r * down) mod up, on input sample start(r) + q * down.
+        r = np.arange(up)
+        j0 = (pad - r * down) % up
+        start = (r * down + j0 - pad) // up  # exact: the numerator is a multiple of up
+        q_len = -(-out_len // up)
+        weights = np.stack([reversed_h[j0 + t * up] for t in range(taps_per_phase)])  # (taps, up)
+        lo = max(0, -int(start.min()))
+        hi = max(0, int(start.max()) + (q_len - 1) * down + taps_per_phase - n)
+        xf = F.pad(x.reshape(-1, n).float(), (lo, hi))
+        with span("frontend.resample_table") as table:
+            first = torch.as_tensor(
+                (lo + start)[None, :] + down * np.arange(q_len)[:, None], device=x.device
+            )  # (q_len, up): the input index of each output's first tap
+            table.add("bytes", first.nbytes)
+        w = torch.as_tensor(weights, device=x.device)
+        y = xf[:, first] * w[0]
+        for t in range(1, taps_per_phase):
+            y = y + xf[:, first + t] * w[t]
+        s.add("samples", out_len)
+        return y.reshape(y.shape[0], -1)[:, :out_len].reshape(*lead, out_len).to(x.dtype)
 
 
 def prepare_windows(samples: torch.Tensor, src_rate: int, dst_rate: int, window_size: int,
                     overlap_samples: int) -> torch.Tensor:
     """Resample to ``dst_rate`` -> loudness normalization -> overlapping
     model windows, all on the samples' device.  (2, N) -> (W, 2,
-    window_size) float32."""
+    window_size) float32.  Spans: ``frontend.resample`` (output samples per
+    channel; its child ``frontend.resample_table``, the bytes of the index
+    table built on the host and copied), ``frontend.windows`` (windows)."""
     x = samples.float()
     if src_rate != dst_rate:
         x = resample_poly(x, dst_rate, src_rate)
-    x = normalize_loudness(x)
-    return make_windows(x, window_size, overlap_samples)
+    with span("frontend.windows") as s:
+        windows = make_windows(normalize_loudness(x), window_size, overlap_samples)
+        s.add("windows", windows.shape[0])
+    return windows

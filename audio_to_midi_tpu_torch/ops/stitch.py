@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def stitch_plan(
     num_windows: int, frames_per_window: int, overlap: float, duration_per_frame: float
@@ -73,20 +75,23 @@ def stitch_probs_parallel(
     whole sequence is one chunk of :func:`stitch_chunk`, all blends at once,
     and the rows past the last owned one are zero.  Where windows advance by
     no more than the blend width the precondition fails and the sequential
-    stitcher runs.
+    stitcher runs.  Span ``ops.stitch`` (frames out).
     """
-    num_windows, fpw, e = all_probs.shape
-    try:
-        d, own, output_frames, ov = stitch_chunk_plan(
-            num_windows, fpw, overlap, duration_per_frame)
-    except ValueError:
-        return stitch_probs(all_probs, overlap, duration_per_frame)
-    owned = stitch_chunk(all_probs.new_zeros((fpw, e)), all_probs, d=d, own=own, ov=ov,
-                         first=True)
-    out = torch.zeros((output_frames, e), dtype=torch.float32, device=all_probs.device)
-    n = min(output_frames, owned.shape[0])
-    out[:n] = owned[:n]
-    return out
+    with span("ops.stitch") as s:
+        num_windows, fpw, e = all_probs.shape
+        try:
+            d, own, output_frames, ov = stitch_chunk_plan(
+                num_windows, fpw, overlap, duration_per_frame)
+        except ValueError:
+            out = stitch_probs(all_probs, overlap, duration_per_frame)
+        else:
+            owned = stitch_chunk(all_probs.new_zeros((fpw, e)), all_probs, d=d, own=own, ov=ov,
+                                 first=True)
+            out = torch.zeros((output_frames, e), dtype=torch.float32, device=all_probs.device)
+            n = min(output_frames, owned.shape[0])
+            out[:n] = owned[:n]
+        s.add("frames", out.shape[0])
+        return out
 
 
 # --- streaming (chunked) stitching, bit for bit the batch stitcher's rows ---

@@ -1,0 +1,23 @@
+"""Host-clock time of the audio's copy to the card per recording, over the
+traced cycle: the program's span ``frontend.h2d`` (a pageable copy of the
+(2, N) float32 array) over the calls of its root ``serve.transcribe``.  The
+spans are on only while the profiler records, which stretches the host."""
+
+LAYER = "serving entry"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "audio_s_per_s"
+
+
+def read(ctx):
+    if ctx["trace"] is None:   # spans are recorded in the traced cycle only
+        return None
+    try:
+        from audio_to_midi_tpu_torch.utils.profiling import summary
+    except ImportError:   # a program without the span recorder
+        return None
+    spans = summary()
+    calls = spans.get("serve.transcribe", {}).get("calls", 0)
+    if not calls or "frontend.h2d" not in spans:
+        return None
+    return spans["frontend.h2d"]["total_ns"] / calls / 1e6

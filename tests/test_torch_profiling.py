@@ -1,19 +1,16 @@
-"""``utils/profiling.py`` against the JAX package's: a trace is written and
-parses, ``annotate`` names its spans in it, ``StepTimer`` gives JAX's EMA
-on the same ticks, and one ``start_server`` / ``capture`` round from
-another process writes a trace on the CPU."""
+"""``utils/profiling.py``'s exporters: a trace is written and parses,
+``annotate`` names its spans in it, and one ``start_server`` / ``capture``
+round from another process writes a trace on the CPU."""
 
 import json
 import socket
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import pytest
 import torch
 
-from audio_to_midi_tpu.utils import profiling as jax_profiling
 from audio_to_midi_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -33,18 +30,6 @@ def test_trace_writes_a_trace_that_names_the_annotated_spans(tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "a2m.test_span" in names and "aten::mm" in names
-
-
-def test_step_timer_matches_jax_on_the_same_ticks(monkeypatch):
-    ticks = [0.0, 0.5, 0.75, 1.5, 1.6, 3.0]
-    results = []
-    for module in (profiling, jax_profiling):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = module.StepTimer(alpha=0.2)
-        results.append(([timer.tick() for _ in ticks], timer.steps_per_sec))
-    assert results[0] == results[1]
-    assert results[0][0][0] is None and results[0][1] == pytest.approx(1 / results[0][0][-1])
 
 
 def test_capture_on_demand_from_another_process(tmp_path):
