@@ -90,7 +90,7 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # Pointers (inputs, mask sources, outputs), ints, the scale, dtype code, stream.
     entries = {
         "a2m_global_attention": [ptr] * 6 + [i32] * 7 + [f32, i32, ptr],
@@ -118,6 +118,9 @@ def library() -> ctypes.CDLL:
         "a2m_transformer_pair": [ptr] * 5 + [i32] * 9 + [f32, i32, ptr],
         # p, fired, attack, duration, final_active, final_started, workspace; N, K; stream.
         "a2m_eventize": [ptr] * 7 + [i32] * 2 + [ptr],
+        # x, weights, y; channels, N, out_len; up, down, taps, pad, threads, outputs
+        # a block; stream.
+        "a2m_resample": [ptr] * 3 + [i64] * 3 + [i32] * 6 + [ptr],
     }
     for name, argtypes in entries.items():
         getattr(lib, name).argtypes = argtypes

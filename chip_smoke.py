@@ -180,7 +180,12 @@ it runs kernel 2's body), F.scaled_dot_product_attention and rope + kernel 1
 each with its gradient through autograd on the card, kernel 10 also at S =
 496 with block 16, and the eventizer's kernel (not a TPU kernel: it takes
 the place of the JAX package's lax.scan) on a seeded 15,000 x 90 array
-against the numpy eventizer, bit for bit, timed beside it.  Phase 6's
+against the numpy eventizer, bit for bit, timed beside it, and the
+resampler's kernel (not a TPU kernel: the JAX package's resampler is an XLA
+convolution) against its plain version on the card, bit for bit, at the
+benchmark ladder's 60 s and 1200 s stereo shapes at 44.1 -> 16 kHz, at 48,
+22.05 and 8 -> 16 kHz and at edge lengths, timed beside its bound and the
+plain version at 1200 s, one launch per prepare_windows.  Phase 6's
 plain comparator is "pallas" with the seeded dropout wrappers replaced, in
 this script only, by their plain versions on the plain Philox bytes of the
 same seed: "xla" drops at the exact rate, as the JAX einsum route does.
@@ -350,10 +355,10 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port, the attention ones first."""
     from audio_to_midi_tpu_torch.ops import attention_kernels, convnext_kernels, eventize
-    from audio_to_midi_tpu_torch.ops import fused_layer_kernels
+    from audio_to_midi_tpu_torch.ops import frontend, fused_layer_kernels
 
     return (attention_kernels.KERNELS + convnext_kernels.KERNELS + fused_layer_kernels.KERNELS
-            + eventize.KERNELS)
+            + eventize.KERNELS + frontend.KERNELS)
 
 
 def reset_launches() -> None:
@@ -977,6 +982,7 @@ def check_kernels(ak, ck, train_minibatch: int) -> dict[str, dict]:
         if abs(keep - p_keep) > 4 * sigma:
             raise AssertionError("the mask bytes do not keep at 230/256")
     check_eventize(results)
+    check_resample(results)
     return results
 
 
@@ -1031,6 +1037,77 @@ def check_eventize(results: dict) -> None:
     results[f"eventize N={frames} f32"] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                            "library_ms": None,
                                            "extract_events_ms": sorted(walls)[5], **bound_}
+
+
+def check_resample(results: dict) -> None:
+    """Phase 2, the resampler's kernel (csrc/resample.cu: it replaces no TPU
+    kernel, the JAX package's resampler being an XLA convolution) against
+    its plain version on the card, bit for bit (torch.equal), on seeded
+    noise: the ladder's 60 s and 1200 s stereo at 44.1 -> 16 kHz; 30 s at
+    48, 22.05 and 8 -> 16 kHz (the last upsamples); at each of the four
+    rates the lengths 1, up - 1 and the first that takes one output past a
+    block of the kernel; an input 4 bytes off 16-byte alignment; a (2, 2, N)
+    input; 11 taps a phase (weights read tap by tap).  At 1200 s: the
+    kernel's time by CUDA events beside its bound (the input read and the
+    output written once over the memory rate) and the plain version's (its
+    host table included).  prepare_windows launches it once a call.  No one
+    PyTorch call computes the same filter and edges."""
+    from audio_to_midi_tpu_torch.ops import frontend
+
+    def noise(*shape, seed):
+        return randn(*shape, seed=seed, dtype=torch.float32) * 0.3
+
+    def same(label, x, src, taps=16):
+        g = math.gcd(16_000, src)
+        up, down = 16_000 // g, src // g
+        got = frontend.resample(x, up, down, taps)
+        ref = frontend.resample_poly_plain(x, up, down, taps)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"resample {label}: the kernel differs from the plain version")
+
+    cases = 0
+    for seconds in (60, 1200):
+        same(f"{seconds} s 44.1 kHz", noise(2, seconds * 44_100, seed=seconds), 44_100)
+        cases += 1
+    for src in (48_000, 22_050, 8_000):
+        same(f"30 s {src} Hz", noise(2, 30 * src, seed=src), src)
+        cases += 1
+    edges = []
+    for src in (44_100, 48_000, 22_050, 8_000):
+        g = math.gcd(16_000, src)
+        up, down = 16_000 // g, src // g
+        block = frontend.resample_geometry(up, down)[1]
+        past = block * down // up + 1  # the first N with an output past the first block
+        for n in sorted({1, max(1, up - 1), past}):
+            same(f"N={n} {src} Hz", noise(2, n, seed=n), src)
+            edges.append((src, n))
+            cases += 1
+    flat = noise(2 * 30 * 44_100 + 1, seed=3)
+    same("4 bytes off alignment", flat[1:].view(2, -1), 44_100)
+    same("(2, 2, N)", noise(2, 2, 10 * 44_100, seed=4), 44_100)
+    same("11 taps a phase", noise(2, 10 * 44_100 + 7, seed=5), 44_100, taps=11)
+    cases += 3
+
+    x = noise(2, 1200 * 44_100, seed=1200)
+    ms = time_ms(lambda: frontend.resample(x, 160, 441), iters=20)
+    plain_ms = time_ms(lambda: frontend.resample_poly_plain(x, 160, 441), iters=3, warmup=1)
+    out = -(-x.shape[1] * 160 // 441)
+    moved = (x.numel() + 2 * out) * 4
+    bound_ = {"bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    before = frontend.resample.launches
+    frontend.prepare_windows(x[:, : 60 * 44_100], 44_100, 16_000, 80_000, 8_000)
+    torch.cuda.synchronize()
+    per_call = frontend.resample.launches - before
+    log(f"kernel resample (2, {x.shape[1]}) 44.1 -> 16 kHz f32: identical to the plain version "
+        f"True in {cases} cases (60 s, 1200 s; 48, 22.05, 8 kHz; edge lengths {edges}; "
+        f"misaligned; (2, 2, N); 11 taps); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{bound_['bound_ms']:.4f} ms by bytes ({bound_['bound_ms'] / ms:.1%} of it); "
+        f"launches per prepare_windows {per_call}")
+    if per_call != 1:
+        raise AssertionError(f"prepare_windows launched the resampler {per_call} times")
+    results["resample 1200 s f32"] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                      "library_ms": None, **bound_}
 
 
 def check_fused_kernels(flk, model_lib, cfg) -> dict[str, dict]:
@@ -4030,6 +4107,7 @@ def main() -> int:
                      "native file 300 s", "train_cli ring", "train_cli host feed",
                      "cli from a training checkpoint", "train_cli ensemble",
                      "serving a member", "phase 14 clis", "sharded serving"),
+        "resample": ("fused 30 s",),
     }
     if set(on_path) != set(read_launches()):
         raise AssertionError("a kernel wrapper has no main path that drives it")
@@ -4082,6 +4160,9 @@ def main() -> int:
     # Not a Pallas kernel: the eventizer's lax.scan, which XLA compiles.
     sources["eventize"] = ("eventize.cu", "eventize.py:43 extract_events_dense (lax.scan)",
                            f"eventize N={EVENT_FRAMES} f32")
+    # Not a Pallas kernel: the resampler's convolution, which XLA compiles.
+    sources["resample"] = ("resample.cu", "frontend.py:172 resample_poly (lax conv)",
+                           "resample 1200 s f32")
     # Where a kernel's products live apart from its entry: the tensor-core
     # product of kernels 20 and 19 and of the fused layers, whose device code
     # is in fused_layer_impl.cuh.
